@@ -1,0 +1,15 @@
+"""CUDA kernels for the paper's compute hot spots (sm_90a, csrc/).
+
+stockham.py       -- block FFT (csrc/block_fft.cu) + its plain torch version
+stockham_abft.py  -- + fused two-sided ABFT (csrc/abft_fft.cu), one CTA per
+                     checksum group looping over its transactions
+ops.py            -- public entry points (fft / ifft / ft_fft)
+ref.py            -- torch.fft oracles for the tests
+_build.py         -- nvcc at first use, ctypes loading
+"""
+from . import ops, ref
+from .ops import fft, ifft, ft_fft, FTFFTResult
+from repro_torch.core.fft.api import FFTSpec, FTConfig, plan
+
+__all__ = ["ops", "ref", "fft", "ifft", "ft_fft", "FTFFTResult",
+           "FFTSpec", "FTConfig", "plan"]
