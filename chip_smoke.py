@@ -36,6 +36,47 @@ FT_TRANSACTIONS = 4
 SEU_STEPS = 8
 
 
+ABFT_PARTS = ("y", "delta", "X.e2", "X.e3", "Y.e2", "Y.e3")
+
+
+def delta_noise(delta_clean):
+    """The roundoff scale of a clean call's per-signal divergence: 4x its
+    largest value in the plain version (all zeros without per-signal
+    checksums: then the dtype's epsilon, so the kernel must write ~0)."""
+    import torch
+    eps = torch.finfo(delta_clean.dtype).eps
+    return 4.0 * max(delta_clean.abs().max().item(), eps)
+
+
+def abft_vs_plain(got, want, dtype, noise, what):
+    """Hold the fused kernel's ``(y, delta, cs)`` against its plain version
+    part by part; returns ``{part: (max abs err, err / tol)}``.
+
+    y: ATOL * max|y|. Each checksum row [X.e2, X.e3, Y.e2, Y.e3] of each
+    group g: ATOL * max_n |row[g]| -- per row, because the e3 rows grow
+    with the 1-based signal id and one tolerance over all of them would
+    hide a wrong small row. delta, elementwise: 1e-3 * |plain| (the
+    injected signal's divergence is large) plus ``noise``, the roundoff
+    scale of clean signals.
+    """
+    y, delta, cs = got
+    yp, dp, csp = want
+    out = {}
+
+    def hold(part, err, tol):
+        ratio = (err / tol).max().item()
+        out[part] = (err.max().item(), ratio)
+        check(ratio <= 1.0, f"{what} {part}: err {err.max().item()} "
+                            f"(worst {ratio:.3g} x tol)")
+
+    hold("y", (y - yp).abs().max(), ATOL[dtype] * yp.abs().max())
+    for j, part in enumerate(ABFT_PARTS[2:]):
+        hold(part, (cs[j] - csp[j]).abs().amax(-1),
+             ATOL[dtype] * csp[j].abs().amax(-1))
+    hold("delta", (delta - dp).abs(), 1e-3 * dp.abs() + noise)
+    return {k: out[k] for k in ABFT_PARTS}
+
+
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -52,7 +93,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from repro_torch.core.fft import FFTSpec, FTConfig, make_plan, plan
+    from repro_torch.core.fft import FFTSpec, FTConfig, plan
     from repro_torch.core.ft import poisson_schedule
     from repro_torch.kernels import _build
     from repro_torch.kernels.stockham import block_fft, block_fft_plain
@@ -108,11 +149,24 @@ def main() -> int:
     block_fft.launches = 0
     abft_fft.launches = 0
     path_rows = []
+    per_call = {"block_fft": {}, "abft_fft": {}}   # launches of one call
+
+    def count_call(label, fn):
+        before = (block_fft.launches, abft_fft.launches)
+        out = fn()
+        per_call["block_fft"][label] = block_fft.launches - before[0]
+        per_call["abft_fft"][label] = abft_fft.launches - before[1]
+        return out
+
     for dtype, logn, b in FFT_CASES:
         n = 1 << logn
         x = randn((b, n), dtype)
         p = plan(FFTSpec(shape=(b, n), dtype=dtype))
-        y = p.fft(x)
+        label = f"plan.fft {dtype} 2^{logn}x{b}"
+        y = count_call(label, lambda: p.fft(x))
+        check(per_call["block_fft"][label] == p.local_plan.num_passes,
+              f"{label}: {per_call['block_fft'][label]} block_fft launches "
+              f"for {p.local_plan.num_passes} passes")
         ref = torch.fft.fft(x)
         err, tol = max_err(y, ref), ATOL[dtype] * ref.abs().max().item()
         check(err <= tol, f"fft {dtype} N=2^{logn} B={b}: {err} > {tol}")
@@ -138,7 +192,11 @@ def main() -> int:
                          ft=FTConfig(transactions=FT_TRANSACTIONS)))
         ref = torch.fft.fft(x)
         tol = ATOL[dtype] * ref.abs().max().item()
-        res = p.ft_fft(x)
+        label = f"plan.ft_fft {dtype} 2^{logn}x{b}"
+        res = count_call(label, lambda: p.ft_fft(x))
+        check(per_call["abft_fft"][label] == 1
+              and per_call["block_fft"][label] == 2,
+              f"{label}: launches {per_call}")
         clean_err = max_err(res.y, ref)
         check(clean_err <= tol, f"ft_fft clean {dtype}: {clean_err} > {tol}")
         check(int(res.flagged.sum()) == 0, f"ft_fft clean {dtype}: flagged")
@@ -169,85 +227,100 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {"block_fft": block_fft.launches,
                 "abft_fft": abft_fft.launches}
-    log(f"main-path launches: {json.dumps(launches)}; SEU campaign "
-        f"{json.dumps(seu)}")
+    log(f"main-path launches per call: {json.dumps(per_call)}")
+    log(f"main-path launches, whole run: {json.dumps(launches)}; SEU "
+        f"campaign {json.dumps(seu)}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path was never launched: {launches}")
     check(seu["injected"] > 0 and seu["injected"] == seu["detected"]
           == seu["located"] == seu["corrected"] and seu["false_alarms"] == 0,
           f"SEU campaign: {seu}")
 
-    # ---- phase 4: each kernel against its plain version on the card
+    # ---- phase 4: each kernel against its plain version on the card, with
+    # the plan's own stages and device tables
     kerr = {"block_fft": 0.0, "abft_fft": 0.0}
+    kratio = {"block_fft": 0.0, "abft_fft": 0.0}   # worst err / tolerance
     seen = set()
     for dtype, logn, b, p, _ in path_rows:
-        pl = make_plan(1 << logn, batch=b)
+        pl = p.local_plan
         if p.spec.ft is not None:     # the checksum FFT on (G, N)
-            shapes = [(pl.kernel_factors[0], pl.stages[0],
-                       b // (min(pl.bs, b) * FT_TRANSACTIONS), False)]
+            shapes = [(0, b // (min(pl.bs, b) * FT_TRANSACTIONS), False)]
         else:
-            shapes = [(f, st, b * (1 << logn) // f, inverse)
-                      for f, st in zip(pl.kernel_factors, pl.stages)
+            shapes = [(i, b * pl.n // pl.kernel_factors[i], inverse)
+                      for i in range(pl.num_passes)
                       for inverse in (False, True)]
-        for f, stages, rows, inverse in shapes:
+        for i, rows, inverse in shapes:
+            f, stages = pl.kernel_factors[i], pl.stages[i]
+            tables = p.tables[inverse][i]
             key = (dtype, f, rows, inverse)
             if key in seen:
                 continue
             seen.add(key)
             x = randn((rows, f), dtype)
             scale = 1.0 / f if inverse else 1.0
-            got = block_fft(x, stages, inverse=inverse, scale=scale)
+            got = block_fft(x, stages, inverse=inverse, scale=scale,
+                            tables=tables)
             want = block_fft_plain(x, stages, inverse=inverse,
                                    scale=scale)
             err = max_err(got, want)
             tol = ATOL[dtype] * want.abs().max().item()
             check(err <= tol, f"block_fft vs plain {key}: {err} > {tol}")
             kerr["block_fft"] = max(kerr["block_fft"], err)
+            kratio["block_fft"] = max(kratio["block_fft"], err / tol)
             ms = cuda_ms(lambda: block_fft(x, stages, inverse=inverse,
-                                           scale=scale), iters=5, warmup=1)
+                                           scale=scale, tables=tables),
+                         iters=5, warmup=1)
             gbps = 2 * x.numel() * x.element_size() / ms / 1e6
             log(f"block_fft {dtype} ({rows}, {f}) inverse={inverse}: "
                 f"{ms:.4f} ms, {gbps:.1f} GB/s; err {err:.3e} tol {tol:.3e}")
             del x, got, want
+    abft_parts = dict.fromkeys(ABFT_PARTS, 0.0)
     for dtype, logn, b in FT_CASES:
         n = 1 << logn
-        stages = make_plan(n, batch=b).stages[0]
-        bs = make_plan(n, batch=b).bs
+        p = plan(FFTSpec(shape=(b, n), dtype=dtype,
+                         ft=FTConfig(transactions=FT_TRANSACTIONS)))
+        stages, bs = p.local_plan.stages[0], min(p.local_plan.bs, b)
+        tables = p.tables[False][0]
         x = randn((b, n), dtype)
         inj = torch.tensor([b // bs - 1, bs - 1, n // 3, 1, 25.0, -40.0])
         for per_signal in (False, True):
+            kw = dict(bs=bs, transactions=FT_TRANSACTIONS,
+                      per_signal=per_signal)
+            noise = None
             for inject in (None, inj):
-                kw = dict(bs=bs, transactions=FT_TRANSACTIONS,
-                          per_signal=per_signal, inject=inject)
-                got = abft_fft(x, stages, **kw)
-                want = abft_fft_plain(x, stages, **kw)
-                for part, g, w in zip(("y", "delta", "cs"), got, want):
-                    err = max_err(g, w)
-                    # delta is a relative divergence ~ roundoff on a clean
-                    # signal: held to 1e-3 relative plus ATOL absolute
-                    tol = ATOL[dtype] * (w.abs().max().item()
-                                         if part != "delta" else 1.0)
-                    if part == "delta":
-                        tol += 1e-3 * w.abs().max().item()
-                    check(err <= tol, f"abft_fft vs plain {dtype} "
-                          f"per_signal={per_signal} inject="
-                          f"{inject is not None} {part}: {err} > {tol}")
-                    kerr["abft_fft"] = max(kerr["abft_fft"], err)
-            clean = dict(kw, inject=None)
-            ms = cuda_ms(lambda: abft_fft(x, stages, **clean), iters=5,
-                         warmup=1)
+                got = abft_fft(x, stages, inject=inject, tables=tables, **kw)
+                want = abft_fft_plain(x, stages, inject=inject, **kw)
+                if noise is None:     # the clean call comes first
+                    noise = delta_noise(want[1])
+                what = (f"abft_fft vs plain {dtype} per_signal={per_signal} "
+                        f"inject={inject is not None}")
+                parts = abft_vs_plain(got, want, dtype, noise, what)
+                for part, (err, ratio) in parts.items():
+                    abft_parts[part] = max(abft_parts[part], err)
+                    kratio["abft_fft"] = max(kratio["abft_fft"], ratio)
+                log(f"{what}: " + ", ".join(
+                    f"{k} {e:.3e} ({r:.2f} of tol)"
+                    for k, (e, r) in parts.items()))
+            ms = cuda_ms(lambda: abft_fft(x, stages, tables=tables, **kw),
+                         iters=5, warmup=1)
             log(f"abft_fft {dtype} ({b}, {n}) bs={bs} T={FT_TRANSACTIONS} "
                 f"per_signal={per_signal}: {ms:.4f} ms")
         del x, got, want
-    log(f"kernel vs plain max abs err: {json.dumps(kerr)}")
+    kerr["abft_fft"] = max(abft_parts.values())
+    log(f"kernel vs plain max abs err: {json.dumps(kerr)}; abft_fft by "
+        f"part: {json.dumps(abft_parts)}; worst err/tol: "
+        f"{json.dumps(kratio)}")
 
     # ---- phase 5: times by CUDA events at the single-pass main-path shape
     dtype, logn, b = FFT_CASES[0]
     n = 1 << logn
     x = randn((b, n), dtype)
     itemsize = x.element_size()
-    stages = make_plan(n, batch=b).stages[0]
-    bs = make_plan(n, batch=b).bs
+    p_fft = plan(FFTSpec(shape=(b, n), dtype=dtype))
+    p_ft = plan(FFTSpec(shape=(b, n), dtype=dtype,
+                        ft=FTConfig(transactions=FT_TRANSACTIONS)))
+    stages, tables = p_ft.local_plan.stages[0], p_ft.tables[False][0]
+    bs = min(p_ft.local_plan.bs, b)
     groups = b // (bs * FT_TRANSACTIONS)
     fft_bytes = 2 * b * n * itemsize
     fft_flops = 5 * n * logn * b
@@ -257,19 +330,16 @@ def main() -> int:
         tf = flops / PEAK_FLOPS[dtype] * 1e3
         return (tb, "bytes") if tb >= tf else (tf, "operations")
 
-    blk_ms = cuda_ms(lambda: block_fft(x, stages))
+    blk_ms = cuda_ms(lambda: block_fft(x, stages, tables=tables))
     blk_plain = cuda_ms(lambda: block_fft_plain(x, stages), iters=5)
     lib_ms = cuda_ms(lambda: torch.fft.fft(x))
     abft_kw = dict(bs=bs, transactions=FT_TRANSACTIONS, per_signal=False)
-    abft_ms = cuda_ms(lambda: abft_fft(x, stages, **abft_kw))
+    abft_ms = cuda_ms(lambda: abft_fft(x, stages, tables=tables, **abft_kw))
     abft_plain = cuda_ms(lambda: abft_fft_plain(x, stages, **abft_kw),
                          iters=5)
     blk_bound = bound(fft_bytes, fft_flops)
     abft_bound = bound(fft_bytes + 4 * groups * n * itemsize
                        + b * itemsize // 2, fft_flops + 12 * b * n)
-    p_fft = plan(FFTSpec(shape=(b, n), dtype=dtype))
-    p_ft = plan(FFTSpec(shape=(b, n), dtype=dtype,
-                        ft=FTConfig(transactions=FT_TRANSACTIONS)))
     path_fft_ms = cuda_ms(lambda: p_fft.fft(x))
     path_ft_ms = cuda_ms(lambda: p_ft.ft_fft(x))
     log(f"times at {dtype} N=2^{logn} B={b} (bs={bs}, T={FT_TRANSACTIONS}, "
@@ -291,14 +361,18 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/block_fft.cu",
          "replaces": "src/repro/kernels/stockham.py:114",
          "launches": launches["block_fft"],
-         "max_abs_err": kerr["block_fft"], "ms": blk_ms,
+         "launches_per_call": per_call["block_fft"],
+         "max_abs_err": kerr["block_fft"],
+         "max_err_over_tol": kratio["block_fft"], "ms": blk_ms,
          "plain_ms": blk_plain, "bound_ms": blk_bound[0],
          "bound_by": blk_bound[1], "library_ms": lib_ms},
         {"name": "abft_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/abft_fft.cu",
          "replaces": "src/repro/kernels/stockham_abft.py:119",
          "launches": launches["abft_fft"],
-         "max_abs_err": kerr["abft_fft"], "ms": abft_ms,
+         "launches_per_call": per_call["abft_fft"],
+         "max_abs_err": kerr["abft_fft"], "max_abs_err_parts": abft_parts,
+         "max_err_over_tol": kratio["abft_fft"], "ms": abft_ms,
          "plain_ms": abft_plain, "bound_ms": abft_bound[0],
          "bound_by": abft_bound[1], "library_ms": None,
          "torch_fft_ms": lib_ms, "overhead_vs_block_fft":

@@ -4,10 +4,10 @@
 An :class:`FFTSpec` is a frozen, hashable description of a transform (shape,
 dtype, rank, fault-tolerance config, device); :func:`plan` resolves it ONCE —
 the local stage plan and its stage tables uploaded to the device — and hands
-back an :class:`FFTPlan` whose executors (``plan.fft / ifft / ft_fft``) are a
-straight dispatch to ``kernels.ops``. This is the local rank-1 complex subset
-of ``repro.core.fft.api``; the other paths raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+back an :class:`FFTPlan` whose executors (``plan.fft / ifft / ft_fft``) run
+``kernels.ops`` on that stage plan and those tables. This is the local
+rank-1 complex subset of ``repro.core.fft.api``; the other paths raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -142,9 +142,10 @@ class FFTPlan(planbase.Plan):
     """Pre-resolved executor bundle for one :class:`FFTSpec`.
 
     The constructor resolves the device, the local stage plan and the stage
-    tables of every pass (uploaded to the device once, kept here), and binds
-    the executors, so ``plan.fft(x)`` is a straight dispatch. Construct via
-    :func:`plan` (LRU-cached on the spec), not directly.
+    tables of every pass in each direction (uploaded to the device once,
+    kept here: ``tables[inverse][i]`` for pass i), and binds the executors
+    to them, so the executors decide nothing. Construct via :func:`plan`
+    (LRU-cached on the spec), not directly.
     """
 
     def __init__(self, spec: FFTSpec):
@@ -163,14 +164,16 @@ class FFTPlan(planbase.Plan):
         self.local_plan = make_plan(n, batch=self.batch)
         dtype = spec.torch_dtype
         self.tables = {
-            (inverse, f): stage_tables(st, dtype, inverse=inverse,
-                                       device=self.device)
+            inverse: tuple(stage_tables(st, dtype, inverse=inverse,
+                                        device=self.device)
+                           for st in self.local_plan.stages)
             for inverse in (False, True)
-            for f, st in zip(self.local_plan.kernel_factors,
-                             self.local_plan.stages)
         }
-        self._fwd = functools.partial(_ops._fft_impl, inverse=False)
-        self._inv = functools.partial(_ops._fft_impl, inverse=True)
+        self._fwd = functools.partial(_ops._fft_impl, plan=self.local_plan,
+                                      tables=self.tables[False],
+                                      inverse=False)
+        self._inv = functools.partial(_ops._fft_impl, plan=self.local_plan,
+                                      tables=self.tables[True], inverse=True)
 
     def _coerce(self, x):
         """Match the plan's complex dtype and device (real inputs are
@@ -213,7 +216,8 @@ class FFTPlan(planbase.Plan):
                 f"— build a new FFTSpec")
         from repro_torch.kernels import ops as _ops
         return _ops._ft_fft_local(
-            x.reshape(b, self.n), transactions=ft.transactions, bs=bs,
+            x.reshape(b, self.n), self.local_plan, self.tables[False][0],
+            transactions=ft.transactions, bs=bs,
             per_signal=ft.per_signal, encoding=ft.encoding,
             threshold=ft.threshold, correct=ft.correct, inject=inject)
 

@@ -16,14 +16,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
+from typing import Sequence
 
 import torch
 
 from repro_torch.core.abft import twoside
 from repro_torch.core.fft import api as fft_api
 from repro_torch.core.fft import factors as fft_factors
-from repro_torch.core.fft.plan import MAX_BLOCK_N, Plan, make_plan
+from repro_torch.core.fft.plan import MAX_BLOCK_N, Plan, StagePlan
 
 from .stockham import block_fft
 from .stockham_abft import abft_fft
@@ -39,13 +39,13 @@ def _pad_batch(x: torch.Tensor, bs: int):
     return x, b
 
 
-def _block_fft_c(x2d: torch.Tensor, *, inverse: bool,
+def _block_fft_c(x2d: torch.Tensor, stages: Sequence[StagePlan],
+                 tables: torch.Tensor, *, inverse: bool,
                  scale: float = 1.0) -> torch.Tensor:
     """Single-pass complex block FFT, (B, N) -> (B, N), times ``scale``. The
     kernel's grid covers any batch, so no padding to a tile size is needed."""
-    plan = make_plan(x2d.shape[-1], batch=x2d.shape[0])
-    return block_fft(x2d.contiguous(), plan.stages[0], inverse=inverse,
-                     scale=scale)
+    return block_fft(x2d.contiguous(), stages, inverse=inverse, scale=scale,
+                     tables=tables)
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,41 +55,47 @@ def _pass_twiddle(f1: int, f2: int, dtype: torch.dtype, inverse: bool,
     return t.to(dtype=dtype, device=device)
 
 
-def _fft_multipass(x2d: torch.Tensor, plan: Plan, *, inverse: bool,
+def _fft_multipass(x2d: torch.Tensor, plan: Plan,
+                   tables: Sequence[torch.Tensor], *, inverse: bool,
                    scale: float = 1.0) -> torch.Tensor:
     """Kernel-level N1 x N2 (x N3) composition (paper Fig. 3) around the
-    block kernel: per pass, one transposed batched block FFT + twiddle.
-    ``scale`` rides the first pass's launch only."""
+    block kernel: pass i is one transposed batched block FFT through
+    ``plan.stages[i]`` + twiddle. ``scale`` rides the first pass's launch
+    only."""
 
-    def rec(z, facs, scale):
-        nloc = z.shape[-1]
-        if len(facs) == 1:
-            return _block_fft_c(z.reshape(-1, nloc), inverse=inverse,
+    def rec(z, i, scale):
+        f1 = plan.kernel_factors[i]
+        if i == plan.num_passes - 1:
+            return _block_fft_c(z.reshape(-1, f1), plan.stages[i], tables[i],
+                                inverse=inverse,
                                 scale=scale).reshape(z.shape)
-        f1 = facs[0]
-        f2 = math.prod(facs[1:])
-        zz = z.reshape(tuple(z.shape[:-1]) + (f1, f2))
-        zz = rec(zz.transpose(-1, -2), (f1,), scale)    # (..., f2, f1)
+        f2 = z.shape[-1] // f1
+        zz = z.reshape(tuple(z.shape[:-1]) + (f1, f2)).transpose(-1, -2)
+        zz = _block_fft_c(zz.reshape(-1, f1), plan.stages[i], tables[i],
+                          inverse=inverse, scale=scale)  # (..., f2, f1)
         # (..., f1, f2), made contiguous so the twiddle multiplies in place
-        zz = zz.transpose(-1, -2).contiguous()
+        zz = zz.reshape(tuple(z.shape[:-1]) + (f2, f1)).transpose(-1, -2)
+        zz = zz.contiguous()
         zz.mul_(_pass_twiddle(f1, f2, z.dtype, inverse, str(z.device)))
-        zz = rec(zz, facs[1:], 1.0)
+        zz = rec(zz, i + 1, 1.0)
         zz = zz.transpose(-1, -2)
         return zz.reshape(z.shape)
 
-    return rec(x2d, plan.kernel_factors, scale)
+    return rec(x2d, 0, scale)
 
 
-def _fft_impl(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
+def _fft_impl(x: torch.Tensor, plan: Plan, tables: Sequence[torch.Tensor],
+              *, inverse: bool = False) -> torch.Tensor:
+    """Run ``plan`` (the FFT plan's local stage plan) with ``tables``, its
+    per-pass stage tables in this direction, over the last axis of ``x``."""
     shape = x.shape
-    n = shape[-1]
-    x2d = x.reshape(-1, n)
-    plan = make_plan(n, batch=x2d.shape[0], inverse=inverse)
-    scale = 1.0 / n if inverse else 1.0
+    x2d = x.reshape(-1, plan.n)
+    scale = 1.0 / plan.n if inverse else 1.0
     if plan.num_passes == 1:
-        y = _block_fft_c(x2d, inverse=inverse, scale=scale)
+        y = _block_fft_c(x2d, plan.stages[0], tables[0], inverse=inverse,
+                         scale=scale)
     else:
-        y = _fft_multipass(x2d, plan, inverse=inverse, scale=scale)
+        y = _fft_multipass(x2d, plan, tables, inverse=inverse, scale=scale)
     return y.reshape(shape)
 
 
@@ -151,6 +157,8 @@ def ft_fft(x, *, transactions: int = 4, bs: int | None = None,
 
 def _ft_fft_local(
     x: torch.Tensor,
+    plan: Plan,
+    tables: torch.Tensor,
     *,
     transactions: int = 4,
     bs: int | None = None,
@@ -160,9 +168,10 @@ def _ft_fft_local(
     correct: bool = True,
     inject=None,
 ) -> FTFFTResult:
-    """The single-device fused-kernel pipeline behind :func:`ft_fft`."""
+    """The single-device fused-kernel pipeline behind :func:`ft_fft`:
+    ``plan`` is the FFT plan's local stage plan and ``tables`` its forward
+    stage tables, shared by the fused kernel and the checksum FFT."""
     b, n = x.shape
-    plan = make_plan(n, batch=b)
     if plan.num_passes != 1:
         raise ValueError(
             f"the fused ABFT kernel is single-pass; got {plan.describe()} — "
@@ -177,12 +186,13 @@ def _ft_fft_local(
     txn = min(transactions, tiles)
     while tiles % txn:
         txn -= 1
-    y, delta, cs = abft_fft(xp, plan.stages[0], bs=bs, transactions=txn,
+    stages = plan.stages[0]
+    y, delta, cs = abft_fft(xp, stages, bs=bs, transactions=txn,
                             per_signal=per_signal, encoding=encoding,
-                            inject=inject)
+                            inject=inject, tables=tables)
     sums = twoside.GroupChecksums.from_packed(cs)
     verdict = twoside.detect_locate(
-        sums, forward=lambda c: _block_fft_c(c, inverse=False),
+        sums, forward=lambda c: _block_fft_c(c, stages, tables, inverse=False),
         threshold=threshold)
     if correct:
         y, _ = twoside.apply_correction(y, verdict)

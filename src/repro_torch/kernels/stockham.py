@@ -109,11 +109,21 @@ def _check(x: torch.Tensor, stages: Sequence[StagePlan]) -> int:
     return n.bit_length() - 1
 
 
+def _check_tables(tables: torch.Tensor, x: torch.Tensor) -> None:
+    if tables.dtype != x.dtype or tables.device != x.device \
+            or not tables.is_contiguous():
+        raise ValueError(f"stage tables must be a contiguous {x.dtype} "
+                         f"tensor on {x.device}, got {tables.dtype} on "
+                         f"{tables.device}")
+
+
 def block_fft(x: torch.Tensor, stages: Sequence[StagePlan], *,
-              inverse: bool = False, scale: float = 1.0) -> torch.Tensor:
+              inverse: bool = False, scale: float = 1.0,
+              tables: torch.Tensor | None = None) -> torch.Tensor:
     """Batched single-pass FFT of each row of a (B, N) complex tensor through
     ``stages``, times ``scale``. CUDA tensor: the kernel; CPU tensor: the
-    plain version."""
+    plain version. ``tables`` is the :func:`stage_tables` of ``stages`` in
+    this direction as an FFT plan keeps them (looked up when omitted)."""
     if x.device.type == "cpu":
         return block_fft_plain(x, stages, inverse=inverse, scale=scale)
     if x.device.type != "cuda":
@@ -121,7 +131,10 @@ def block_fft(x: torch.Tensor, stages: Sequence[StagePlan], *,
                          f"version), got a {x.device.type} tensor")
     log_n = _check(x, stages)
     y = torch.empty_like(x)
-    tables = stage_tables(stages, x.dtype, inverse=inverse, device=x.device)
+    if tables is None:
+        tables = stage_tables(stages, x.dtype, inverse=inverse,
+                              device=x.device)
+    _check_tables(tables, x)
     lib = _build.load("block_fft", _SIGNATURES)
     fn = getattr(lib, f"block_fft_{_SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):

@@ -33,8 +33,8 @@ from repro_torch.core.abft.encoding import (EPS, left_encoding,
 from repro_torch.core.fft.plan import MAX_BLOCK_N, StagePlan
 
 from . import _build
-from .stockham import (block_fft_plain, device_key, pack_radices,
-                       stage_tables)
+from .stockham import (_check_tables, block_fft_plain, device_key,
+                       pack_radices, stage_tables)
 
 __all__ = ["abft_fft", "abft_fft_plain", "encoding_vectors"]
 
@@ -115,10 +115,12 @@ def abft_fft_plain(x: torch.Tensor, stages: Sequence[StagePlan], *, bs: int,
 
 def abft_fft(x: torch.Tensor, stages: Sequence[StagePlan], *, bs: int,
              transactions: int = 1, per_signal: bool = True,
-             encoding: str = "wang", inject=None, inverse: bool = False):
+             encoding: str = "wang", inject=None, inverse: bool = False,
+             tables: torch.Tensor | None = None):
     """Fused FT-FFT of a contiguous (B, N) complex tensor: ``(y, delta,
     cs)`` as documented in the module. CUDA tensor: the kernel; CPU tensor:
-    the plain version."""
+    the plain version. ``tables`` is the forward :func:`stage_tables` of
+    ``stages`` as an FFT plan keeps them (looked up when omitted)."""
     if x.device.type == "cpu":
         return abft_fft_plain(x, stages, bs=bs, transactions=transactions,
                               per_signal=per_signal, encoding=encoding,
@@ -142,7 +144,9 @@ def abft_fft(x: torch.Tensor, stages: Sequence[StagePlan], *, bs: int,
     y = torch.empty_like(x)
     delta = torch.empty(b, dtype=rdt, device=x.device)
     cs = torch.empty((4, groups, n), dtype=x.dtype, device=x.device)
-    tables = stage_tables(stages, x.dtype, device=x.device)
+    if tables is None:
+        tables = stage_tables(stages, x.dtype, device=x.device)
+    _check_tables(tables, x)
     ew, e1 = encoding_vectors(n, encoding, x.dtype, x.device)
     inj = None
     if inject is not None:

@@ -224,14 +224,51 @@ def test_plan_cache_distinct_keys():
     assert len({id(p) for p in plans}) == len(plans)
 
 
-def test_plan_resolves_once_and_keeps_device_tables():
+def test_plan_resolves_once_and_keeps_device_tables(monkeypatch, crand):
+    """The plan decides the stages and uploads their tables once; its
+    executors launch the block kernel with exactly those, pass by pass."""
     p = plan(FFTSpec(shape=(8, 1 << 14), device=CPU))
     assert p.decomp == "local" and p.groups is None
-    assert p.local_plan.num_passes == 2
-    for (inverse, f), tab in p.tables.items():
-        stages = p.local_plan.stages[p.local_plan.kernel_factors.index(f)]
-        assert tab is stage_tables(stages, torch.complex64, inverse=inverse)
+    lp = p.local_plan
+    assert lp.num_passes == 2
+    for inverse, tabs in p.tables.items():
+        assert len(tabs) == lp.num_passes
+        for stages, tab in zip(lp.stages, tabs):
+            assert tab is stage_tables(stages, torch.complex64,
+                                       inverse=inverse)
     assert "decomp='local'" in repr(p) and "device='cpu'" in repr(p)
+
+    seen = []
+
+    def spy(x, stages, *, inverse, scale, tables):
+        seen.append((stages, tables, inverse))
+        return block_fft(x, stages, inverse=inverse, scale=scale,
+                         tables=tables)
+
+    monkeypatch.setattr(ops, "block_fft", spy)
+    x = _t(crand(8, 1 << 14))
+    p.fft(x)
+    p.ifft(x)
+    want = [(st, p.tables[inv][i], inv) for inv in (False, True)
+            for i, st in enumerate(lp.stages)]
+    assert len(seen) == len(want)
+    for (st, tab, inv), (st_w, tab_w, inv_w) in zip(seen, want):
+        assert st is st_w and tab is tab_w and inv == inv_w
+
+    seen.clear()
+    fused = []
+
+    def spy_abft(x, stages, **kw):
+        fused.append((stages, kw["tables"]))
+        return abft_fft(x, stages, **kw)
+
+    monkeypatch.setattr(ops, "abft_fft", spy_abft)
+    pf = plan(FFTSpec(shape=(16, 256), ft=FTConfig(), device=CPU))
+    pf.ft_fft(_t(crand(16, 256)))
+    # the fused kernel, then detect_locate's checksum FFTs (X.e2 and X.e3)
+    for st, tab, *_ in fused + seen:
+        assert st is pf.local_plan.stages[0] and tab is pf.tables[False][0]
+    assert len(fused) == 1 and len(seen) == 2
 
 
 def test_plan_rejects_wrong_transform_axis(crand):

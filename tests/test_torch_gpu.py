@@ -8,7 +8,9 @@ conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerance: the suite's ``ATOL[dtype] * max|ref|`` (4e-5 complex64, 1e-11
-complex128); the kernel and its plain version sum in different orders.
+complex128); the kernel and its plain version sum in different orders. The
+fused kernel's checksums are held row by row (each part, each group), and
+its per-signal divergence elementwise (see ``_check_abft``).
 """
 import numpy as np
 import pytest
@@ -76,6 +78,8 @@ def test_block_fft_kernel_on_reference_stages(cuda, radices, n):
 def test_plan_multipass_matches_torch_fft(cuda, n, dtype):
     x = _rand(2, n, dtype).to(cuda)
     p = plan(FFTSpec(shape=(2, n), dtype=str(dtype).split(".")[1]))
+    assert all(t.is_cuda and t.dtype == dtype
+               for tabs in p.tables.values() for t in tabs)
     _close(p.fft(x), torch.fft.fft(x))
     _close(p.ifft(x), torch.fft.ifft(x))
 
@@ -87,6 +91,31 @@ def test_stage_tables_uploaded_once(cuda):
     assert t1 is t2 and t1.is_cuda
 
 
+def _check_abft(got, want, noise):
+    """y to ATOL * max|y|. Each checksum row [X.e2, X.e3, Y.e2, Y.e3] of
+    each group to ATOL * its own max: the e3 rows grow with the 1-based
+    signal id, so one tolerance over all of them would hide a wrong small
+    row. delta elementwise to 1e-3 relative (the injected signal's
+    divergence is large) plus ``noise``, the roundoff scale of clean
+    signals."""
+    (y, delta, cs), (yp, dp, csp) = [[t.cpu() for t in w] for w in (got, want)]
+    _close(y, yp)
+    for j, part in enumerate(("X.e2", "X.e3", "Y.e2", "Y.e3")):
+        err = (cs[j] - csp[j]).abs().amax(-1)
+        tol = ATOL[csp.dtype] * csp[j].abs().amax(-1)
+        assert (err <= tol).all(), (part, (err / tol).max().item())
+    err = (delta - dp).abs()
+    tol = 1e-3 * dp.abs() + noise
+    assert (err <= tol).all(), ("delta", (err / tol).max().item())
+
+
+def _delta_noise(delta_clean):
+    """4x the plain version's largest clean divergence (the dtype's epsilon
+    when it is all zeros, without per-signal checksums)."""
+    eps = torch.finfo(delta_clean.dtype).eps
+    return 4.0 * max(delta_clean.abs().max().item(), eps)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("per_signal", [False, True])
 @pytest.mark.parametrize("n,b,bs,t", [(512, 32, 8, 2),      # registers
@@ -96,18 +125,17 @@ def test_abft_kernel_matches_plain(cuda, n, b, bs, t, per_signal, dtype):
     x = _rand(b, n, dtype).to(cuda)
     stages = make_plan(n).stages[0]
     inj = torch.tensor([b // bs - 1, bs - 1, n // 3, 1, 25.0, -40.0])
-    for inject in (None, inj):
+    noise = None
+    for inject in (None, inj):                    # the clean call first
         kw = dict(bs=bs, transactions=t, per_signal=per_signal,
                   inject=inject)
         before = abft_fft.launches
-        y, delta, cs = abft_fft(x, stages, **kw)
+        got = abft_fft(x, stages, **kw)
         assert abft_fft.launches == before + 1
-        yp, dp, csp = abft_fft_plain(x, stages, **kw)
-        _close(y, yp)
-        _close(cs, csp)
-        # delta is a relative divergence: roundoff-sized on clean signals
-        atol = ATOL[dtype] + 1e-3 * dp.abs().max().item()
-        assert (delta - dp).abs().max().item() <= atol
+        want = abft_fft_plain(x, stages, **kw)
+        if noise is None:
+            noise = _delta_noise(want[1])
+        _check_abft(got, want, noise)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
