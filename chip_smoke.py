@@ -3,18 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds both kernels from ``src/repro_torch/kernels/csrc`` with nvcc, runs the
-local rank-1 fft / ifft / ft_fft path through ``plan(FFTSpec(...))`` at the
-sizes of ``turbofft_bench.CONFIG``'s corners (every case far beyond the 50 MB
-L2), checks every result against ``torch.fft`` at the suite's tolerance
-(ATOL * max|ref|: 4e-5 complex64, 1e-11 complex128) and runs an SEU campaign
-through the fused ABFT kernel. It then holds each kernel against its plain
-torch version on the card at the main path's shapes and times kernel, plain
-version and ``torch.fft`` with CUDA events. The last two lines are the
-``kernels`` JSON and ``{"ok": true, "device": ...}``. Any failed check raises
-and exits non-zero; without a CUDA device it exits 1 and prints no result.
+Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
+(all at once) and drives the port's two paths:
+
+* FFT: the local rank-1 fft / ifft / ft_fft path through
+  ``plan(FFTSpec(...))`` at the sizes of ``turbofft_bench.CONFIG``'s corners
+  (every case far beyond the 50 MB L2), each result checked against
+  ``torch.fft`` at the suite's tolerance (ATOL * max|ref|: 4e-5 complex64,
+  1e-11 complex128), and an SEU campaign through the fused ABFT kernel;
+* checked GEMM, at the widths of Phi-4-mini 3.8B (d_model 3072, d_ff 8192):
+  ``plan(GEMMSpec(...)).ft_matmul`` on the MLP's two product shapes with an
+  SEU campaign, then the protected SwiGLU MLP block (rmsnorm -> mlp ->
+  residual, bf16 activations, f32 weights, 4 x 512 tokens) under
+  ``FTContext`` with a Poisson fault schedule over its three sites.
+
+It then holds each kernel against its plain torch version on the card at
+the paths' shapes (``ft_matmul`` also bitwise on integer operands and across
+repeated calls) and times kernel, plain version and the library call
+(``torch.fft``, ``torch.matmul``) with CUDA events. The last two lines are
+the ``kernels`` JSON and ``{"ok": true, "device": ...}``. Any failed check
+raises and exits non-zero; without a CUDA device it exits 1 and prints no
+result.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -37,6 +49,27 @@ SEU_STEPS = 8
 
 
 ABFT_PARTS = ("y", "delta", "X.e2", "X.e3", "Y.e2", "Y.e3")
+
+# the checked-GEMM path at Phi-4-mini 3.8B's MLP widths, (M, K, N)
+GEMM_SHAPES = ((2048, 3072, 8192), (2048, 8192, 3072))
+GEMM_FT_THRESHOLD = 1e-3
+# float32: a clean product and each kernel part to 1e-4 * max|reference|
+# (float32 sums of K <= 8192 terms in another order: sqrt(K) * 2^-24 is
+# about 5e-6); an element the decode corrected carries the rounding of the
+# checksum divergence d2, which scales with the column sums: 1e-4 * max
+# |e2^T Y|
+GEMM_TOL = 1e-4
+BF16_STEP = 2.0 ** -7      # one bf16 rounding step, relative
+# the protected bf16 block against the unprotected one: 2^-6 * max|y| (the
+# unprotected path rounds W to bf16, 2^-9 relative; both round the three
+# products, the gate and the residual sum to bf16)
+MLP_TOL = 2.0 ** -6
+MLP_BATCH, MLP_TOKENS = 4, 512
+# the Poisson schedule over the MLP's three sites: 5 faults in 6 steps, each
+# |eps| in [6, 28]; EPS_FLOOR keeps every fault above the detection
+# threshold and the location noise at these widths
+MLP_STEPS, MLP_SCHEDULE_SEED, MLP_EPS_SCALE, EPS_FLOOR = 6, 6, 16.0, 4.0
+FP32_FLOPS = 67e12                         # fp32 outside the tensor cores
 
 
 def delta_noise(delta_clean):
@@ -86,6 +119,285 @@ def log(msg):
     print(msg, flush=True)
 
 
+def gemm_operands(dev, m, k, n, dtype="float32"):
+    """Seeded (M, K) activations ~N(0, 1) in ``dtype`` and float32 (K, N)
+    weights ~N(0, 1/K), so the product is ~N(0, 1)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + m + 3 * k + 7 * n)
+    x = torch.randn((m, k), device=dev, generator=gen)
+    w = torch.randn((k, n), device=dev, generator=gen) / math.sqrt(k)
+    return x.to(getattr(torch, dtype)), w
+
+
+def gemm_plan_phase(dev):
+    """(a) ``plan(GEMMSpec(...)).ft_matmul`` at full width: clean products
+    against a float64 reference, then an SEU campaign of (F, 4)
+    descriptors. Returns the campaign's counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core.gemm import GEMMSpec, plan
+    from repro_torch.core.plan import FTConfig
+    from repro_torch.kernels.ft_matmul import ft_matmul
+
+    rng = np.random.default_rng(SEED)
+    seu = dict(injected=0, flagged=0, corrected=0, uncorrectable=0,
+               false_alarms=0, clean_calls=0)
+    for m, k, n in GEMM_SHAPES:
+        x, w = gemm_operands(dev, m, k, n)
+        p = plan(GEMMSpec((m, k, n), dtype="float32",
+                          ft=FTConfig(threshold=GEMM_FT_THRESHOLD)))
+        check(p.backend == "fused", f"GEMM plan {p}: backend {p.backend}")
+        ref = (x.double() @ w.double()).float()
+        tol = GEMM_TOL * ref.abs().max().item()
+        corr_tol = GEMM_TOL * ref.sum(0).abs().max().item()
+        before = ft_matmul.launches
+        y, s = p.ft_matmul(x, w)
+        check(ft_matmul.launches == before + 1,
+              f"plan.ft_matmul {(m, k, n)}: "
+              f"{ft_matmul.launches - before} ft_matmul launches")
+        clean_err = (y - ref).abs().max().item()
+        check(clean_err <= tol, f"ft_matmul clean {(m, k, n)}: "
+                                f"{clean_err} > {tol}")
+        check(float(s["flagged"]) == 0, f"ft_matmul clean {(m, k, n)}: "
+                                        f"{float(s['flagged'])} flagged")
+        seu["clean_calls"] += 1
+        # one fault; two and three in distinct columns; a clean call; a
+        # disabled descriptor
+        worst = worst_hit = 0.0
+        for nf, enable in ((1, 1), (2, 1), (0, 1), (3, 1), (1, 0)):
+            cols = rng.choice(n, size=nf, replace=False)
+            rows = rng.integers(0, m, size=nf)
+            eps = rng.choice([-1.0, 1.0], size=nf) * rng.uniform(
+                20.0, 200.0, size=nf)
+            inj = None if nf == 0 else torch.tensor(
+                np.stack([rows, cols, np.full(nf, enable), eps], -1),
+                dtype=torch.float32)
+            y, s = p.ft_matmul(x, w, inject=inj)
+            armed = nf * enable
+            if armed:
+                seu["injected"] += armed
+                seu["flagged"] += int(s["flagged"])
+                seu["corrected"] += int(s["corrected"])
+                seu["uncorrectable"] += int(s["uncorrectable"])
+            else:
+                seu["false_alarms"] += int(s["flagged"])
+                seu["clean_calls"] += 1
+            diff = (y - ref).abs()
+            if armed:
+                at = (torch.as_tensor(rows, device=dev),
+                      torch.as_tensor(cols, device=dev))
+                hit_err = diff[at].max().item()
+                check(hit_err <= corr_tol,
+                      f"ft_matmul {(m, k, n)} corrected elements: "
+                      f"{hit_err} > {corr_tol}")
+                diff[at] = 0.0
+                worst_hit = max(worst_hit, hit_err)
+            err = diff.max().item()
+            check(err <= tol, f"ft_matmul {(m, k, n)} inject {nf}x"
+                              f"{enable}: {err} > {tol}")
+            worst = max(worst, err)
+        log(f"plan.ft_matmul f32 {(m, k, n)} backend={p.backend}: clean err "
+            f"{clean_err:.3e} (tol {tol:.3e}); campaign worst err "
+            f"{worst:.3e}, worst corrected element {worst_hit:.3e} (tol "
+            f"{corr_tol:.3e})")
+        del x, w, ref, y
+    check(seu["injected"] > 0 and seu["injected"] == seu["flagged"]
+          == seu["corrected"] and seu["uncorrectable"] == 0
+          and seu["false_alarms"] == 0, f"GEMM SEU campaign: {seu}")
+    return seu
+
+
+def mlp_phase(dev):
+    """(b) The protected SwiGLU MLP block of Phi-4-mini 3.8B at full width:
+    rmsnorm -> mlp -> residual, bf16 activations, f32 weights, through
+    ``FTContext``; then a Poisson fault schedule over its three sites.
+    Returns the campaign's counts and the launches of one call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import phi4_mini_3p8b
+    from repro_torch.core.ft import FTPolicy, poisson_schedule
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.models import layers
+
+    cfg = phi4_mini_3p8b.CONFIG
+    d, d_ff = cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = layers.make_mlp_params(gen, d, d_ff, cfg.act,
+                                    dtype=getattr(torch, cfg.param_dtype),
+                                    device=dev)
+    norm_p = layers.make_norm_params(d, cfg.norm, device=dev)
+    x = torch.randn((MLP_BATCH, MLP_TOKENS, d), device=dev,
+                    generator=gen).to(getattr(torch, cfg.dtype))
+    policy = FTPolicy(protect_linears=True, threshold=GEMM_FT_THRESHOLD)
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+
+    def block(ft=None):
+        h = layers.norm(norm_p, x, cfg.norm, cfg.norm_eps)
+        return x + layers.mlp(params, h, cfg.act, ft=ft)
+
+    plain = block()
+    ctx = layers.FTContext(policy)
+    before = ft_matmul.launches
+    clean = block(ctx)
+    per_call = ft_matmul.launches - before
+    check(per_call == 3 and ctx.sites == 3,
+          f"protected MLP: {per_call} ft_matmul launches, {ctx.sites} sites")
+    summ = ctx.summary()
+    check(float(summ["ft_flagged"]) == 0,
+          f"protected MLP clean: {float(summ['ft_flagged'])} flagged")
+    ymax = clean.float().abs().max().item()
+    err = (clean.float() - plain.float()).abs().max().item()
+    check(err <= MLP_TOL * plain.float().abs().max().item(),
+          f"protected MLP vs unprotected: {err}")
+    log(f"MLP {cfg.name} d={d} d_ff={d_ff} x=({MLP_BATCH}, {MLP_TOKENS}) "
+        f"{cfg.dtype}, params {cfg.param_dtype} {nbytes / 1e6:.0f} MB: "
+        f"protected vs unprotected err {err:.3e} (tol "
+        f"{MLP_TOL * ymax:.3e}), max score "
+        f"{float(summ['ft_max_score']):.3e}, {per_call} launches per call")
+
+    m = MLP_BATCH * MLP_TOKENS
+    sched = poisson_schedule(np.random.default_rng(MLP_SCHEDULE_SEED),
+                             steps=MLP_STEPS, rate_per_step=0.8, tiles=3,
+                             bs=m, n=d, eps_scale=MLP_EPS_SCALE)
+    check(sched.num_faults > 0 and all(abs(e[4]) >= EPS_FLOOR
+                                       for e in sched.entries),
+          f"MLP schedule: {sched.entries}")
+    seu = dict(injected=0, flagged=0, corrected=0, false_alarms=0,
+               sites=set())
+    for step in range(MLP_STEPS):
+        inj = sched.for_step_gemm(step)
+        ctx = layers.FTContext(policy, inject=inj)
+        y = block(ctx)
+        summ = ctx.summary()
+        err = (y.float() - clean.float()).abs().max().item()
+        if float(inj[0, 3]) > 0:
+            eps = abs(float(inj[0, 4]))
+            seu["injected"] += 1
+            seu["sites"].add(int(inj[0, 0]))
+            seu["flagged"] += int(summ["ft_flagged"])
+            seu["corrected"] += int(summ["ft_corrected"])
+            # the fused path corrects the stored bf16 product: the
+            # corrected element keeps about 2^-8 |eps| from each of the two
+            # bf16 roundings (c + eps, then d2)
+            tol = BF16_STEP * eps + MLP_TOL * ymax
+        else:
+            eps = 0.0
+            seu["false_alarms"] += int(summ["ft_flagged"])
+            tol = MLP_TOL * ymax
+        check(err <= tol, f"MLP step {step} (site {int(inj[0, 0])}, eps "
+                          f"{eps}): err {err} > {tol}")
+    seu["sites"] = sorted(seu["sites"])
+    log(f"MLP SEU campaign ({MLP_STEPS} steps): {json.dumps(seu)}")
+    check(seu["injected"] == sched.num_faults == seu["flagged"]
+          == seu["corrected"] and seu["false_alarms"] == 0,
+          f"MLP SEU campaign: {seu}")
+    return seu, per_call
+
+
+def gemm_kernel_phase(dev):
+    """(c) ``ft_matmul`` against ``ft_matmul_plain`` on the card: the
+    paths' shapes in float32 and bf16 x f32 (at tolerance), integer
+    operands over four tile shapes (bitwise), and two calls (bitwise).
+    Returns ({part: max abs err}, worst err / tol)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_plain
+
+    parts = dict.fromkeys(("c", "out2", "pred2", "out3", "pred3"), 0.0)
+    worst = 0.0
+    for (m, k, n) in GEMM_SHAPES:
+        for xdtype in ("float32", "bfloat16"):
+            x, w = gemm_operands(dev, m, k, n, xdtype)
+            inj = torch.tensor([[m - 1, n // 3, 1, 75.0], [5, 7, 1, -30.0]])
+            for inject in (None, inj):
+                got = ft_matmul(x, w, inject=inject)
+                want = ft_matmul_plain(x, w, inject=inject)
+                msg = []
+                for part in parts:
+                    g = getattr(got, part).float()
+                    r = getattr(want, part).float()
+                    step = BF16_STEP if (part == "c"
+                                         and xdtype == "bfloat16") \
+                        else GEMM_TOL
+                    err = (g - r).abs().max().item()
+                    tol = step * r.abs().max().item()
+                    check(err <= tol, f"ft_matmul vs plain {(m, k, n)} "
+                                      f"{xdtype} {part}: {err} > {tol}")
+                    parts[part] = max(parts[part], err)
+                    worst = max(worst, err / tol)
+                    msg.append(f"{part} {err:.3e} ({err / tol:.2f} of tol)")
+                log(f"ft_matmul vs plain {(m, k, n)} x {xdtype} inject="
+                    f"{inject is not None}: " + ", ".join(msg))
+            del x, w, got, want
+    rng = np.random.default_rng(SEED)
+    x = torch.tensor(rng.integers(-4, 5, (256, 128)), dtype=torch.float32,
+                     device=dev)
+    w = torch.tensor(rng.integers(-4, 5, (128, 128)), dtype=torch.float32,
+                     device=dev)
+    inj = torch.tensor([[171.0, 40.0, 1.0, 333.0], [3.0, 127.0, 1.0, -50.0]])
+    for bm, bk, bn in ((128, 128, 128), (64, 64, 64), (128, 64, 128),
+                       (64, 128, 64)):
+        for inject in (None, inj):
+            got = ft_matmul(x, w, bm=bm, bk=bk, bn=bn, inject=inject)
+            want = ft_matmul_plain(x, w, inject=inject)
+            for part in parts:
+                check(torch.equal(getattr(got, part), getattr(want, part)),
+                      f"ft_matmul integer operands tiles {(bm, bk, bn)} "
+                      f"inject={inject is not None}: {part} not bitwise")
+    x, w = gemm_operands(dev, *GEMM_SHAPES[0])
+    a, b = ft_matmul(x, w), ft_matmul(x, w)
+    for part in parts:
+        check(torch.equal(getattr(a, part), getattr(b, part)),
+              f"ft_matmul: two calls differ in {part}")
+    log("ft_matmul: integer operands bitwise equal to the plain version "
+        "over 4 tile shapes x (clean, injected); two calls bitwise equal")
+    return parts, worst
+
+
+def gemm_time_phase(dev, cuda_ms):
+    """(d) CUDA-event times of ``ft_matmul``, its plain version,
+    ``torch.matmul`` and the plan's unchecked and checked products.
+    Returns one row per case."""
+    import torch
+    from repro_torch.core.gemm import GEMMSpec, plan
+    from repro_torch.core.plan import FTConfig
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_plain
+
+    rows = []
+    cases = [(shape, "float32") for shape in GEMM_SHAPES]
+    cases.append((GEMM_SHAPES[0], "bfloat16"))
+    for (m, k, n), xdtype in cases:
+        x, w = gemm_operands(dev, m, k, n, xdtype)
+        xf = x.float()        # torch.matmul takes one dtype: the promoted
+        ms = cuda_ms(lambda: ft_matmul(x, w), iters=10, warmup=2)
+        plain = cuda_ms(lambda: ft_matmul_plain(x, w), iters=10, warmup=2)
+        lib = cuda_ms(lambda: torch.matmul(xf, w), iters=10, warmup=2)
+        # each input read once, each output written once: x, w, xsum and
+        # xloc in; c and the four strips out
+        nbytes = (x.numel() * x.element_size() + w.numel() * 4
+                  + 2 * k * 4 + m * n * x.element_size() + 4 * n * 4)
+        flops = 2 * m * k * n + 4 * k * n + 3 * m * n
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        p = plan(GEMMSpec((m, k, n), dtype=xdtype,
+                          ft=FTConfig(threshold=GEMM_FT_THRESHOLD)))
+        mm = cuda_ms(lambda: p.matmul(x, w), iters=10, warmup=2)
+        ft = cuda_ms(lambda: p.ft_matmul(x, w), iters=10, warmup=2)
+        row = {"shape": [m, k, n], "x": xdtype, "w": "float32", "ms": ms,
+               "plain_ms": plain, "library_ms": lib,
+               "bound_ms": max(tb, tf),
+               "bound_by": "bytes" if tb >= tf else "operations",
+               "tflops": flops / ms / 1e9, "plan_matmul_ms": mm,
+               "plan_ft_matmul_ms": ft, "ft_overhead": ft / mm - 1}
+        rows.append(row)
+        log(f"times ft_matmul {(m, k, n)} x {xdtype}: kernel {ms:.4f} ms "
+            f"({row['tflops']:.1f} TFLOP/s), plain {plain:.4f} ms, "
+            f"torch.matmul {lib:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); plan.matmul {mm:.4f} ms, plan.ft_matmul "
+            f"{ft:.4f} ms (checked-GEMM overhead {ft / mm - 1:+.1%})")
+        del x, w, xf
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -96,6 +408,7 @@ def main() -> int:
     from repro_torch.core.fft import FFTSpec, FTConfig, plan
     from repro_torch.core.ft import poisson_schedule
     from repro_torch.kernels import _build
+    from repro_torch.kernels.ft_matmul import ft_matmul
     from repro_torch.kernels.stockham import block_fft, block_fft_plain
     from repro_torch.kernels.stockham_abft import abft_fft, abft_fft_plain
 
@@ -145,9 +458,10 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    # ---- phases 2 and 3: the main path, launch counts from this run only
+    # ---- phases 2 and 3: the FFT path, launch counts from this run only
     block_fft.launches = 0
     abft_fft.launches = 0
+    ft_matmul.launches = 0
     path_rows = []
     per_call = {"block_fft": {}, "abft_fft": {}}   # launches of one call
 
@@ -226,15 +540,30 @@ def main() -> int:
         path_rows.append((dtype, logn, b, p, x))
     torch.cuda.synchronize()
     launches = {"block_fft": block_fft.launches,
-                "abft_fft": abft_fft.launches}
-    log(f"main-path launches per call: {json.dumps(per_call)}")
-    log(f"main-path launches, whole run: {json.dumps(launches)}; SEU "
+                "abft_fft": abft_fft.launches,
+                "ft_matmul": ft_matmul.launches}
+    log(f"FFT path launches per call: {json.dumps(per_call)}")
+    log(f"FFT path launches, whole run: {json.dumps(launches)}; SEU "
         f"campaign {json.dumps(seu)}")
-    check(all(v > 0 for v in launches.values()),
+    check(launches["block_fft"] > 0 and launches["abft_fft"] > 0,
           f"a kernel of the path was never launched: {launches}")
     check(seu["injected"] > 0 and seu["injected"] == seu["detected"]
           == seu["located"] == seu["corrected"] and seu["false_alarms"] == 0,
           f"SEU campaign: {seu}")
+
+    # ---- phases 2b and 3b: the checked-GEMM path, counts from this run only
+    block_fft.launches = 0
+    abft_fft.launches = 0
+    ft_matmul.launches = 0
+    gemm_seu = gemm_plan_phase(dev)
+    mlp_seu, mlp_per_call = mlp_phase(dev)
+    torch.cuda.synchronize()
+    gemm_launches = {"block_fft": block_fft.launches,
+                     "abft_fft": abft_fft.launches,
+                     "ft_matmul": ft_matmul.launches}
+    log(f"GEMM path launches, whole run: {json.dumps(gemm_launches)}")
+    check(gemm_launches["ft_matmul"] > 0,
+          f"a kernel of the path was never launched: {gemm_launches}")
 
     # ---- phase 4: each kernel against its plain version on the card, with
     # the plan's own stages and device tables
@@ -356,6 +685,11 @@ def main() -> int:
             f"torch.fft.fft {lib:.4f} ms")
     del path_rows
 
+    # ---- phases 4b and 5b: ft_matmul against its plain version; times
+    gemm_parts, gemm_ratio = gemm_kernel_phase(dev)
+    gemm_rows = gemm_time_phase(dev, cuda_ms)
+    main_row = gemm_rows[0]
+
     kernels = [
         {"name": "block_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_fft.cu",
@@ -377,6 +711,19 @@ def main() -> int:
          "bound_by": abft_bound[1], "library_ms": None,
          "torch_fft_ms": lib_ms, "overhead_vs_block_fft":
              abft_ms / blk_ms - 1},
+        {"name": "ft_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ft_matmul.cu",
+         "replaces": "src/repro/kernels/ft_matmul.py:149",
+         "launches": gemm_launches["ft_matmul"],
+         "launches_per_call": {"plan.ft_matmul": 1,
+                               "protected MLP block": mlp_per_call},
+         "max_abs_err": max(gemm_parts.values()),
+         "max_abs_err_parts": gemm_parts, "max_err_over_tol": gemm_ratio,
+         "shape": main_row["shape"], "ms": main_row["ms"],
+         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+         "bound_by": main_row["bound_by"],
+         "library_ms": main_row["library_ms"], "times": gemm_rows,
+         "seu": {"plan": gemm_seu, "mlp": mlp_seu}},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

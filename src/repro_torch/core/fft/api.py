@@ -29,31 +29,6 @@ _COMPLEX_DTYPES = {"complex64": torch.complex64,
                    "complex128": torch.complex128}
 
 
-def _dtype_name(dtype) -> str:
-    if isinstance(dtype, torch.dtype):
-        return str(dtype).rsplit(".", 1)[-1]
-    name = getattr(dtype, "name", None)        # numpy dtypes and scalar types
-    if name is None and isinstance(dtype, type):
-        name = dtype.__name__
-    return str(name if name is not None else dtype)
-
-
-def _resolve_device(device: str) -> torch.device:
-    """The spec's device, checked: a CUDA request without a card raises (it
-    never runs on the CPU instead)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"FFTSpec.device={device!r} but no CUDA device is available "
-                f"— pass device='cpu' to run the kernels' plain versions")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"FFTSpec.device must be cuda or cpu, got {device!r}")
-    return dev
-
-
 @dataclasses.dataclass(frozen=True)
 class FFTSpec:
     """Frozen, hashable description of one batched FFT workload.
@@ -83,7 +58,7 @@ class FFTSpec:
             raise ValueError(f"FFTSpec.shape must be a non-empty tuple of "
                              f"positive sizes, got {self.shape!r}")
         object.__setattr__(self, "shape", shape)
-        dt = _dtype_name(self.dtype)
+        dt = planbase.dtype_name(self.dtype)
         if dt not in _COMPLEX_DTYPES:
             raise ValueError(
                 f"FFTSpec.dtype must be one of {tuple(_COMPLEX_DTYPES)} "
@@ -133,8 +108,8 @@ def spec_for(x, *, rank: int = 1, ft: FTConfig | None = None,
     ``device``; real dtypes map to ``complex64``."""
     x = torch.as_tensor(x)
     dt = x.dtype if x.is_complex() else torch.complex64
-    return FFTSpec(shape=tuple(x.shape), dtype=_dtype_name(dt), rank=rank,
-                   ft=ft, device=str(device))
+    return FFTSpec(shape=tuple(x.shape), dtype=planbase.dtype_name(dt),
+                   rank=rank, ft=ft, device=str(device))
 
 
 @planbase.register_plan_type(FFTSpec)
@@ -157,7 +132,7 @@ class FFTPlan(planbase.Plan):
         self.tshape = spec.tshape
         self.batch = spec.batch
         self.n = math.prod(self.tshape)
-        self.device = _resolve_device(spec.device)
+        self.device = planbase.resolve_device(spec.device, "FFTSpec")
         self.decomp = "local"
         self.groups = None
         n = self.tshape[0]

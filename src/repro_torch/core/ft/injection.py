@@ -101,6 +101,18 @@ class FaultSchedule:
                                     dtype=torch.float32)
         return torch.tensor([0, 0, 0, 0, 0.0, 0.0], dtype=torch.float32)
 
+    def for_step_gemm(self, step: int) -> torch.Tensor:
+        """(1, 5) float32 GEMM fault descriptor ``[site, row, col, enable,
+        eps]`` for ``step`` (all zeros, disabled, if none): the ``tile``
+        field addresses the protected-matmul *site* and ``eps_re`` is the
+        real perturbation (GEMM activations are real). Feed it to
+        ``models.layers.FTContext(inject=...)``."""
+        for (s, tile, row, col, er, _ei) in self.entries:
+            if s == step:
+                return torch.tensor([[tile, row, col, 1, er]],
+                                    dtype=torch.float32)
+        return torch.zeros((1, 5), dtype=torch.float32)
+
     @property
     def num_faults(self) -> int:
         return len(self.entries)

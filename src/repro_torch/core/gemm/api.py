@@ -1,0 +1,229 @@
+"""GEMM plan family on the shared op-agnostic plan layer (``core.plan``).
+
+The paper's ABFT is derived from the GEMV view of the DFT — the same
+two-side checksum scheme protects any ``Y = X @ W``. This module is the
+plan/execute front door for checked GEMMs, mirroring ``core.fft.api``:
+
+* :class:`GEMMSpec` — frozen, hashable description of one matmul workload
+  ``(M, K, N)`` plus an optional :class:`~repro_torch.core.plan.FTConfig`
+  and the device it runs on;
+* :class:`GEMMPlan` — resolved once per spec (registered on the shared
+  registry, cached by the shared LRU): picks the ABFT backend and binds
+  ``matmul`` / ``ft_matmul`` executors;
+* backends: ``"eager"`` is the two-side ABFT in torch ops
+  (:mod:`repro_torch.core.abft.gemm`, the reference's ``"xla"``),
+  ``"fused"`` the CUDA kernel (:mod:`repro_torch.kernels.ft_matmul`, the
+  reference's ``"pallas"``) whose checksum strips are decoded by the SAME
+  :func:`decode_columns`, so the two backends agree by construction.
+  ``"auto"`` resolves to ``"fused"`` when the dims are tile-aligned and the
+  plan runs on a card, to ``"eager"`` otherwise, as the reference's takes
+  the Pallas kernel only on the TPU. On a CPU plan ``"fused"`` runs the
+  kernel's plain torch version.
+
+Injection descriptors are ``(4,)`` (or ``(F, 4)``) float rows
+``[row, col, enable, eps]`` — ``enable`` lets one fixed program arm or
+disarm a fault per step
+(:meth:`repro_torch.core.ft.injection.FaultSchedule.for_step_gemm`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core import plan as planbase
+from repro_torch.core.plan import FTConfig
+from repro_torch.core.abft import gemm as abft_gemm
+from repro_torch.core.abft.encoding import EPS
+from repro_torch.kernels import ft_matmul as ft_kernel
+
+__all__ = ["GEMMSpec", "GEMMPlan", "spec_for", "plan"]
+
+_BACKENDS = ("auto", "eager", "fused")
+
+
+@dataclasses.dataclass(frozen=True)
+class GEMMSpec:
+    """Frozen, hashable description of one ``(M, K) @ (K, N)`` workload.
+
+    ``shape`` is ``(M, K, N)`` with M the token axis the checksums ride
+    (batched ``(B, T, K)`` activations flatten to ``M = B * T`` — use
+    :func:`spec_for`). ``dtype`` is the activations' floating dtype. ``ft``
+    attaches the shared :class:`FTConfig`; ``backend`` picks the ABFT
+    implementation (see module docstring); ``tiles`` are the fused kernel's
+    ``(bm, bk, bn)`` block sizes. ``device`` is where the plan runs:
+    ``"cuda"`` (the kernel) by default, ``"cpu"`` for the plain versions.
+    Equal specs hash equal and hit the same cached :class:`GEMMPlan`.
+    """
+
+    shape: tuple[int, int, int]
+    dtype: str = "float32"
+    ft: FTConfig | None = None
+    backend: str = "auto"
+    tiles: tuple[int, int, int] = (128, 128, 128)
+    device: str = "cuda"
+
+    def __post_init__(self):
+        shape = tuple(int(s) for s in self.shape)
+        if len(shape) != 3 or any(s <= 0 for s in shape):
+            raise ValueError(f"GEMMSpec.shape must be (M, K, N) positive "
+                             f"sizes, got {self.shape!r}")
+        object.__setattr__(self, "shape", shape)
+        dt = planbase.dtype_name(self.dtype)
+        if not isinstance(getattr(torch, dt, None), torch.dtype) \
+                or not getattr(torch, dt).is_floating_point:
+            raise ValueError(f"GEMMSpec.dtype must be a floating dtype, "
+                             f"got {self.dtype!r}")
+        object.__setattr__(self, "dtype", dt)
+        if self.backend not in _BACKENDS:
+            raise ValueError(f"GEMMSpec.backend must be one of {_BACKENDS}, "
+                             f"got {self.backend!r}")
+        tiles = tuple(int(t) for t in self.tiles)
+        if len(tiles) != 3 or any(t <= 0 for t in tiles):
+            raise ValueError(f"GEMMSpec.tiles must be (bm, bk, bn) positive "
+                             f"sizes, got {self.tiles!r}")
+        object.__setattr__(self, "tiles", tiles)
+        if self.ft is not None and not isinstance(self.ft, FTConfig):
+            raise TypeError(f"GEMMSpec.ft must be an FTConfig or None, "
+                            f"got {type(self.ft).__name__}")
+        object.__setattr__(self, "device", str(torch.device(self.device)))
+
+
+def _tile_aligned(shape, tiles) -> bool:
+    (m, k, n), (bm, bk, bn) = shape, tiles
+    return m % bm == 0 and k % bk == 0 and n % bn == 0
+
+
+@planbase.register_plan_type(GEMMSpec)
+class GEMMPlan(planbase.Plan):
+    """Resolved executor bundle for one :class:`GEMMSpec`.
+
+    ``backend`` is the resolved ABFT implementation and ``device`` the
+    resolved device; :meth:`matmul` is the unchecked product,
+    :meth:`ft_matmul` the checked one (requires ``spec.ft``). ``volume`` is
+    the analytic flop model: the checked product adds four rank-1 GEMVs
+    and the output strips, O(MK + KN + MN) against the product's 2MKN.
+    """
+
+    def __init__(self, spec: GEMMSpec):
+        super().__init__(spec)
+        m, k, n = spec.shape
+        self.device = planbase.resolve_device(spec.device, "GEMMSpec")
+        backend = spec.backend
+        aligned = _tile_aligned(spec.shape, spec.tiles)
+        if backend == "auto":
+            backend = ("fused" if aligned and self.device.type == "cuda"
+                       else "eager")
+        if backend == "fused" and not aligned:
+            raise ValueError(
+                f"GEMMSpec(backend='fused') needs tile-aligned dims: "
+                f"shape={spec.shape} vs tiles={spec.tiles} — use "
+                f"backend='eager' (or 'auto', which falls back)")
+        if backend == "fused" and self.device.type == "cuda":
+            bm, bk, bn = spec.tiles
+            ft_kernel.check_kernel_tiles(bm, bn, bk)
+        self.backend = backend
+        self.volume = {"flops": 2 * m * k * n}
+        if spec.ft is not None:
+            # e2/e3 input GEMVs (4mk) + predicted strips (4kn) + output
+            # strips (3mn) + per-column decode (O(n))
+            self.volume["checksum_flops"] = 4 * m * k + 4 * k * n + 3 * m * n
+
+    def describe(self) -> dict:
+        d = super().describe()
+        m, k, n = self.spec.shape
+        d.update(m=m, k=k, n=n, backend=self.backend,
+                 dtype=self.spec.dtype, tiles=self.spec.tiles,
+                 device=str(self.device))
+        return d
+
+    # -- executors ---------------------------------------------------------
+    def matmul(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Unchecked ``x @ w`` with the operands' promoted dtype (the
+        baseline the overhead is measured against)."""
+        self._check_operands(x, w)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return torch.matmul(x.to(dt), w.to(dt))
+
+    def ft_matmul(self, x: torch.Tensor, w: torch.Tensor, *, inject=None):
+        """Checked ``x @ w`` -> ``(y, stats)`` (see
+        :func:`repro_torch.core.abft.gemm.decode_columns` for the stats
+        contract). ``inject`` is a ``(4,)``/``(F, 4)`` ``[row, col, enable,
+        eps]`` descriptor; rows index the flattened token axis."""
+        cfg = self.spec.ft
+        if cfg is None:
+            raise ValueError("ft_matmul on a plan without an FTConfig — "
+                             "build the GEMMSpec with ft=FTConfig(...)")
+        self._check_operands(x, w)
+        inj = _normalize_inject(inject, x.device)
+        if self.backend == "fused":
+            bm, bk, bn = self.spec.tiles
+            return _ft_matmul_fused(
+                x, w, inj, bm=bm, bn=bn, bk=bk,
+                threshold=cfg.threshold, with_correction=cfg.correct)
+        # eager: fold enable into eps -> the eager path's (F, 3) rows
+        inj3 = torch.stack([inj[:, 0], inj[:, 1], inj[:, 2] * inj[:, 3]],
+                           dim=-1)
+        return abft_gemm.ft_matmul(x, w, threshold=cfg.threshold,
+                                   with_correction=cfg.correct, inject=inj3)
+
+    __call__ = matmul
+
+    def _check_operands(self, x, w):
+        m, k, n = self.spec.shape
+        got = (int(math.prod(x.shape[:-1])), int(x.shape[-1]),
+               int(w.shape[-1]))
+        if w.dim() != 2 or int(w.shape[0]) != k or got != (m, k, n):
+            raise ValueError(f"operands {tuple(x.shape)} @ {tuple(w.shape)} "
+                             f"do not match GEMMSpec.shape (M, K, N)="
+                             f"{(m, k, n)}")
+        for name, t in (("x", x), ("w", w)):
+            if t.device.type != self.device.type:
+                raise ValueError(f"operand {name} is on {t.device}, the plan "
+                                 f"runs on {self.device}")
+
+    def __repr__(self):
+        s = self.spec
+        return (f"GEMMPlan(shape={s.shape}, dtype={s.dtype}, "
+                f"backend={self.backend!r}, device={str(self.device)!r}, "
+                f"ft={s.ft is not None})")
+
+
+# the reference's _normalize_inject: one descriptor form for both backends
+_normalize_inject = ft_kernel.inject_rows
+
+
+def _ft_matmul_fused(x, w, inj, *, bm, bn, bk, threshold, with_correction):
+    x2 = x.reshape(-1, x.shape[-1])
+    t = x2.shape[0]
+    res = ft_kernel.ft_matmul(x2, w, bm=bm, bn=bn, bk=bk, inject=inj)
+    d2 = res.pred2 - res.out2
+    d3 = res.pred3 - res.out3
+    scale = torch.sqrt(torch.mean(res.out2 * res.out2)) + EPS
+    y, stats = abft_gemm.decode_columns(
+        res.c, d2, d3, scale, t=t, threshold=threshold,
+        with_correction=with_correction)
+    return y.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype), stats
+
+
+def spec_for(x: torch.Tensor, w: torch.Tensor, *, ft: FTConfig | None = None,
+             backend: str = "auto",
+             tiles: tuple[int, int, int] = (128, 128, 128),
+             device=None) -> GEMMSpec:
+    """Build the :class:`GEMMSpec` describing ``x @ w`` (flattening batched
+    activation leading axes into M), on ``x``'s device unless ``device``
+    says otherwise."""
+    m = int(math.prod(x.shape[:-1]))
+    return GEMMSpec(shape=(m, int(x.shape[-1]), int(w.shape[-1])),
+                    dtype=planbase.dtype_name(x.dtype), ft=ft,
+                    backend=backend, tiles=tiles,
+                    device=str(x.device if device is None else device))
+
+
+def plan(spec: GEMMSpec) -> GEMMPlan:
+    """Shared-cache lookup (see :func:`repro_torch.core.plan.plan`)."""
+    if not isinstance(spec, GEMMSpec):
+        raise TypeError(f"core.gemm.plan() takes a GEMMSpec, got "
+                        f"{type(spec).__name__}")
+    return planbase.plan(spec)

@@ -23,8 +23,41 @@ import dataclasses
 import functools
 import threading
 
+import torch
+
 __all__ = ["FTConfig", "Plan", "plan", "register_plan_type",
-           "plan_cache_info", "plan_cache_clear", "plan_cache_keys"]
+           "plan_cache_info", "plan_cache_clear", "plan_cache_keys",
+           "dtype_name", "resolve_device"]
+
+
+def dtype_name(dtype) -> str:
+    """The name of a torch, numpy or string dtype (``"float32"``,
+    ``"complex64"``, ...), the form a frozen spec stores."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).rsplit(".", 1)[-1]
+    name = getattr(dtype, "name", None)        # numpy dtypes and scalar types
+    if name is None and isinstance(dtype, type):
+        name = dtype.__name__
+    return str(name if name is not None else dtype)
+
+
+def resolve_device(device, owner: str) -> torch.device:
+    """A spec's device, checked: a CUDA request without a card raises (it
+    never runs on the CPU instead); ``"cuda"`` resolves to the current
+    card. ``owner`` names the spec class in the messages."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{owner}.device={str(device)!r} but no CUDA device is "
+                f"available — pass device='cpu' to run the kernels' plain "
+                f"versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"{owner}.device must be cuda or cpu, "
+                         f"got {str(device)!r}")
+    return dev
 
 
 @dataclasses.dataclass(frozen=True)

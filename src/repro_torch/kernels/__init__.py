@@ -3,8 +3,10 @@
 stockham.py       -- block FFT (csrc/block_fft.cu) + its plain torch version
 stockham_abft.py  -- + fused two-sided ABFT (csrc/abft_fft.cu), one CTA per
                      checksum group looping over its transactions
+ft_matmul.py      -- fused two-side ABFT GEMM (csrc/ft_matmul.cu) + its
+                     plain torch version; the core.gemm plan runs it
 ops.py            -- public entry points (fft / ifft / ft_fft)
-ref.py            -- torch.fft oracles for the tests
+ref.py            -- torch.fft / torch.matmul oracles for the tests
 _build.py         -- nvcc at first use, ctypes loading
 """
 from . import ops, ref

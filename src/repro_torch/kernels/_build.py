@@ -19,7 +19,7 @@ from pathlib import Path
 
 __all__ = ["KERNELS", "build", "library_path", "load", "nvcc"]
 
-KERNELS = ("block_fft", "abft_fft")
+KERNELS = ("block_fft", "abft_fft", "ft_matmul")
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"

@@ -10,15 +10,21 @@ conftest:
 Tolerance: the suite's ``ATOL[dtype] * max|ref|`` (4e-5 complex64, 1e-11
 complex128); the kernel and its plain version sum in different orders. The
 fused kernel's checksums are held row by row (each part, each group), and
-its per-signal divergence elementwise (see ``_check_abft``).
+its per-signal divergence elementwise (see ``_check_abft``). The GEMM
+kernel ``ft_matmul``: bitwise on integer-valued operands (every sum exact);
+on random ones each float32 part to 1e-4 * its max (float32 sums of up to
+K = 1024 terms in another order than cuBLAS's), a bfloat16 ``c`` to one
+bf16 step, 2^-7 * max|c|.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import gemm
 from repro_torch.core.fft import FFTSpec, FTConfig, make_plan, plan
 from repro_torch.core.fft.plan import plan_from_reference
 from repro_torch.kernels import ops
+from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_plain
 from repro_torch.kernels.stockham import (block_fft, block_fft_plain,
                                           stage_tables)
 from repro_torch.kernels.stockham_abft import abft_fft, abft_fft_plain
@@ -154,3 +160,98 @@ def test_ft_fft_detect_locate_correct_on_card(cuda, dtype):
                          ft=FTConfig())).ft_fft(x)
     assert not clean.flagged.any()
     _close(clean.y, want)
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: ft_matmul
+# ---------------------------------------------------------------------------
+
+GEMM_PARTS = ("c", "out2", "pred2", "out3", "pred3")
+
+
+def _int_mats(m, k, n, seed=0):
+    rng = np.random.default_rng(seed + m + 3 * k + 7 * n)
+    x = rng.integers(-4, 5, (m, k)).astype(np.float32)
+    w = rng.integers(-4, 5, (k, n)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("inject", [None, [[171.0, 40.0, 1.0, 333.0],
+                                           [3.0, 127.0, 1.0, -50.0],
+                                           [9.0, 9.0, 0.0, 70.0]]])
+@pytest.mark.parametrize("tiles", [(128, 128, 128), (64, 64, 64),
+                                   (128, 64, 128), (64, 128, 64)])
+def test_ft_matmul_kernel_bitwise_on_integers(cuda, tiles, inject):
+    bm, bk, bn = tiles
+    x, w = _int_mats(256, 128, 128)
+    inj = None if inject is None else torch.tensor(inject)
+    before = ft_matmul.launches
+    got = ft_matmul(x.to(cuda), w.to(cuda), bm=bm, bk=bk, bn=bn, inject=inj)
+    assert ft_matmul.launches == before + 1
+    want = ft_matmul_plain(x, w, inject=inj)
+    for part in GEMM_PARTS:
+        assert torch.equal(getattr(got, part).cpu(), getattr(want, part)), \
+            part
+
+
+@pytest.mark.parametrize("xdtype,wdtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)])
+def test_ft_matmul_kernel_matches_plain_random(cuda, xdtype, wdtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(512, 1024, device=cuda, generator=gen).to(xdtype)
+    w = torch.randn(1024, 384, device=cuda, generator=gen).to(wdtype)
+    inj = torch.tensor([[300.0, 200.0, 1.0, 90.0]])
+    got = ft_matmul(x, w, inject=inj)
+    want = ft_matmul_plain(x, w, inject=inj)
+    assert got.c.dtype == xdtype
+    for part in GEMM_PARTS:
+        g, r = getattr(got, part).float(), getattr(want, part).float()
+        step = 2.0 ** -7 if (part == "c" and xdtype == torch.bfloat16) \
+            else 1e-4
+        err = (g - r).abs().max().item()
+        assert err <= step * r.abs().max().item(), (part, err)
+
+
+def test_ft_matmul_kernel_is_deterministic(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(1024, 512, device=cuda, generator=gen)
+    w = torch.randn(512, 1024, device=cuda, generator=gen)
+    a, b = ft_matmul(x, w), ft_matmul(x, w)
+    for part in GEMM_PARTS:
+        assert torch.equal(getattr(a, part), getattr(b, part)), part
+
+
+def test_ft_matmul_kernel_rejects_what_it_does_not_take(cuda):
+    x, w = torch.zeros(256, 128, device=cuda), torch.zeros(128, 128,
+                                                           device=cuda)
+    with pytest.raises(ValueError, match="tile-aligned"):
+        ft_matmul(x[:100], w)
+    with pytest.raises(ValueError, match="bm, bn in"):
+        ft_matmul(x, w, bm=32)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        ft_matmul(x.half(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        ft_matmul(x, w.t())
+    with pytest.raises(ValueError, match="one device"):
+        ft_matmul(x, w.cpu())
+
+
+def test_gemm_plan_auto_takes_the_kernel_on_cuda(cuda):
+    x, w = _int_mats(256, 128, 256)
+    x, w = x.to(cuda), w.to(cuda)
+    cfg = FTConfig(threshold=1e-3)
+    p = gemm.plan(gemm.spec_for(x, w, ft=cfg))
+    assert p.backend == "fused" and p.device.type == "cuda"
+    eager = gemm.plan(gemm.spec_for(x, w, ft=cfg, backend="eager"))
+    inj = torch.tensor([[200.0, 31.0, 1.0, 500.0], [5.0, 250.0, 1.0, -70.0]])
+    before = ft_matmul.launches
+    y, s = p.ft_matmul(x, w, inject=inj)
+    assert ft_matmul.launches == before + 1
+    ye, se = eager.ft_matmul(x, w, inject=inj)
+    assert ft_matmul.launches == before + 1       # eager: no kernel
+    assert torch.equal(y, x @ w) and torch.equal(ye, y)
+    for key in ("flagged", "corrected", "uncorrectable"):
+        assert float(s[key]) == float(se[key]) == (0.0 if key ==
+                                                    "uncorrectable" else 2.0)
+    assert gemm.plan(gemm.spec_for(x[:100], w, ft=cfg)).backend == "eager"
