@@ -18,9 +18,12 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   ``FTContext`` with a Poisson fault schedule over its three sites.
 
 It then holds each kernel against its plain torch version on the card at
-the paths' shapes (``ft_matmul`` also bitwise on integer operands and across
-repeated calls) and times kernel, plain version and the library call
-(``torch.fft``, ``torch.matmul``) with CUDA events. The last two lines are
+the paths' shapes (``block_fft`` in every pass's real layout, with its pass
+twiddle; ``ft_matmul`` also bitwise on integer operands and across repeated
+calls), times kernel, plain version and the library call (``torch.fft``,
+``torch.matmul``) with CUDA events, and runs one ``plan.fft`` call of each
+FFT case under ``torch.profiler``, which must show exactly one CUDA kernel
+per pass, all ``block_fft``. The last two lines are
 the ``kernels`` JSON and ``{"ok": true, "device": ...}``. Any failed check
 raises and exits non-zero; without a CUDA device it exits 1 and prints no
 result.
@@ -406,6 +409,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core.fft import FFTSpec, FTConfig, plan
+    from repro_torch.core.fft.plan import pass_layouts
     from repro_torch.core.ft import poisson_schedule
     from repro_torch.kernels import _build
     from repro_torch.kernels.ft_matmul import ft_matmul
@@ -457,6 +461,40 @@ def main() -> int:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    def host_ms(fn, iters=20):
+        """Host time per call of ``fn``: the Python dispatch and the
+        launches, without waiting for the device (the queue stays short)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / iters * 1e3
+
+    def device_kernels(fn, want=None, attempts=3):
+        """(name, device ms) of every CUDA kernel one call of ``fn`` runs,
+        from torch.profiler after a warm-up call. With ``want``, up to
+        ``attempts`` calls are traced until one shows ``want`` kernels (the
+        tracer can drop an event; an extra kernel shows every time)."""
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        for _ in range(attempts):
+            with torch.profiler.profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kern = [(e.name, e.time_range.elapsed_us() / 1e3)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            if want is None or len(kern) == want:
+                break
+            log(f"torch.profiler traced {len(kern)} kernels, not {want}: "
+                f"{[k for k, _ in kern]}")
+        return kern
 
     # ---- phases 2 and 3: the FFT path, launch counts from this run only
     block_fft.launches = 0
@@ -566,43 +604,50 @@ def main() -> int:
           f"a kernel of the path was never launched: {gemm_launches}")
 
     # ---- phase 4: each kernel against its plain version on the card, with
-    # the plan's own stages and device tables
+    # the plan's own stages and device tables: every pass of every FFT case
+    # in its real layout and with its pass twiddle, and the checksum FFT of
+    # the FT cases on its (G, N) rows
     kerr = {"block_fft": 0.0, "abft_fft": 0.0}
     kratio = {"block_fft": 0.0, "abft_fft": 0.0}   # worst err / tolerance
-    seen = set()
     for dtype, logn, b, p, _ in path_rows:
         pl = p.local_plan
         if p.spec.ft is not None:     # the checksum FFT on (G, N)
-            shapes = [(0, b // (min(pl.bs, b) * FT_TRANSACTIONS), False)]
+            rows = b // (min(pl.bs, b) * FT_TRANSACTIONS)
+            checks = [(0, False, rows, None)]
         else:
-            shapes = [(i, b * pl.n // pl.kernel_factors[i], inverse)
-                      for i in range(pl.num_passes)
-                      for inverse in (False, True)]
-        for i, rows, inverse in shapes:
-            f, stages = pl.kernel_factors[i], pl.stages[i]
-            tables = p.tables[inverse][i]
-            key = (dtype, f, rows, inverse)
-            if key in seen:
-                continue
-            seen.add(key)
-            x = randn((rows, f), dtype)
-            scale = 1.0 / f if inverse else 1.0
-            got = block_fft(x, stages, inverse=inverse, scale=scale,
-                            tables=tables)
-            want = block_fft_plain(x, stages, inverse=inverse,
-                                   scale=scale)
+            checks = [(i, inverse, b, lay)
+                         for i, lay in enumerate(pass_layouts(
+                             b, pl.kernel_factors))
+                         for inverse in (False, True)]
+        for i, inverse, rows, lay in checks:
+            stages = pl.stages[i]
+            last = i == pl.num_passes - 1
+            kw = dict(inverse=inverse, tables=p.tables[inverse][i],
+                      scale=1.0 / pl.n if inverse and i == 0 else 1.0,
+                      layout=lay,
+                      twiddle=None if last else p.twiddles[inverse][i])
+            n = pl.n if lay is not None else pl.kernel_factors[i]
+            x = randn((rows, n), dtype)
+            got = block_fft(x, stages, out=torch.empty_like(x), **kw)
+            kw.pop("tables")
+            want = block_fft_plain(x, stages, out=torch.empty_like(x), **kw)
             err = max_err(got, want)
             tol = ATOL[dtype] * want.abs().max().item()
-            check(err <= tol, f"block_fft vs plain {key}: {err} > {tol}")
+            what = (f"block_fft pass {i}/{pl.num_passes} {dtype} "
+                    f"2^{logn}x{b} inverse={inverse} "
+                    f"{lay if lay is not None else (rows, n)}")
+            check(err <= tol, f"{what} vs plain: {err} > {tol}")
             kerr["block_fft"] = max(kerr["block_fft"], err)
             kratio["block_fft"] = max(kratio["block_fft"], err / tol)
-            ms = cuda_ms(lambda: block_fft(x, stages, inverse=inverse,
-                                           scale=scale, tables=tables),
+            del got, want
+            kw["tables"] = p.tables[inverse][i]
+            out = torch.empty_like(x)
+            ms = cuda_ms(lambda: block_fft(x, stages, out=out, **kw),
                          iters=5, warmup=1)
             gbps = 2 * x.numel() * x.element_size() / ms / 1e6
-            log(f"block_fft {dtype} ({rows}, {f}) inverse={inverse}: "
-                f"{ms:.4f} ms, {gbps:.1f} GB/s; err {err:.3e} tol {tol:.3e}")
-            del x, got, want
+            log(f"{what}: {ms:.4f} ms, {gbps:.1f} GB/s; err {err:.3e} tol "
+                f"{tol:.3e}")
+            del x, out
     abft_parts = dict.fromkeys(ABFT_PARTS, 0.0)
     for dtype, logn, b in FT_CASES:
         n = 1 << logn
@@ -660,6 +705,10 @@ def main() -> int:
         return (tb, "bytes") if tb >= tf else (tf, "operations")
 
     blk_ms = cuda_ms(lambda: block_fft(x, stages, tables=tables))
+    blk_dev = [ms for _, ms in device_kernels(
+        lambda: [block_fft(x, stages, tables=tables) for _ in range(10)])]
+    blk_dev_ms = sum(blk_dev) / len(blk_dev)
+    blk_host_ms = host_ms(lambda: block_fft(x, stages, tables=tables))
     blk_plain = cuda_ms(lambda: block_fft_plain(x, stages), iters=5)
     lib_ms = cuda_ms(lambda: torch.fft.fft(x))
     abft_kw = dict(bs=bs, transactions=FT_TRANSACTIONS, per_signal=False)
@@ -672,17 +721,47 @@ def main() -> int:
     path_fft_ms = cuda_ms(lambda: p_fft.fft(x))
     path_ft_ms = cuda_ms(lambda: p_ft.ft_fft(x))
     log(f"times at {dtype} N=2^{logn} B={b} (bs={bs}, T={FT_TRANSACTIONS}, "
-        f"G={groups}): block_fft {blk_ms:.4f} ms, abft_fft {abft_ms:.4f} ms "
+        f"G={groups}): block_fft {blk_ms:.4f} ms (device {blk_dev_ms:.4f} "
+        f"ms over {len(blk_dev)} kernels, host {blk_host_ms:.4f} ms a "
+        f"call), abft_fft {abft_ms:.4f} ms "
         f"(kernel overhead {abft_ms / blk_ms - 1:+.1%}), torch.fft "
         f"{lib_ms:.4f} ms; plan.fft {path_fft_ms:.4f} ms, plan.ft_fft "
         f"{path_ft_ms:.4f} ms (end-to-end overhead "
         f"{path_ft_ms / path_fft_ms - 1:+.1%})")
     del x
+    # every FFT case: plan.fft by CUDA events and under torch.profiler (it
+    # must run exactly one CUDA kernel per pass, all block_fft), beside
+    # torch.fft and the bound of its passes (each reads and writes every
+    # point once)
+    fft_shapes = []
     for dtype_c, logn_c, b_c, p, xc in path_rows[:len(FFT_CASES)]:
+        pl = p.local_plan
+        nbytes = 2 * xc.numel() * xc.element_size()
         port = cuda_ms(lambda: p.fft(xc), iters=5, warmup=1)
         lib = cuda_ms(lambda: torch.fft.fft(xc), iters=5, warmup=1)
-        log(f"path {dtype_c} N=2^{logn_c} B={b_c}: plan.fft {port:.4f} ms, "
-            f"torch.fft.fft {lib:.4f} ms")
+        kern = device_kernels(lambda: p.fft(xc), want=pl.num_passes)
+        host = host_ms(lambda: p.fft(xc))
+        label = f"plan.fft {dtype_c} 2^{logn_c}x{b_c}"
+        check(len(kern) == pl.num_passes
+              and all("block_fft" in k for k, _ in kern),
+              f"{label} under torch.profiler: {len(kern)} CUDA kernels for "
+              f"{pl.num_passes} passes: {[k for k, _ in kern]}")
+        tb = pl.num_passes * nbytes / HBM_BYTES_PER_S * 1e3
+        tf = sum(5 * b_c * pl.n * (f.bit_length() - 1)
+                 for f in pl.kernel_factors) / PEAK_FLOPS[dtype_c] * 1e3
+        row = {"dtype": dtype_c, "shape": [b_c, pl.n],
+               "passes": pl.num_passes, "plan_fft_ms": port,
+               "torch_fft_ms": lib, "kernel_ms": [ms for _, ms in kern],
+               "host_ms": host,
+               "bound_ms": max(tb, tf),
+               "bound_by": "bytes" if tb >= tf else "operations",
+               "one_trip_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        fft_shapes.append(row)
+        log(f"path {label}: plan.fft {port:.4f} ms (bound of its "
+            f"{pl.num_passes} passes {row['bound_ms']:.4f} ms; host "
+            f"{host:.4f} ms a call), torch.fft.fft {lib:.4f} ms; "
+            f"torch.profiler: " + ", ".join(
+                f"{k[:72]} {ms:.4f} ms" for k, ms in kern))
     del path_rows
 
     # ---- phases 4b and 5b: ft_matmul against its plain version; times
@@ -698,8 +777,10 @@ def main() -> int:
          "launches_per_call": per_call["block_fft"],
          "max_abs_err": kerr["block_fft"],
          "max_err_over_tol": kratio["block_fft"], "ms": blk_ms,
+         "device_ms": blk_dev_ms, "host_ms": blk_host_ms,
          "plain_ms": blk_plain, "bound_ms": blk_bound[0],
-         "bound_by": blk_bound[1], "library_ms": lib_ms},
+         "bound_by": blk_bound[1], "library_ms": lib_ms,
+         "shapes": fft_shapes},
         {"name": "abft_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/abft_fft.cu",
          "replaces": "src/repro/kernels/stockham_abft.py:119",

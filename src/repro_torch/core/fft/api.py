@@ -116,16 +116,18 @@ def spec_for(x, *, rank: int = 1, ft: FTConfig | None = None,
 class FFTPlan(planbase.Plan):
     """Pre-resolved executor bundle for one :class:`FFTSpec`.
 
-    The constructor resolves the device, the local stage plan and the stage
-    tables of every pass in each direction (uploaded to the device once,
-    kept here: ``tables[inverse][i]`` for pass i), and binds the executors
-    to them, so the executors decide nothing. Construct via :func:`plan`
-    (LRU-cached on the spec), not directly.
+    The constructor resolves the device, the local stage plan, the stage
+    tables of every pass and the pass twiddle tables of every pass but the
+    last, in each direction (uploaded to the device once, kept here:
+    ``tables[inverse][i]`` and ``twiddles[inverse][i]`` for pass i), and
+    binds the executors to them, so the executors decide nothing. Construct
+    via :func:`plan` (LRU-cached on the spec), not directly.
     """
 
     def __init__(self, spec: FFTSpec):
         from repro_torch.kernels import ops as _ops  # lazy: ops imports this
-        from repro_torch.kernels.stockham import stage_tables
+        from repro_torch.kernels.stockham import (pass_twiddle_table,
+                                                  stage_tables)
 
         super().__init__(spec)
         self.rank = spec.rank
@@ -144,11 +146,22 @@ class FFTPlan(planbase.Plan):
                            for st in self.local_plan.stages)
             for inverse in (False, True)
         }
+        facs = self.local_plan.kernel_factors
+        self.twiddles = {
+            inverse: tuple(pass_twiddle_table(math.prod(facs[i:]), dtype,
+                                              inverse=inverse,
+                                              device=self.device)
+                           for i in range(len(facs) - 1))
+            for inverse in (False, True)
+        }
         self._fwd = functools.partial(_ops._fft_impl, plan=self.local_plan,
                                       tables=self.tables[False],
+                                      twiddles=self.twiddles[False],
                                       inverse=False)
         self._inv = functools.partial(_ops._fft_impl, plan=self.local_plan,
-                                      tables=self.tables[True], inverse=True)
+                                      tables=self.tables[True],
+                                      twiddles=self.twiddles[True],
+                                      inverse=True)
 
     def _coerce(self, x):
         """Match the plan's complex dtype and device (real inputs are

@@ -17,6 +17,7 @@ __all__ = [
     "dft_matrix_ri",
     "stage_twiddle",
     "stage_twiddle_ri",
+    "pass_twiddle",
     "wang_encoding",
     "ones_encoding",
     "location_encoding",
@@ -66,6 +67,26 @@ def stage_twiddle(r: int, m: int, *, inverse: bool = False) -> np.ndarray:
 def stage_twiddle_ri(r: int, m: int, dtype=np.float32, *, inverse: bool = False):
     t = stage_twiddle(r, m, inverse=inverse)
     return t.real.astype(dtype), t.imag.astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def pass_twiddle(m: int, *, inverse: bool = False) -> tuple[np.ndarray, int]:
+    """The pass twiddle w_M^e, e < M, as two short tables with the exponent
+    split into low and high halves: ``(table, log_l)`` with ``table`` =
+    ``lo`` (L = 2^log_l entries, ``lo[j] = w_M^j``) then ``hi`` (M / L
+    entries, ``hi[j] = w_M^(j*L)``), so that ``w_M^e = lo[e % L] *
+    hi[e // L]``. L = 2^ceil(log2(M) / 2): about 2 sqrt(M) entries in all,
+    built in float64 with the angle reduced exactly mod M.
+    """
+    if m <= 0 or m & (m - 1):
+        raise ValueError(f"M must be a power of two, got {m}")
+    log_m = m.bit_length() - 1
+    log_l = (log_m + 1) // 2
+    sign = 1.0 if inverse else -1.0
+    lo = np.arange(1 << log_l)
+    hi = (np.arange(m >> log_l) << log_l) % m
+    ang = sign * 2.0 * np.pi * np.concatenate([lo, hi]) / m
+    return np.cos(ang) + 1j * np.sin(ang), log_l
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,13 @@
 
 Each kernel-level factor is one global-memory round trip: a batched block
 FFT along one axis of the tiled signal cube, a twiddle multiply (table
-precomputed on host), and a transpose. Here the transposes are materialized
-by torch; folding them and the twiddle into the block kernel's access
-pattern, so each pass is one launch, is later work (ROADMAP).
+precomputed on host), and a transpose. This module is the eager oracle and
+materializes the transposes with torch. The kernel path
+(``kernels.ops._fft_multipass``) folds them and the twiddle into the block
+kernel's access pattern instead: each pass is one launch in the layout
+``plan.pass_layouts`` gives it, reading its signals strided, applying the
+pass twiddle on the way out and (the last pass) writing the output
+transposed, with the same index maps as here.
 """
 from __future__ import annotations
 

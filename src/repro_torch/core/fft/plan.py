@@ -6,15 +6,16 @@ threadblock-level cube (what fits in shared memory), plus the per-thread batch.
 On an H100 the same decisions are:
 
 * ``kernel_factors`` — split N into 1-3 factors; each factor is one
-  global-memory round trip (a batched block FFT along that axis + twiddle +
-  transpose), the paper's 1/2/3-kernel-launch regimes. One signal of up to
+  global-memory round trip, one block-FFT launch along that axis with the
+  twiddle and the transpose folded into its layout (:func:`pass_layouts`),
+  the paper's 1/2/3-kernel-launch regimes. One signal of up to
   ``MAX_BLOCK_N`` points stays in one CTA's shared memory (64 KiB at
   complex64, 128 KiB at complex128, both under the 227 KB a CTA can hold);
 * ``stages`` — the mixed-radix decomposition of each factor. Each stage is a
   thread-level radix-r butterfly held in registers, so radices stay <= 16
   (the paper's register FFT); the bits of N are spread evenly over the
   fewest such stages, larger radices first (8192 -> 16*8*8*8), which keeps
-  the per-element cost of the direct r-point DFTs (sum of the radices) low;
+  the number of shared-memory exchanges low;
 * ``bs`` — signals per transaction tile of the fused ABFT kernel, picked so
   that the G = B / (bs * T) checksum groups (one CTA each) fill the card's
   132 SMs where the batch allows.
@@ -30,8 +31,8 @@ import functools
 import math
 from typing import Sequence
 
-__all__ = ["Plan", "StagePlan", "make_plan", "block_radices",
-           "plan_from_reference", "MAX_BLOCK_N"]
+__all__ = ["Plan", "StagePlan", "PassLayout", "make_plan", "block_radices",
+           "pass_layouts", "plan_from_reference", "MAX_BLOCK_N"]
 
 # Largest signal length executed in a single shared-memory block FFT, for
 # both complex64 (64 KiB) and complex128 (128 KiB).
@@ -87,6 +88,82 @@ class Plan:
             "*".join(str(s.radix) for s in st) for st in self.stages
         )
         return f"Plan(N={self.n}={facs}, radices=[{rads}], bs={self.bs})"
+
+
+@dataclasses.dataclass(frozen=True)
+class PassLayout:
+    """How one block-FFT launch addresses its signals in flat storage.
+
+    ``axes`` are up to three signal axes, slowest first, each
+    ``(count, in_stride, out_stride)``; signal ``(i0, i1, i2)`` starts at
+    ``sum(i_a * in_stride_a)`` in the input and ``sum(i_a * out_stride_a)``
+    in the output. ``point_in``/``point_out`` are the strides between the
+    points of one signal. The pass twiddle of a launch (when it has one) is
+    ``w_M^(k * i)``, ``i`` the signal's index along the last (fastest) axis
+    and ``M`` the point count times that axis's count.
+    """
+
+    axes: tuple[tuple[int, int, int], ...]
+    point_in: int = 1
+    point_out: int = 1
+
+    @classmethod
+    def rows(cls, batch: int, n: int) -> "PassLayout":
+        """``batch`` contiguous rows of ``n`` points, in and out."""
+        return cls(axes=((batch, n, n),))
+
+    @property
+    def signals(self) -> int:
+        return math.prod(a[0] for a in self.axes)
+
+    @property
+    def fast_count(self) -> int:
+        """Count of the fastest signal axis (the pass twiddle's index)."""
+        return self.axes[-1][0]
+
+
+def _merged(axes) -> tuple[tuple[int, int, int], ...]:
+    """Drop count-1 axes and fuse neighbours that address as one axis."""
+    out: list[tuple[int, int, int]] = []
+    for c, si, so in axes:
+        if c == 1:
+            continue
+        if out and out[-1][1] == c * si and out[-1][2] == c * so:
+            pc = out.pop()[0]
+            c = pc * c
+        out.append((c, si, so))
+    return tuple(out) or ((1, 0, 0),)
+
+
+@functools.lru_cache(maxsize=256)
+def pass_layouts(batch: int, kernel_factors: tuple[int, ...]
+                 ) -> tuple[PassLayout, ...]:
+    """The layout of each pass of a P-pass transform of ``batch`` signals
+    of N = prod(kernel_factors) points (the paper's N1 x N2 (x N3)).
+
+    Pass i < P-1 transforms along n_i, the signals' stride the product of
+    the later factors, and writes back in the same layout (its twiddle
+    index is n_rest, the fastest axis). The last pass reads contiguous rows
+    and writes the output transposed, ``y[b, k_P*f1*..*f_{P-1} + ... +
+    k2*f1 + k1]``; its fastest axis is k1, stride 1 on the output side.
+    """
+    facs = tuple(int(f) for f in kernel_factors)
+    n = math.prod(facs)
+    p = len(facs)
+    if p == 1:
+        return (PassLayout.rows(batch, n),)
+    after = [math.prod(facs[j + 1:]) for j in range(p)]
+    layouts = []
+    for i in range(p - 1):
+        axes = [(batch, n, n)]
+        axes += [(facs[j], after[j], after[j]) for j in range(i)]
+        axes.append((after[i], 1, 1))
+        layouts.append(PassLayout(_merged(axes), after[i], after[i]))
+    axes = [(batch, n, n)]
+    axes += [(facs[j], after[j], math.prod(facs[:j]))
+             for j in range(p - 2, -1, -1)]
+    layouts.append(PassLayout(_merged(axes), 1, math.prod(facs[:-1])))
+    return tuple(layouts)
 
 
 def block_radices(n: int) -> tuple[int, ...]:

@@ -1,101 +1,742 @@
-// block_fft: batched single-pass C2C FFT over the last axis, (B, N) -> (B, N).
+// block_fft: batched C2C FFT of power-of-two length N <= 8192, one launch per
+// pass of a (multi-pass) transform.
 //
 // Replaces the TPU kernel block_fft_pallas (src/repro/kernels/stockham.py,
 // body _fft_kernel), which runs the plan's stages on a VMEM-resident (bs, N)
-// tile with 4 real MXU matmuls per stage on split re/im arrays.
+// tile with 4 real MXU matmuls per stage on split re/im arrays, and which the
+// JAX level wraps in materialised transposes and a twiddle multiply for
+// N > 8192.
 //
-// Here one CTA loads a tile of whole signals (up to kTileElems interleaved
-// complex points: 64 KiB at complex64, 128 KiB at complex128) into dynamic
-// shared memory, runs the radix <= 16 register butterflies of
-// stockham.cuh in place, and writes the points back in natural order. The
-// grid covers the batch; the last CTA masks the ragged end, so there is no
-// B % bs restriction. The inverse uses the conjugate tables and multiplies
-// by `scale` on the way out: the caller passes 1/N of the whole transform to
-// exactly one launch of it.
+// What a launch computes. Signal q of the launch is addressed through a
+// layout descriptor: up to three signal axes (count, input stride, output
+// stride; the last axis is the fastest) and a point stride on each side.
+// Each signal is read once, transformed through the plan's stages, times
+// `scale`, times the optional pass twiddle w_M^(k * i) (k the output point,
+// i the signal's index along the fastest axis, M = N * that axis's count),
+// and written once. A P-pass transform is P such launches with no other
+// work between them (repro_torch.core.fft.plan.pass_layouts gives the
+// layouts); a single pass is one signal axis of contiguous rows.
 //
 // Bound on an H100: bytes. The function reads x once and writes y once,
-// 2*B*N*sizeof(complex) at 3.35 TB/s; 5*N*log2(N) flops per signal are far
-// below the fp32/fp64 peaks at N <= 8192. The design touches device memory
-// once per point each way, with consecutive threads on consecutive points
-// (coalesced loads and stores); the stage tables (about 2N points) are read
-// through the read-only cache and stay in L2 across CTAs. The direct r-point
-// DFTs and the shared-memory round trip per stage are the costs a later
-// optimisation removes.
+// 2 * B * N * sizeof(complex) at 3.35 TB/s; 5 N log2 N flops per signal are
+// far below the fp32/fp64 peaks at N <= 8192. The design, the paper's
+// template (a thread-level FFT in registers, a threadblock-level exchange
+// through shared memory):
+//
+// * One CTA holds a tile of S whole signals, S * N <= 8192 points (64 KiB at
+//   complex64, 128 KiB at complex128), and runs N / 16 * S threads, each
+//   holding 16 points of every stage in registers.
+// * Each stage of radix r <= 16 is 16 / r register codelets per thread with
+//   compile-time twiddles (+-i, sqrt(1/2), cos and sin of pi/8), in place in
+//   the thread's registers: no DFT matrix, no table loads inside a
+//   butterfly. The stage twiddles T[k1, n2] of a butterfly come from
+//   log2(r) reads of the plan's flat stage table (T at k1 = 1, 2, 4, 8; its
+//   W_r parts are skipped) and one product per further bit of k1.
+// * The exchange between stages goes through shared memory in place, under
+//   an XOR swizzle of the point index that keeps every stage's reads and
+//   writes, the staging copies and the final reorder at most 2-way bank
+//   conflicted. The digit reversal is folded into the last stage's stores.
+// * Global loads and stores are 16 bytes a thread, coalesced. Rows (point
+//   stride 1) go straight into the first stage's registers (complex64 lane
+//   pairs load two columns and swap halves with one shuffle per row);
+//   strided columns and every output go through a staging copy in shared
+//   memory, complex64 as pairs of points (two of a row, or one point of two
+//   neighbouring signals). A CTA takes consecutive signals along the
+//   fastest axis, so every point row of a strided pass is one contiguous
+//   run (S * 8 bytes or more). Row loads and all stores stream (evict
+//   first); strided column loads are cached, so the rest of each line is
+//   still in L2 when the neighbouring CTA reads it.
+// * The pass twiddle is two table loads (the exponent split into high and
+//   low halves, both tables built in float64 on the host) and two complex
+//   multiplies on the way out.
+// * No spills: 64 registers a thread at complex64 (two 512-thread CTAs an
+//   SM), 128 at complex128 (one 128 KiB CTA an SM).
+//
+// Plans with a radix above 16 (the reference's radix-128 plans) take the
+// generic stages of stockham.cuh (a direct DFT against the table) on an
+// unswizzled tile, then a register reorder: correct, not fast.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "stockham.cuh"
 
 namespace turbofft {
+namespace blockfft {
 
-template <typename R>
-__global__ void __launch_bounds__(kThreads)
-block_fft_kernel(const typename Cplx<R>::T* __restrict__ x,
-                 typename Cplx<R>::T* __restrict__ y,
-                 const typename Cplx<R>::T* __restrict__ tables,
-                 long long batch, int log_n, int sigs, int nst,
-                 unsigned long long logr, R scale) {
-  using V = typename Cplx<R>::T;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  V* s = reinterpret_cast<V*>(smem_raw);
+constexpr int kStoreUnroll = 2;                // store iterations unrolled
+constexpr int kTile = 8192;                    // points per CTA tile
+constexpr int kPts = 16;                       // points per thread and stage
+constexpr int kMaxThreads = kTile / kPts;      // 512
 
-  const int n = 1 << log_n;
-  const long long b0 = (long long)blockIdx.x * sigs;
-  const long long left = batch - b0;
-  const int nsig = left < sigs ? (int)left : sigs;
-  const int tot = nsig << log_n;
-  const V* xb = x + b0 * n;
-  V* yb = y + b0 * n;
+// The launch's layout, as the host packs it (16 x int64, see block_fft_c64).
+struct Desc {
+  long long cnt[3], in[3], out[3];   // signal axes, slowest first
+  long long pin, pout, total;        // point strides; signals in all
+  int sigs, log_sigs;                // signals per CTA (a power of two)
+  int vec_in, vec_out;               // complex64: 16-byte pairs allowed
+};
 
-  for (int i = threadIdx.x; i < tot; i += blockDim.x) s[i] = xb[i];
-  __syncthreads();
-  stockham_stages<V>(s, nsig, log_n, tables, nst, logr);
-  for (int i = threadIdx.x; i < tot; i += blockDim.x) {
-    const int k = i & (n - 1);
-    yb[i] = cscale(s[(i - k) + digit_rev(k, nst, logr)], scale);
+template <typename V> struct Traits;
+template <> struct Traits<float2> {
+  using R = float;
+  static constexpr int kMinBlocks = 2;           // 64 registers a thread
+  // 16 banks of 8-byte words a half-warp: XOR bits 4-7 and 8-11 into 0-3
+  __device__ __forceinline__ static int swz(int e) {
+    return e ^ (((e >> 4) ^ (e >> 8)) & 15);
+  }
+};
+template <> struct Traits<double2> {
+  using R = double;
+  static constexpr int kMinBlocks = 1;           // 128 KiB tiles
+  // 8 banks of 16-byte words a quarter-warp: XOR bits 3-5, 6-8, 9-11
+  __device__ __forceinline__ static int swz(int e) {
+    return e ^ (((e >> 3) ^ (e >> 6) ^ (e >> 9)) & 7);
+  }
+};
+
+template <typename V, bool SWZ>
+__device__ __forceinline__ int slot(int e) {
+  if constexpr (SWZ) {
+    return Traits<V>::swz(e);
+  } else {
+    return e;
   }
 }
 
-template <typename R>
-int launch_block_fft(const void* x, void* y, const void* tables,
-                     long long batch, int log_n, int nst,
-                     unsigned long long logr, double scale, void* stream) {
-  using V = typename Cplx<R>::T;
-  if (batch <= 0) return (int)cudaSuccess;
-  const int n = 1 << log_n;
-  long long sigs = n >= kTileElems ? 1 : kTileElems / n;
-  if (sigs > batch) sigs = batch;
-  const size_t smem = (size_t)sigs * n * sizeof(V);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_fft_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long grid = (batch + sigs - 1) / sigs;
-  block_fft_kernel<R><<<(unsigned)grid, kThreads, smem,
-                        (cudaStream_t)stream>>>(
-      (const V*)x, (V*)y, (const V*)tables, batch, log_n, (int)sigs, nst,
-      logr, (R)scale);
+template <typename V>
+__device__ __forceinline__ V csub(V a, V b) {
+  a.x -= b.x;
+  a.y -= b.y;
+  return a;
+}
+
+// a * (-i) in the forward direction, a * (+i) in the inverse
+template <typename V, bool INV>
+__device__ __forceinline__ V mul_mi(V a) {
+  V r;
+  if constexpr (INV) {
+    r.x = -a.y;
+    r.y = a.x;
+  } else {
+    r.x = a.y;
+    r.y = -a.x;
+  }
+  return r;
+}
+
+// cos(2 pi j / 16); folds to a literal when j is a compile-time constant
+__device__ __forceinline__ double cos16(int j) {
+  switch (j & 15) {
+    case 0: return 1.0;
+    case 1: case 15: return 0.92387953251128675613;
+    case 2: case 14: return 0.70710678118654752440;
+    case 3: case 13: return 0.38268343236508977173;
+    case 4: case 12: return 0.0;
+    case 5: case 11: return -0.38268343236508977173;
+    case 6: case 10: return -0.70710678118654752440;
+    case 7: case 9: return -0.92387953251128675613;
+    default: return -1.0;
+  }
+}
+
+// v * w_RAD^e, w_RAD = exp(-2 pi i / RAD) forward, its conjugate inverse
+template <typename V, int RAD, bool INV>
+__device__ __forceinline__ V rot(V v, int e) {
+  using R = typename Traits<V>::R;
+  e &= RAD - 1;
+  if (e == 0) return v;
+  if (4 * e == RAD) return mul_mi<V, INV>(v);
+  if (2 * e == RAD) {
+    v.x = -v.x;
+    v.y = -v.y;
+    return v;
+  }
+  if (4 * e == 3 * RAD) return mul_mi<V, !INV>(v);
+  const int j = e * (16 / RAD);
+  const R c = (R)cos16(j);
+  const R s = INV ? -(R)cos16(j - 4) : (R)cos16(j - 4);   // sin(2 pi j/16)
+  V r;
+  r.x = v.x * c + v.y * s;
+  r.y = v.y * c - v.x * s;
+  return r;
+}
+
+// In-register DFT of RAD points, in place: input n in z[n], output k in
+// z[slot(k)]. RAD = A * B: n = B*n1 + n2, A-point DFTs over n1, twiddle
+// w_RAD^(k1*n2), B-point DFTs over n2, output k = k1 + A*k2 (the plan's
+// own index convention) left in z[B*k1 + k2]; the caller's compile-time
+// indices absorb that transposition, so no temporary array is live.
+template <typename V, bool INV, int RAD>
+struct Fft {
+  static constexpr int A = RAD == 8 ? 2 : 4;
+  static constexpr int B = RAD / A;
+  __host__ __device__ static constexpr int slot(int k) {
+    return B * (k % A) + k / A;
+  }
+  __device__ __forceinline__ static void run(V* z) {
+#pragma unroll
+    for (int n2 = 0; n2 < B; ++n2) {
+      V a[A];
+#pragma unroll
+      for (int n1 = 0; n1 < A; ++n1) a[n1] = z[B * n1 + n2];
+      Fft<V, INV, A>::run(a);
+#pragma unroll
+      for (int k1 = 0; k1 < A; ++k1)
+        z[B * k1 + n2] = rot<V, RAD, INV>(a[Fft<V, INV, A>::slot(k1)],
+                                         k1 * n2);
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < A; ++k1) {
+      V b[B];
+#pragma unroll
+      for (int n2 = 0; n2 < B; ++n2) b[n2] = z[B * k1 + n2];
+      Fft<V, INV, B>::run(b);
+#pragma unroll
+      for (int k2 = 0; k2 < B; ++k2)
+        z[B * k1 + k2] = b[Fft<V, INV, B>::slot(k2)];
+    }
+  }
+};
+
+template <typename V, bool INV>
+struct Fft<V, INV, 2> {
+  __host__ __device__ static constexpr int slot(int k) { return k; }
+  __device__ __forceinline__ static void run(V* z) {
+    const V t = z[0];
+    z[0] = cadd(t, z[1]);
+    z[1] = csub(t, z[1]);
+  }
+};
+
+template <typename V, bool INV>
+struct Fft<V, INV, 4> {
+  __host__ __device__ static constexpr int slot(int k) { return k; }
+  __device__ __forceinline__ static void run(V* z) {
+    const V t0 = cadd(z[0], z[2]), t1 = csub(z[0], z[2]);
+    const V t2 = cadd(z[1], z[3]), t3 = mul_mi<V, INV>(csub(z[1], z[3]));
+    z[0] = cadd(t0, t2);
+    z[2] = csub(t0, t2);
+    z[1] = cadd(t1, t3);
+    z[3] = csub(t1, t3);
+  }
+};
+
+template <int RAD> struct Log2;
+template <> struct Log2<2> { static constexpr int v = 1; };
+template <> struct Log2<4> { static constexpr int v = 2; };
+template <> struct Log2<8> { static constexpr int v = 3; };
+template <> struct Log2<16> { static constexpr int v = 4; };
+
+// Output point of the value at in-place position `pos` after stages
+// 0..nst-1 (log2 of their product: log_n): the inverse of digit_rev().
+__device__ __forceinline__ int natural_index(int pos, int nst,
+                                             unsigned long long logr,
+                                             int log_n) {
+  int k = 0, wbits = log_n;
+  for (int st = nst - 1; st >= 0; --st) {
+    const int l = stage_log_radix(logr, st);
+    wbits -= l;
+    k |= (pos & ((1 << l) - 1)) << wbits;
+    pos >>= l;
+  }
+  return k;
+}
+
+// A butterfly's outputs back to the tile: row k1 times the stage twiddle
+// T[k1, n2] to slot(base + k1*m). T[k1, n2] = T[1, n2]^k1 is formed from
+// T at the powers of two k1 = 2^b (log2 RAD table loads), one product per
+// further set bit of k1.
+template <typename V, bool INV, int RAD>
+__device__ __forceinline__ void twiddle_store(V* s, const V* z, int base,
+                                              int log_m, int n2,
+                                              const V* __restrict__ tw) {
+  using F = Fft<V, INV, RAD>;
+  constexpr int lr = Log2<RAD>::v;
+  s[slot<V, true>(base)] = z[F::slot(0)];
+  V w[lr];
+#pragma unroll
+  for (int b = 0; b < lr; ++b) w[b] = __ldg(&tw[((1 << b) << log_m) + n2]);
+#pragma unroll
+  for (int k = 1; k < RAD; ++k) {
+    V t;
+    bool first = true;
+#pragma unroll
+    for (int b = 0; b < lr; ++b) {
+      if (k & (1 << b)) {
+        t = first ? w[b] : cmul(t, w[b]);
+        first = false;
+      }
+    }
+    s[slot<V, true>(base + (k << log_m))] = cmul(z[F::slot(k)], t);
+  }
+}
+
+// A stage that is not the last: butterfly i reads points base + j*m of the
+// swizzled tile, runs the codelet and writes row k1 times T[k1, n2] back to
+// the same places, so the stage is in place.
+template <typename V, bool INV, int RAD>
+__device__ __forceinline__ void stage_mid(V* s, int nbf, int log_m,
+                                          int log_ns,
+                                          const V* __restrict__ tw) {
+  const int m = 1 << log_m;
+  // one butterfly at a time: its RAD points and twiddles are the thread's
+  // whole working set (unrolling would spill)
+#pragma unroll 1
+  for (int i = threadIdx.x; i < nbf; i += blockDim.x) {
+    const int n2 = i & (m - 1);
+    const int base = ((i >> log_m) << log_ns) + n2;
+    V z[RAD];
+#pragma unroll
+    for (int j = 0; j < RAD; ++j) z[j] = s[slot<V, true>(base + (j << log_m))];
+    Fft<V, INV, RAD>::run(z);
+    twiddle_store<V, INV, RAD>(s, z, base, log_m, n2, tw);
+  }
+}
+
+// The first stage straight from global memory, for rows (point stride 1):
+// butterfly i of signal j reads x[row j + n1*m + n2], n1 < RAD, every load
+// of the thread issued before its first codelet, each load instruction of a
+// warp a few contiguous runs. Saves the staging round trip through shared
+// memory and its barrier. complex128 points are 16 bytes each. complex64
+// threads work in lane pairs (butterflies n2, n2 + 1 of one signal): each
+// loads 16-byte pairs of both columns, the even lane rows 0..RAD/2-1, the
+// odd lane the rest, and one shuffle per row swaps the halves.
+template <typename V, bool INV, int RAD>
+__device__ __forceinline__ void stage_first_rows(V* s, const V* x,
+                                                 long long base, long long st,
+                                                 int nsig, int nbf,
+                                                 int log_m, int log_n,
+                                                 const V* __restrict__ tw) {
+  constexpr int kPer = kPts / RAD;
+  const int m = 1 << log_m;
+  V z[kPer][RAD];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int i = threadIdx.x + q * blockDim.x;
+    const int j = i >> log_m;
+    const bool live = i < nbf && j < nsig;
+    if constexpr (std::is_same<V, float2>::value) {
+      constexpr int kHalf = RAD / 2;
+      const bool odd = threadIdx.x & 1;
+      const float4* xv = reinterpret_cast<const float4*>(
+          x + base + j * st + ((i & (m - 1)) & ~1)
+          + (odd ? kHalf << log_m : 0));
+      float4 v[kHalf];
+#pragma unroll
+      for (int r = 0; r < kHalf; ++r)
+        v[r] = live ? __ldcs(xv + ((r << log_m) >> 1))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < kHalf; ++r) {
+        const float rx =
+            __shfl_xor_sync(0xffffffffu, odd ? v[r].x : v[r].z, 1);
+        const float ry =
+            __shfl_xor_sync(0xffffffffu, odd ? v[r].y : v[r].w, 1);
+        z[q][r] = odd ? make_float2(rx, ry) : make_float2(v[r].x, v[r].y);
+        z[q][kHalf + r] =
+            odd ? make_float2(v[r].z, v[r].w) : make_float2(rx, ry);
+      }
+    } else {
+      const V* xs = x + base + j * st + (i & (m - 1));
+#pragma unroll
+      for (int r = 0; r < RAD; ++r) {
+        z[q][r].x = 0;
+        z[q][r].y = 0;
+        if (live) z[q][r] = __ldcs(xs + (r << log_m));
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int i = threadIdx.x + q * blockDim.x;
+    if (i < nbf) {
+      const int n2 = i & (m - 1);
+      Fft<V, INV, RAD>::run(z[q]);
+      twiddle_store<V, INV, RAD>(s, z[q], ((i >> log_m) << log_n) + n2,
+                                 log_m, n2, tw);
+    }
+  }
+}
+
+// The last stage (m = 1): every thread reads and transforms all its points,
+// the CTA syncs, and each output goes straight to its natural position (the
+// digit reversal folded into the store addresses). A thread past the
+// tile's butterflies (tiny tiles) reads butterfly 0 and stores nothing, so
+// the loads need no branch and the points stay in registers.
+template <typename V, bool INV, int RAD>
+__device__ __forceinline__ void stage_last(V* s, int nbf, int log_n, int nst,
+                                           unsigned long long logr) {
+  constexpr int kPer = kPts / RAD;
+  constexpr int lr = Log2<RAD>::v;
+  using F = Fft<V, INV, RAD>;
+  V z[kPer][RAD];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int i = threadIdx.x + q * blockDim.x;
+    const int b = i < nbf ? i : 0;
+#pragma unroll
+    for (int j = 0; j < RAD; ++j) z[q][j] = s[slot<V, true>(b * RAD + j)];
+    F::run(z[q]);
+  }
+  __syncthreads();
+  const int lp = log_n - lr;            // log2 of butterflies per signal
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int i = threadIdx.x + q * blockDim.x;
+    if (i < nbf) {
+      const int e0 = ((i >> lp) << log_n)
+                     | natural_index(i & ((1 << lp) - 1), nst - 1, logr, lp);
+#pragma unroll
+      for (int k = 0; k < RAD; ++k)
+        s[slot<V, true>(e0 | (k << lp))] = z[q][F::slot(k)];
+    }
+  }
+}
+
+// Tile point of staging index q: rows (point stride 1) put consecutive
+// q on consecutive points of a signal, other layouts on consecutive signals.
+// With pairs (complex64, 16-byte accesses) q counts pairs: two neighbouring
+// points of one signal, or one point of two neighbouring signals.
+__device__ __forceinline__ void tile_point(int q, bool rows, bool pairs,
+                                           int log_n, int log_sigs, int& j,
+                                           int& p, int& dj, int& dp) {
+  if (rows) {
+    const int e = pairs ? 2 * q : q;
+    j = e >> log_n;
+    p = e & ((1 << log_n) - 1);
+    dj = 0;
+    dp = 1;
+  } else {
+    const int ls = pairs ? log_sigs - 1 : log_sigs;
+    p = q >> ls;
+    j = (q & ((1 << ls) - 1)) << (pairs ? 1 : 0);
+    dj = 1;
+    dp = 0;
+  }
+}
+
+// A global load: rows stream through the caches (evict first); strided
+// columns load normally, so the other half of each 128-byte line, which
+// the neighbouring CTA reads, can still be in L2.
+template <typename T>
+__device__ __forceinline__ T load_point(const T* p, bool rows) {
+  return rows ? __ldcs(p) : *p;
+}
+
+// Global -> tile: tile point (j, p), point p of the CTA's signal j, sits at
+// slot(j*N + p). Every load of a thread is issued before its first shared
+// store (kPts points a thread at most), so each thread keeps up to 128 bytes
+// in flight.
+template <typename V, bool SWZ>
+__device__ __forceinline__ void load_tile(V* s, const V* x, const Desc& d,
+                                          long long base, int nsig,
+                                          int log_n) {
+  const int tile = d.sigs << log_n;
+  const long long st = d.in[2];
+  const bool rows = d.pin == 1;
+  if constexpr (std::is_same<V, float2>::value) {
+    if (d.vec_in) {
+      float4 v[kPts / 2];
+#pragma unroll
+      for (int it = 0; it < kPts / 2; ++it) {
+        const int q = threadIdx.x + it * blockDim.x;
+        int j, p, dj, dp;
+        tile_point(q, rows, true, log_n, d.log_sigs, j, p, dj, dp);
+        v[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q < (tile >> 1) && j < nsig)
+          v[it] = load_point(reinterpret_cast<const float4*>(
+                                 x + base + j * st + p * d.pin),
+                             rows);
+      }
+#pragma unroll
+      for (int it = 0; it < kPts / 2; ++it) {
+        const int q = threadIdx.x + it * blockDim.x;
+        int j, p, dj, dp;
+        tile_point(q, rows, true, log_n, d.log_sigs, j, p, dj, dp);
+        if (q < (tile >> 1)) {
+          s[slot<V, SWZ>((j << log_n) + p)] = make_float2(v[it].x, v[it].y);
+          s[slot<V, SWZ>(((j + dj) << log_n) + p + dp)] =
+              make_float2(v[it].z, v[it].w);
+        }
+      }
+      return;
+    }
+  }
+  V v[kPts];
+#pragma unroll
+  for (int it = 0; it < kPts; ++it) {
+    const int q = threadIdx.x + it * blockDim.x;
+    int j, p, dj, dp;
+    tile_point(q, rows, false, log_n, d.log_sigs, j, p, dj, dp);
+    v[it].x = 0;
+    v[it].y = 0;
+    if (q < tile && j < nsig)
+      v[it] = load_point(x + base + j * st + p * d.pin, rows);
+  }
+#pragma unroll
+  for (int it = 0; it < kPts; ++it) {
+    const int q = threadIdx.x + it * blockDim.x;
+    int j, p, dj, dp;
+    tile_point(q, rows, false, log_n, d.log_sigs, j, p, dj, dp);
+    if (q < tile) s[slot<V, SWZ>((j << log_n) + p)] = v[it];
+  }
+}
+
+// Tile point (j, p) times scale and the pass twiddle w_M^(p * (fast0 + j)):
+// w = lo[e mod L] * hi[e / L], e = p * (fast0 + j) mod M, L = 2^log_l.
+template <typename V, bool SWZ>
+__device__ __forceinline__ V out_value(const V* s, int j, int p, int log_n,
+                                       typename Traits<V>::R scale,
+                                       const V* __restrict__ tw, int log_l,
+                                       unsigned mask_m, long long fast0) {
+  V v = cscale(s[slot<V, SWZ>((j << log_n) + p)], scale);
+  if (tw != nullptr) {
+    const unsigned e = ((unsigned)p * (unsigned)(fast0 + j)) & mask_m;
+    const V w = cmul(__ldg(&tw[e & ((1u << log_l) - 1)]),
+                     __ldg(&tw[(1u << log_l) + (e >> log_l)]));
+    v = cmul(v, w);
+  }
+  return v;
+}
+
+// Tile -> global, the mirror of load_tile with the output strides.
+template <typename V, bool SWZ>
+__device__ __forceinline__ void store_tile(V* y, const V* s, const Desc& d,
+                                           long long base, int nsig,
+                                           int log_n,
+                                           typename Traits<V>::R scale,
+                                           const V* __restrict__ tw,
+                                           int log_l, unsigned mask_m,
+                                           long long fast0) {
+  const int tile = d.sigs << log_n;
+  const long long st = d.out[2];
+  const bool rows = d.pout == 1;
+  if constexpr (std::is_same<V, float2>::value) {
+    if (d.vec_out) {
+#pragma unroll kStoreUnroll
+      for (int it = 0; it < kPts / 2; ++it) {
+        const int q = threadIdx.x + it * blockDim.x;
+        int j, p, dj, dp;
+        tile_point(q, rows, true, log_n, d.log_sigs, j, p, dj, dp);
+        if (q < (tile >> 1) && j < nsig) {
+          const V a = out_value<V, SWZ>(s, j, p, log_n, scale, tw, log_l,
+                                        mask_m, fast0);
+          const V b = out_value<V, SWZ>(s, j + dj, p + dp, log_n, scale, tw,
+                                        log_l, mask_m, fast0);
+          __stcs(reinterpret_cast<float4*>(y + base + j * st + p * d.pout),
+                 make_float4(a.x, a.y, b.x, b.y));
+        }
+      }
+      return;
+    }
+  }
+#pragma unroll kStoreUnroll
+  for (int it = 0; it < kPts; ++it) {
+    const int q = threadIdx.x + it * blockDim.x;
+    int j, p, dj, dp;
+    tile_point(q, rows, false, log_n, d.log_sigs, j, p, dj, dp);
+    if (q < tile && j < nsig)
+      __stcs(y + base + j * st + p * d.pout,
+             out_value<V, SWZ>(s, j, p, log_n, scale, tw, log_l, mask_m,
+                               fast0));
+  }
+}
+
+// x and y may be the same buffer (a pass in place): a CTA reads its whole
+// tile before it writes, and the CTAs' tiles are disjoint. DIRECT: the first
+// stage reads the rows itself (stage_first_rows); a separate instance, so
+// the staged instance's code is not reshaped by it.
+template <typename V, bool INV, bool FAST, bool DIRECT>
+__global__ void __launch_bounds__(kMaxThreads, Traits<V>::kMinBlocks)
+block_fft_kernel(const V* x, V* y, const V* __restrict__ tables,
+                 const V* __restrict__ tw, Desc d, int log_n, int nst,
+                 unsigned long long logr, int log_l, unsigned mask_m,
+                 typename Traits<V>::R scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* s = reinterpret_cast<V*>(smem_raw);
+
+  const long long s0 = (long long)blockIdx.x * d.sigs;
+  const long long left = d.total - s0;
+  const int nsig = left < d.sigs ? (int)left : d.sigs;
+  const long long i2 = s0 % d.cnt[2];
+  const long long rest = s0 / d.cnt[2];
+  const long long i1 = rest % d.cnt[1];
+  const long long i0 = rest / d.cnt[1];
+  const long long ibase = i0 * d.in[0] + i1 * d.in[1] + i2 * d.in[2];
+  const long long obase = i0 * d.out[0] + i1 * d.out[1] + i2 * d.out[2];
+  const int tile = d.sigs << log_n;
+
+  // complex128 rows: the first stage reads them itself
+  if constexpr (!DIRECT) {
+    load_tile<V, FAST>(s, x, d, ibase, nsig, log_n);
+    __syncthreads();
+  }
+  if constexpr (FAST) {
+    const V* tab = tables;
+    int log_ns = log_n;
+    for (int st = 0; st < nst; ++st) {
+      const int lr = stage_log_radix(logr, st);
+      const int log_m = log_ns - lr;
+      const V* tw_st = tab + (1 << (2 * lr));      // skip W_r
+      tab = tw_st + (log_m > 0 ? (1 << log_ns) : 0);
+      const int nbf = tile >> lr;
+      if (DIRECT && st == 0) {
+        switch (lr) {
+          case 1: stage_first_rows<V, INV, 2>(s, x, ibase, d.in[2], nsig, nbf,
+                                              log_m, log_n, tw_st); break;
+          case 2: stage_first_rows<V, INV, 4>(s, x, ibase, d.in[2], nsig, nbf,
+                                              log_m, log_n, tw_st); break;
+          case 3: stage_first_rows<V, INV, 8>(s, x, ibase, d.in[2], nsig, nbf,
+                                              log_m, log_n, tw_st); break;
+          default: stage_first_rows<V, INV, 16>(s, x, ibase, d.in[2], nsig,
+                                                nbf, log_m, log_n, tw_st);
+                   break;
+        }
+      } else if (st + 1 < nst) {
+        switch (lr) {
+          case 1: stage_mid<V, INV, 2>(s, nbf, log_m, log_ns, tw_st); break;
+          case 2: stage_mid<V, INV, 4>(s, nbf, log_m, log_ns, tw_st); break;
+          case 3: stage_mid<V, INV, 8>(s, nbf, log_m, log_ns, tw_st); break;
+          default: stage_mid<V, INV, 16>(s, nbf, log_m, log_ns, tw_st); break;
+        }
+      } else {
+        switch (lr) {
+          case 1: stage_last<V, INV, 2>(s, nbf, log_n, nst, logr); break;
+          case 2: stage_last<V, INV, 4>(s, nbf, log_n, nst, logr); break;
+          case 3: stage_last<V, INV, 8>(s, nbf, log_n, nst, logr); break;
+          default: stage_last<V, INV, 16>(s, nbf, log_n, nst, logr); break;
+        }
+      }
+      __syncthreads();
+      log_ns = log_m;
+    }
+  } else if constexpr (!FAST) {
+    stockham_stages<V>(s, d.sigs, log_n, tables, nst, logr);
+    V v[kPts];
+#pragma unroll
+    for (int q = 0; q < kPts; ++q) {
+      const int e = threadIdx.x + q * blockDim.x;
+      if (e < tile) v[q] = s[e];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kPts; ++q) {
+      const int e = threadIdx.x + q * blockDim.x;
+      if (e < tile) {
+        const int lo = e & ((1 << log_n) - 1);
+        s[(e - lo) | natural_index(lo, nst, logr, log_n)] = v[q];
+      }
+    }
+    __syncthreads();
+  }
+  store_tile<V, FAST>(y, s, d, obase, nsig, log_n, scale, tw, log_l, mask_m,
+                      i2);
+}
+
+template <typename V, bool INV, bool FAST, bool DIRECT>
+int launch(const void* x, void* y, const void* tables, const void* tw,
+           const long long* packed, int log_n, int nst,
+           unsigned long long logr, int tw_log_m, double scale,
+           void* stream) {
+  Desc d;
+  for (int a = 0; a < 3; ++a) {
+    d.cnt[a] = packed[a];
+    d.in[a] = packed[3 + a];
+    d.out[a] = packed[6 + a];
+  }
+  d.pin = packed[9];
+  d.pout = packed[10];
+  d.total = packed[11];
+  d.sigs = (int)packed[12];
+  d.log_sigs = (int)packed[13];
+  d.vec_in = (int)packed[14];
+  d.vec_out = (int)packed[15];
+  if (d.total <= 0) return (int)cudaSuccess;
+  const int tile = d.sigs << log_n;
+  if (tile > kTile || d.sigs != (1 << d.log_sigs))
+    return (int)cudaErrorInvalidValue;
+  const int threads = tile / kPts > 32 ? tile / kPts : 32;
+  const size_t smem = (size_t)tile * sizeof(V);
+  auto kernel = block_fft_kernel<V, INV, FAST, DIRECT>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long grid = (d.total + d.sigs - 1) / d.sigs;
+  const int log_l = (tw_log_m + 1) / 2;
+  const unsigned mask_m =
+      tw_log_m >= 32 ? 0xffffffffu : (unsigned)((1ull << tw_log_m) - 1);
+  kernel<<<(unsigned)grid, threads, smem, (cudaStream_t)stream>>>(
+      (const V*)x, (V*)y, (const V*)tables, (const V*)tw, d, log_n, nst, logr,
+      log_l, mask_m, (typename Traits<V>::R)scale);
   return (int)cudaGetLastError();
 }
 
+template <typename V, bool INV>
+int launch_fast(const void* x, void* y, const void* tables, const void* tw,
+                const long long* desc, int log_n, int nst,
+                unsigned long long logr, int tw_log_m, double scale,
+                void* stream) {
+  // Rows in (point stride 1) and more than one stage: the first stage
+  // reads them itself; complex64 needs its 16-byte pairs aligned.
+  const bool direct = desc[9] == 1 && nst >= 2
+                      && (std::is_same<V, double2>::value || desc[14]);
+  return direct ? launch<V, INV, true, true>(x, y, tables, tw, desc, log_n,
+                                             nst, logr, tw_log_m, scale,
+                                             stream)
+                : launch<V, INV, true, false>(x, y, tables, tw, desc, log_n,
+                                              nst, logr, tw_log_m, scale,
+                                              stream);
+}
+
+template <typename V>
+int dispatch(const void* x, void* y, const void* tables, const void* tw,
+             const long long* desc, int log_n, int nst,
+             unsigned long long logr, int inverse, int fast, int tw_log_m,
+             double scale, void* stream) {
+  if (fast) {
+    return inverse ? launch_fast<V, true>(x, y, tables, tw, desc, log_n, nst,
+                                          logr, tw_log_m, scale, stream)
+                   : launch_fast<V, false>(x, y, tables, tw, desc, log_n,
+                                           nst, logr, tw_log_m, scale,
+                                           stream);
+  }
+  // the generic stages take the direction from the tables
+  return launch<V, false, false, false>(x, y, tables, tw, desc, log_n, nst,
+                                        logr, tw_log_m, scale, stream);
+}
+
+}  // namespace blockfft
 }  // namespace turbofft
 
 extern "C" {
 
-// x, y: (batch, 2^log_n) complex64, contiguous; tables: the plan's flat
-// stage table. Returns the CUDA error code of the launch (0 on success).
-int block_fft_c64(const void* x, void* y, const void* tables, long long batch,
-                  int log_n, int nst, unsigned long long logr, double scale,
-                  void* stream) {
-  return turbofft::launch_block_fft<float>(x, y, tables, batch, log_n, nst,
-                                           logr, scale, stream);
+// One pass over complex64 data. desc: 16 x int64, [count, in stride, out
+// stride] of three signal axes (slowest first, unused axes count 1), point
+// strides in and out, signals in all, signals per CTA and its log2, and the
+// 16-byte-access flags for input and output. tables: the plan's flat stage
+// table in this direction; tw: the pass twiddle table (lo then hi) of
+// M = 2^tw_log_m, or null. fast: every radix <= 16. Returns the CUDA error
+// code of the launch (0 on success).
+int block_fft_c64(const void* x, void* y, const void* tables, const void* tw,
+                  const long long* desc, int log_n, int nst,
+                  unsigned long long logr, int inverse, int fast,
+                  int tw_log_m, double scale, void* stream) {
+  return turbofft::blockfft::dispatch<float2>(x, y, tables, tw, desc, log_n,
+                                              nst, logr, inverse, fast,
+                                              tw_log_m, scale, stream);
 }
 
-// As block_fft_c64 for complex128.
-int block_fft_c128(const void* x, void* y, const void* tables,
-                   long long batch, int log_n, int nst,
-                   unsigned long long logr, double scale, void* stream) {
-  return turbofft::launch_block_fft<double>(x, y, tables, batch, log_n, nst,
-                                            logr, scale, stream);
+// As block_fft_c64 for complex128 (the 16-byte flags are ignored).
+int block_fft_c128(const void* x, void* y, const void* tables, const void* tw,
+                   const long long* desc, int log_n, int nst,
+                   unsigned long long logr, int inverse, int fast,
+                   int tw_log_m, double scale, void* stream) {
+  return turbofft::blockfft::dispatch<double2>(x, y, tables, tw, desc, log_n,
+                                               nst, logr, inverse, fast,
+                                               tw_log_m, scale, stream);
 }
 
 }  // extern "C"

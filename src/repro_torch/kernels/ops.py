@@ -1,9 +1,12 @@
 """Public entry points over the CUDA kernels.
 
 * :func:`fft` / :func:`ifft` — batched FFT over the last axis; single-pass
-  sizes run one block-FFT launch, larger sizes compose the paper's
-  kernel-level N1xN2(xN3) passes around it. The inverse is scaled by 1/N
-  exactly once, in the first pass's launch.
+  sizes run one block-FFT launch, larger sizes the paper's kernel-level
+  N1xN2(xN3) passes, each pass exactly one launch that reads its signals
+  strided, applies the pass twiddle on the way out and (the last pass)
+  writes the output transposed, with no torch operation on the data
+  between launches. The inverse is scaled by 1/N exactly once, in the
+  first pass's launch.
 * :func:`ft_fft` — the full TurboFFT pipeline: fused two-sided-ABFT kernel ->
   detect -> locate -> delayed batched correction. Returns an
   :class:`FTFFTResult` with the corrected outputs and the FT telemetry.
@@ -15,15 +18,14 @@ The entry points build (or LRU-hit) the :class:`~repro_torch.core.fft.api
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Sequence
 
 import torch
 
 from repro_torch.core.abft import twoside
 from repro_torch.core.fft import api as fft_api
-from repro_torch.core.fft import factors as fft_factors
-from repro_torch.core.fft.plan import MAX_BLOCK_N, Plan, StagePlan
+from repro_torch.core.fft.plan import (MAX_BLOCK_N, Plan, StagePlan,
+                                       pass_layouts)
 
 from .stockham import block_fft
 from .stockham_abft import abft_fft
@@ -48,54 +50,48 @@ def _block_fft_c(x2d: torch.Tensor, stages: Sequence[StagePlan],
                      tables=tables)
 
 
-@functools.lru_cache(maxsize=None)
-def _pass_twiddle(f1: int, f2: int, dtype: torch.dtype, inverse: bool,
-                  device: str) -> torch.Tensor:
-    t = torch.as_tensor(fft_factors.stage_twiddle(f1, f2, inverse=inverse))
-    return t.to(dtype=dtype, device=device)
-
-
 def _fft_multipass(x2d: torch.Tensor, plan: Plan,
-                   tables: Sequence[torch.Tensor], *, inverse: bool,
+                   tables: Sequence[torch.Tensor],
+                   twiddles: Sequence[torch.Tensor], *, inverse: bool,
                    scale: float = 1.0) -> torch.Tensor:
-    """Kernel-level N1 x N2 (x N3) composition (paper Fig. 3) around the
-    block kernel: pass i is one transposed batched block FFT through
-    ``plan.stages[i]`` + twiddle. ``scale`` rides the first pass's launch
-    only."""
-
-    def rec(z, i, scale):
-        f1 = plan.kernel_factors[i]
-        if i == plan.num_passes - 1:
-            return _block_fft_c(z.reshape(-1, f1), plan.stages[i], tables[i],
-                                inverse=inverse,
-                                scale=scale).reshape(z.shape)
-        f2 = z.shape[-1] // f1
-        zz = z.reshape(tuple(z.shape[:-1]) + (f1, f2)).transpose(-1, -2)
-        zz = _block_fft_c(zz.reshape(-1, f1), plan.stages[i], tables[i],
-                          inverse=inverse, scale=scale)  # (..., f2, f1)
-        # (..., f1, f2), made contiguous so the twiddle multiplies in place
-        zz = zz.reshape(tuple(z.shape[:-1]) + (f2, f1)).transpose(-1, -2)
-        zz = zz.contiguous()
-        zz.mul_(_pass_twiddle(f1, f2, z.dtype, inverse, str(z.device)))
-        zz = rec(zz, i + 1, 1.0)
-        zz = zz.transpose(-1, -2)
-        return zz.reshape(z.shape)
-
-    return rec(x2d, 0, scale)
+    """Kernel-level N1 x N2 (x N3) composition (paper Fig. 3): pass i is one
+    block-FFT launch through ``plan.stages[i]`` in the layout
+    :func:`~repro_torch.core.fft.plan.pass_layouts` gives it, times the
+    pass twiddle ``twiddles[i]`` (all but the last pass). The first pass
+    reads ``x2d`` into a scratch buffer, the middle one (3 passes) works in
+    place there, the last writes the transposed output. ``scale`` rides the
+    first pass's launch only."""
+    layouts = pass_layouts(x2d.shape[0], plan.kernel_factors)
+    scratch = torch.empty_like(x2d)
+    y = torch.empty_like(x2d)
+    src = x2d
+    for i, layout in enumerate(layouts):
+        last = i == len(layouts) - 1
+        dst = y if last else scratch
+        block_fft(src, plan.stages[i], inverse=inverse,
+                  scale=scale if i == 0 else 1.0, tables=tables[i],
+                  layout=layout, twiddle=None if last else twiddles[i],
+                  out=dst)
+        src = dst
+    return y
 
 
 def _fft_impl(x: torch.Tensor, plan: Plan, tables: Sequence[torch.Tensor],
-              *, inverse: bool = False) -> torch.Tensor:
+              twiddles: Sequence[torch.Tensor] = (), *,
+              inverse: bool = False) -> torch.Tensor:
     """Run ``plan`` (the FFT plan's local stage plan) with ``tables``, its
-    per-pass stage tables in this direction, over the last axis of ``x``."""
+    per-pass stage tables in this direction, and ``twiddles``, its pass
+    twiddle tables (one per pass but the last), over the last axis of
+    ``x``."""
     shape = x.shape
-    x2d = x.reshape(-1, plan.n)
+    x2d = x.reshape(-1, plan.n).contiguous()
     scale = 1.0 / plan.n if inverse else 1.0
     if plan.num_passes == 1:
         y = _block_fft_c(x2d, plan.stages[0], tables[0], inverse=inverse,
                          scale=scale)
     else:
-        y = _fft_multipass(x2d, plan, tables, inverse=inverse, scale=scale)
+        y = _fft_multipass(x2d, plan, tables, twiddles, inverse=inverse,
+                           scale=scale)
     return y.reshape(shape)
 
 

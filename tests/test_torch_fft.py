@@ -26,7 +26,9 @@ from repro_torch.core.fft import (FFTSpec, FTConfig, fft_large, make_plan,
                                   plan, plan_from_reference)
 from repro_torch.core.fft import stockham
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.stockham import block_fft, stage_tables
+from repro_torch.core.fft.plan import pass_layouts
+from repro_torch.kernels.stockham import (block_fft, pass_twiddle_table,
+                                          stage_tables)
 from repro_torch.kernels.stockham_abft import abft_fft
 
 CPU = "cpu"
@@ -225,8 +227,9 @@ def test_plan_cache_distinct_keys():
 
 
 def test_plan_resolves_once_and_keeps_device_tables(monkeypatch, crand):
-    """The plan decides the stages and uploads their tables once; its
-    executors launch the block kernel with exactly those, pass by pass."""
+    """The plan decides the stages and uploads their tables and the pass
+    twiddles once; its executors launch the block kernel with exactly
+    those, pass by pass, in the passes' layouts."""
     p = plan(FFTSpec(shape=(8, 1 << 14), device=CPU))
     assert p.decomp == "local" and p.groups is None
     lp = p.local_plan
@@ -236,24 +239,34 @@ def test_plan_resolves_once_and_keeps_device_tables(monkeypatch, crand):
         for stages, tab in zip(lp.stages, tabs):
             assert tab is stage_tables(stages, torch.complex64,
                                        inverse=inverse)
+        (tw,) = p.twiddles[inverse]
+        assert tw is pass_twiddle_table(1 << 14, torch.complex64,
+                                        inverse=inverse)
     assert "decomp='local'" in repr(p) and "device='cpu'" in repr(p)
 
     seen = []
 
-    def spy(x, stages, *, inverse, scale, tables):
-        seen.append((stages, tables, inverse))
+    def spy(x, stages, *, inverse, scale, tables, layout=None, twiddle=None,
+            out=None):
+        seen.append((stages, tables, inverse, layout, twiddle))
         return block_fft(x, stages, inverse=inverse, scale=scale,
-                         tables=tables)
+                         tables=tables, layout=layout, twiddle=twiddle,
+                         out=out)
 
     monkeypatch.setattr(ops, "block_fft", spy)
     x = _t(crand(8, 1 << 14))
     p.fft(x)
     p.ifft(x)
-    want = [(st, p.tables[inv][i], inv) for inv in (False, True)
-            for i, st in enumerate(lp.stages)]
+    layouts = pass_layouts(8, lp.kernel_factors)
+    want = [(st, p.tables[inv][i], inv, layouts[i],
+             p.twiddles[inv][i] if i == 0 else None)
+            for inv in (False, True) for i, st in enumerate(lp.stages)]
     assert len(seen) == len(want)
-    for (st, tab, inv), (st_w, tab_w, inv_w) in zip(seen, want):
+    for got, exp in zip(seen, want):
+        st, tab, inv, lay, tw = got
+        st_w, tab_w, inv_w, lay_w, tw_w = exp
         assert st is st_w and tab is tab_w and inv == inv_w
+        assert lay == lay_w and tw is tw_w
 
     seen.clear()
     fused = []

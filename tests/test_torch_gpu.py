@@ -16,17 +16,19 @@ on random ones each float32 part to 1e-4 * its max (float32 sums of up to
 K = 1024 terms in another order than cuBLAS's), a bfloat16 ``c`` to one
 bf16 step, 2^-7 * max|c|.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import gemm
 from repro_torch.core.fft import FFTSpec, FTConfig, make_plan, plan
-from repro_torch.core.fft.plan import plan_from_reference
+from repro_torch.core.fft.plan import pass_layouts, plan_from_reference
 from repro_torch.kernels import ops
 from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_plain
 from repro_torch.kernels.stockham import (block_fft, block_fft_plain,
-                                          stage_tables)
+                                          pass_twiddle_table, stage_tables)
 from repro_torch.kernels.stockham_abft import abft_fft, abft_fft_plain
 
 pytestmark = pytest.mark.gpu
@@ -88,6 +90,54 @@ def test_plan_multipass_matches_torch_fft(cuda, n, dtype):
                for tabs in p.tables.values() for t in tabs)
     _close(p.fft(x), torch.fft.fft(x))
     _close(p.ifft(x), torch.fft.ifft(x))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [1 << 14, 1 << 17, 1 << 20, 1 << 23])
+def test_block_fft_kernel_matches_plain_in_every_pass_layout(cuda, n, inverse,
+                                                             dtype):
+    """Each pass's launch in its real layout, with its pass twiddle (all but
+    the last pass), against the plain version on the same input; the middle
+    pass of three also in place, as the transform runs it."""
+    b = 2
+    p = make_plan(n)
+    facs = p.kernel_factors
+    x = _rand(b, n, dtype).to(cuda)
+    for i, layout in enumerate(pass_layouts(b, facs)):
+        last = i == len(facs) - 1
+        tw = None if last else pass_twiddle_table(
+            math.prod(facs[i:]), dtype, inverse=inverse, device=cuda)
+        kw = dict(inverse=inverse, scale=0.5 if i == 0 else 1.0,
+                  layout=layout, twiddle=tw)
+        want = block_fft_plain(x, p.stages[i], out=torch.zeros_like(x), **kw)
+        got = block_fft(x, p.stages[i], out=torch.zeros_like(x), **kw)
+        _close(got, want)
+        if 0 < i < len(facs) - 1:
+            inplace = x.clone()
+            block_fft(inplace, p.stages[i], out=inplace, **kw)
+            _close(inplace, want)
+
+
+def test_plan_fft_launches_one_kernel_per_pass(cuda):
+    """Under torch.profiler, one plan.fft call at 2^20 runs exactly two CUDA
+    kernels, both block_fft: nothing else touches the data."""
+    n = 1 << 20
+    x = _rand(4, n, torch.complex64).to(cuda)
+    p = plan(FFTSpec(shape=(4, n)))
+    p.fft(x)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):      # the tracer can drop an event, never add one
+        with torch.profiler.profile(activities=acts) as prof:
+            p.fft(x)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) == 2:
+            break
+    assert len(names) == 2 and all("block_fft" in nm for nm in names), names
 
 
 def test_stage_tables_uploaded_once(cuda):
