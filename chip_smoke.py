@@ -17,13 +17,19 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   residual, bf16 activations, f32 weights, 4 x 512 tokens) under
   ``FTContext`` with a Poisson fault schedule over its three sites.
 
-It then holds each kernel against its plain torch version on the card at
-the paths' shapes (``block_fft`` in every pass's real layout, with its pass
-twiddle; ``ft_matmul`` also bitwise on integer operands and across repeated
-calls), times kernel, plain version and the library call (``torch.fft``,
-``torch.matmul``) with CUDA events, and runs one ``plan.fft`` call of each
-FFT case under ``torch.profiler``, which must show exactly one CUDA kernel
-per pass, all ``block_fft``. The last two lines are
+After the build it prints, for every ``ft_matmul_tile`` instance, its
+registers and spill bytes (ptxas) and the CTAs an SM runs (occupancy
+query); a spill, or fewer than two CTAs a SM of the float32 128 x 128
+instance, fails the run. It then holds each kernel against its plain torch
+version on the card at the paths' shapes (``block_fft`` in every pass's
+real layout, with its pass twiddle; ``ft_matmul`` also bitwise on integer
+operands, across repeated calls and across its CTA tiles), times kernel,
+plain version and the library call (``torch.fft``, ``torch.matmul``) with
+CUDA events (and the protected MLP block against the unprotected one),
+takes ``ft_matmul``'s kernels'
+device times per call from ``torch.profiler``, and runs one ``plan.fft``
+call of each FFT case under ``torch.profiler``, which must show exactly one
+CUDA kernel per pass, all ``block_fft``. The last two lines are
 the ``kernels`` JSON and ``{"ok": true, "device": ...}``. Any failed check
 raises and exits non-zero; without a CUDA device it exits 1 and prints no
 result.
@@ -31,6 +37,7 @@ result.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -120,6 +127,49 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+_PTXAS_FUNCTION = re.compile(
+    r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGISTERS = re.compile(r"Used (\d+) registers")
+_TYPE_CODES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+# the second type is a back-reference (S<n>_) when it repeats the first
+_FTMM_INSTANCE = re.compile(r"ft_matmul_tileI(f|13__nv_bfloat16)"
+                            r"(f|13__nv_bfloat16|S\d*_)Li(\d+)ELi(\d+)E")
+
+
+def ptxas_info(log: str) -> dict:
+    """``{mangled function: {"registers", "stack", "spill_stores",
+    "spill_loads"}}`` from the ``-Xptxas -v`` lines of a build log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        hit = _PTXAS_FUNCTION.search(line)
+        if hit:
+            fn = hit[1]
+            out.setdefault(fn, {})
+        elif fn is not None:
+            if hit := _PTXAS_FRAME.search(line):
+                out[fn].update(stack=int(hit[1]), spill_stores=int(hit[2]),
+                               spill_loads=int(hit[3]))
+            if hit := _PTXAS_REGISTERS.search(line):
+                out[fn]["registers"] = int(hit[1])
+    return out
+
+
+def ft_matmul_ptxas(log: str) -> list:
+    """Registers, spill bytes and stack of every ``ft_matmul_tile``
+    instance in a build log: ``[{"x", "w", "tile", "registers",
+    "spill_stores", "spill_loads", "stack"}]``."""
+    rows = []
+    for fn, info in ptxas_info(log).items():
+        hit = _FTMM_INSTANCE.search(fn)
+        if hit:
+            w = hit[1] if hit[2].startswith("S") else hit[2]
+            rows.append({"x": _TYPE_CODES[hit[1]], "w": _TYPE_CODES[w],
+                         "tile": [int(hit[3]), int(hit[4])], **info})
+    return sorted(rows, key=lambda r: (r["x"], r["w"], r["tile"]))
 
 
 def gemm_operands(dev, m, k, n, dtype="float32"):
@@ -214,7 +264,8 @@ def mlp_phase(dev):
     """(b) The protected SwiGLU MLP block of Phi-4-mini 3.8B at full width:
     rmsnorm -> mlp -> residual, bf16 activations, f32 weights, through
     ``FTContext``; then a Poisson fault schedule over its three sites.
-    Returns the campaign's counts and the launches of one call."""
+    Returns the campaign's counts, the launches of one call and the
+    protected and unprotected block as functions of no arguments."""
     import numpy as np
     import torch
     from repro_torch.configs import phi4_mini_3p8b
@@ -294,17 +345,19 @@ def mlp_phase(dev):
     check(seu["injected"] == sched.num_faults == seu["flagged"]
           == seu["corrected"] and seu["false_alarms"] == 0,
           f"MLP SEU campaign: {seu}")
-    return seu, per_call
+    return seu, per_call, (lambda: block(layers.FTContext(policy)), block)
 
 
 def gemm_kernel_phase(dev):
     """(c) ``ft_matmul`` against ``ft_matmul_plain`` on the card: the
-    paths' shapes in float32 and bf16 x f32 (at tolerance), integer
-    operands over four tile shapes (bitwise), and two calls (bitwise).
-    Returns ({part: max abs err}, worst err / tol)."""
+    paths' shapes in float32 and bf16 x f32 (at tolerance), each injected
+    call also bitwise equal across every CTA tile, integer operands over
+    four tile shapes (bitwise), and two calls (bitwise). Returns ({part:
+    max abs err}, worst err / tol)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_plain
+    from repro_torch.kernels.ft_matmul import (KERNEL_TILES, _launch,
+                                               ft_matmul, ft_matmul_plain)
 
     parts = dict.fromkeys(("c", "out2", "pred2", "out3", "pred3"), 0.0)
     worst = 0.0
@@ -331,7 +384,15 @@ def gemm_kernel_phase(dev):
                     msg.append(f"{part} {err:.3e} ({err / tol:.2f} of tol)")
                 log(f"ft_matmul vs plain {(m, k, n)} x {xdtype} inject="
                     f"{inject is not None}: " + ", ".join(msg))
-            del x, w, got, want
+            for cta in ((tm, tn) for tm in KERNEL_TILES
+                        for tn in KERNEL_TILES):
+                other = _launch(x, w, inj, *cta)
+                for part in parts:
+                    check(torch.equal(getattr(other, part),
+                                      getattr(got, part)),
+                          f"ft_matmul {(m, k, n)} {xdtype}: CTA tile {cta} "
+                          f"changes {part}")
+            del x, w, got, want, other
     rng = np.random.default_rng(SEED)
     x = torch.tensor(rng.integers(-4, 5, (256, 128)), dtype=torch.float32,
                      device=dev)
@@ -353,18 +414,23 @@ def gemm_kernel_phase(dev):
         check(torch.equal(getattr(a, part), getattr(b, part)),
               f"ft_matmul: two calls differ in {part}")
     log("ft_matmul: integer operands bitwise equal to the plain version "
-        "over 4 tile shapes x (clean, injected); two calls bitwise equal")
+        "over 4 tile shapes x (clean, injected); two calls bitwise equal; "
+        "every CTA tile bitwise equal at the paths' shapes")
     return parts, worst
 
 
-def gemm_time_phase(dev, cuda_ms):
-    """(d) CUDA-event times of ``ft_matmul``, its plain version,
-    ``torch.matmul`` and the plan's unchecked and checked products.
-    Returns one row per case."""
+def gemm_time_phase(dev, cuda_ms, device_kernels):
+    """(d) CUDA-event times of ``ft_matmul`` (with the CTA tile it picks),
+    its plain version, ``torch.matmul`` and the plan's
+    unchecked and checked products; the device time of its kernels per
+    call from torch.profiler (``x_checksums`` and a ``strip_reduce`` for the
+    input checksums, ``ft_matmul_tile`` and a ``strip_reduce`` for the
+    product and its strips). Returns one row per case."""
     import torch
     from repro_torch.core.gemm import GEMMSpec, plan
     from repro_torch.core.plan import FTConfig
-    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_plain
+    from repro_torch.kernels.ft_matmul import (device_cta_tile, ft_matmul,
+                                               ft_matmul_plain)
 
     rows = []
     cases = [(shape, "float32") for shape in GEMM_SHAPES]
@@ -372,31 +438,51 @@ def gemm_time_phase(dev, cuda_ms):
     for (m, k, n), xdtype in cases:
         x, w = gemm_operands(dev, m, k, n, xdtype)
         xf = x.float()        # torch.matmul takes one dtype: the promoted
+        cta = device_cta_tile(m, n, 128, 128, x.dtype, w.dtype, dev)
         ms = cuda_ms(lambda: ft_matmul(x, w), iters=10, warmup=2)
         plain = cuda_ms(lambda: ft_matmul_plain(x, w), iters=10, warmup=2)
         lib = cuda_ms(lambda: torch.matmul(xf, w), iters=10, warmup=2)
-        # each input read once, each output written once: x, w, xsum and
-        # xloc in; c and the four strips out
+        calls = 5
+        kern = device_kernels(lambda: [ft_matmul(x, w) for _ in range(calls)])
+        dev_ms = {}
+        for part, per_call in (("ft_matmul_tile", 1), ("strip_reduce", 2),
+                               ("x_checksums", 1)):
+            got = [t for name, t in kern if part in name]
+            check(len(got) == per_call * calls,
+                  f"ft_matmul {(m, k, n)} under torch.profiler: {len(got)} "
+                  f"{part} for {calls} calls")
+            dev_ms[part] = sum(got) / calls
+        tile_ms, strip_ms = dev_ms["ft_matmul_tile"], dev_ms["strip_reduce"]
+        xsum_ms = dev_ms["x_checksums"]
+        # each input read once, each output written once: x and w in; c and
+        # the four strips out. Operations: the product, the input checksums
+        # (3mk), the predicted strips (4kn) and the output strips (3mn)
         nbytes = (x.numel() * x.element_size() + w.numel() * 4
-                  + 2 * k * 4 + m * n * x.element_size() + 4 * n * 4)
-        flops = 2 * m * k * n + 4 * k * n + 3 * m * n
+                  + m * n * x.element_size() + 4 * n * 4)
+        flops = 2 * m * k * n + 3 * m * k + 4 * k * n + 3 * m * n
         tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
         p = plan(GEMMSpec((m, k, n), dtype=xdtype,
                           ft=FTConfig(threshold=GEMM_FT_THRESHOLD)))
         mm = cuda_ms(lambda: p.matmul(x, w), iters=10, warmup=2)
         ft = cuda_ms(lambda: p.ft_matmul(x, w), iters=10, warmup=2)
         row = {"shape": [m, k, n], "x": xdtype, "w": "float32", "ms": ms,
-               "plain_ms": plain, "library_ms": lib,
-               "bound_ms": max(tb, tf),
+               "cta": list(cta),
+               "device_ms": sum(dev_ms.values()), "tile_device_ms": tile_ms,
+               "strip_device_ms": strip_ms, "checksum_device_ms": xsum_ms,
+               "plain_ms": plain,
+               "library_ms": lib, "bound_ms": max(tb, tf),
                "bound_by": "bytes" if tb >= tf else "operations",
                "tflops": flops / ms / 1e9, "plan_matmul_ms": mm,
                "plan_ft_matmul_ms": ft, "ft_overhead": ft / mm - 1}
         rows.append(row)
         log(f"times ft_matmul {(m, k, n)} x {xdtype}: kernel {ms:.4f} ms "
-            f"({row['tflops']:.1f} TFLOP/s), plain {plain:.4f} ms, "
-            f"torch.matmul {lib:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}); plan.matmul {mm:.4f} ms, plan.ft_matmul "
-            f"{ft:.4f} ms (checked-GEMM overhead {ft / mm - 1:+.1%})")
+            f"({row['tflops']:.1f} TFLOP/s, CTA tile {cta[0]}x{cta[1]}; "
+            f"device {tile_ms:.4f} ms ft_matmul_tile + {xsum_ms:.4f} ms "
+            f"x_checksums + {strip_ms:.4f} ms strip_reduce x2), plain "
+            f"{plain:.4f} ms, torch.matmul {lib:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"plan.matmul {mm:.4f} ms, plan.ft_matmul {ft:.4f} ms "
+            f"(checked-GEMM overhead {ft / mm - 1:+.1%})")
         del x, w, xf
     return rows
 
@@ -412,6 +498,7 @@ def main() -> int:
     from repro_torch.core.fft.plan import pass_layouts
     from repro_torch.core.ft import poisson_schedule
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ft_matmul as ftmm
     from repro_torch.kernels.ft_matmul import ft_matmul
     from repro_torch.kernels.stockham import block_fft, block_fft_plain
     from repro_torch.kernels.stockham_abft import abft_fft, abft_fft_plain
@@ -434,10 +521,32 @@ def main() -> int:
     log(f"nvcc: {json.dumps({k: round(v, 1) for k, v in times.items()})} "
         f"({time.perf_counter() - t0:.1f} s wall)")
     for kname in _build.KERNELS:
+        if kname == "ft_matmul":
+            continue                    # one line per instance, below
         build_log = _build.library_path(kname).with_suffix(".log")
         for line in build_log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kname}: {line.strip()}")
+    # every ft_matmul_tile instance: registers and spill bytes (ptxas) and
+    # the CTAs an SM runs (occupancy query); no spills, and two CTAs a SM
+    # of the float32 128 x 128 instance
+    ftmm_instances = []
+    build_log = _build.library_path("ft_matmul").with_suffix(".log")
+    for row in ft_matmul_ptxas(build_log.read_text()):
+        blocks = ftmm.blocks_per_sm(getattr(torch, row["x"]),
+                                    getattr(torch, row["w"]), *row["tile"],
+                                    dev)
+        spill = row["spill_stores"] + row["spill_loads"]
+        ftmm_instances.append(dict(row, blocks_per_sm=blocks))
+        log(f"  ptxas ft_matmul_tile<{row['x']}, {row['w']}, "
+            f"{row['tile'][0]}x{row['tile'][1]}>: {row['registers']} "
+            f"registers, {spill} spill bytes, stack {row['stack']}; "
+            f"{blocks} blocks per SM")
+        check(spill == 0, f"ft_matmul_tile {row}: spills")
+        if row["x"] == row["w"] == "float32" and row["tile"] == [128, 128]:
+            check(blocks >= 2, f"ft_matmul_tile {row}: {blocks} per SM")
+    check(len(ftmm_instances) == 16,
+          f"{len(ftmm_instances)} ft_matmul_tile instances in the build log")
 
     gen = torch.Generator(device=dev)
 
@@ -594,7 +703,7 @@ def main() -> int:
     abft_fft.launches = 0
     ft_matmul.launches = 0
     gemm_seu = gemm_plan_phase(dev)
-    mlp_seu, mlp_per_call = mlp_phase(dev)
+    mlp_seu, mlp_per_call, mlp_blocks = mlp_phase(dev)
     torch.cuda.synchronize()
     gemm_launches = {"block_fft": block_fft.launches,
                      "abft_fft": abft_fft.launches,
@@ -766,8 +875,15 @@ def main() -> int:
 
     # ---- phases 4b and 5b: ft_matmul against its plain version; times
     gemm_parts, gemm_ratio = gemm_kernel_phase(dev)
-    gemm_rows = gemm_time_phase(dev, cuda_ms)
+    gemm_rows = gemm_time_phase(dev, cuda_ms, device_kernels)
     main_row = gemm_rows[0]
+    mlp_ms = {"protected_ms": cuda_ms(mlp_blocks[0], iters=5, warmup=1),
+              "unprotected_ms": cuda_ms(mlp_blocks[1], iters=5, warmup=1)}
+    log(f"MLP block ({MLP_BATCH} x {MLP_TOKENS} tokens) times: protected "
+        f"{mlp_ms['protected_ms']:.4f} ms (3 ft_matmul launches), "
+        f"unprotected {mlp_ms['unprotected_ms']:.4f} ms (overhead "
+        f"{mlp_ms['protected_ms'] / mlp_ms['unprotected_ms'] - 1:+.1%})")
+    del mlp_blocks
 
     kernels = [
         {"name": "block_fft", "route": "cuda",
@@ -801,10 +917,15 @@ def main() -> int:
          "max_abs_err": max(gemm_parts.values()),
          "max_abs_err_parts": gemm_parts, "max_err_over_tol": gemm_ratio,
          "shape": main_row["shape"], "ms": main_row["ms"],
+         "device_ms": main_row["device_ms"],
          "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
          "bound_by": main_row["bound_by"],
-         "library_ms": main_row["library_ms"], "times": gemm_rows,
-         "seu": {"plan": gemm_seu, "mlp": mlp_seu}},
+         "library_ms": main_row["library_ms"],
+         "blocks_per_sm": next(r["blocks_per_sm"] for r in ftmm_instances
+                               if r["x"] == r["w"] == "float32"
+                               and r["tile"] == [128, 128]),
+         "instances": ftmm_instances, "shapes": gemm_rows,
+         "mlp_block": mlp_ms, "seu": {"plan": gemm_seu, "mlp": mlp_seu}},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

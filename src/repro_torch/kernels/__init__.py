@@ -5,6 +5,8 @@ stockham_abft.py  -- + fused two-sided ABFT (csrc/abft_fft.cu), one CTA per
                      checksum group looping over its transactions
 ft_matmul.py      -- fused two-side ABFT GEMM (csrc/ft_matmul.cu) + its
                      plain torch version; the core.gemm plan runs it
+ft_matmul_tiles.py -- times the GEMM kernel with each CTA tile on a card
+                     (``python -m repro_torch.kernels.ft_matmul_tiles``)
 ops.py            -- public entry points (fft / ifft / ft_fft)
 ref.py            -- torch.fft / torch.matmul oracles for the tests
 _build.py         -- nvcc at first use, ctypes loading

@@ -13,10 +13,14 @@ fused kernel's checksums are held row by row (each part, each group), and
 its per-signal divergence elementwise (see ``_check_abft``). The GEMM
 kernel ``ft_matmul``: bitwise on integer-valued operands (every sum exact);
 on random ones each float32 part to 1e-4 * its max (float32 sums of up to
-K = 1024 terms in another order than cuBLAS's), a bfloat16 ``c`` to one
-bf16 step, 2^-7 * max|c|.
+K = 8192 terms in another order than cuBLAS's: sqrt(K) * 2^-24 is about
+5e-6), a bfloat16 ``c`` to one bf16 step, 2^-7 * max|c| — the tolerances
+of ``chip_smoke.py``. Its outputs are bitwise the same whichever CTA tile
+runs, and its build has no spills and two CTAs a SM at float32 128 x 128.
 """
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +30,7 @@ from repro_torch.core import gemm
 from repro_torch.core.fft import FFTSpec, FTConfig, make_plan, plan
 from repro_torch.core.fft.plan import pass_layouts, plan_from_reference
 from repro_torch.kernels import ops
+from repro_torch.kernels import ft_matmul as ftk
 from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_plain
 from repro_torch.kernels.stockham import (block_fft, block_fft_plain,
                                           pass_twiddle_table, stage_tables)
@@ -305,3 +310,71 @@ def test_gemm_plan_auto_takes_the_kernel_on_cuda(cuda):
         assert float(s[key]) == float(se[key]) == (0.0 if key ==
                                                     "uncorrectable" else 2.0)
     assert gemm.plan(gemm.spec_for(x[:100], w, ft=cfg)).backend == "eager"
+
+
+# the checked-GEMM path's products at Phi-4-mini 3.8B's MLP widths, (M, K, N)
+GEMM_SHAPES = [(2048, 3072, 8192), (2048, 8192, 3072)]
+GEMM_TOL, BF16_STEP = 1e-4, 2.0 ** -7
+
+
+def _path_operands(cuda, m, k, n, xdtype):
+    """Seeded (M, K) activations ~N(0, 1) in ``xdtype`` and float32 (K, N)
+    weights ~N(0, 1/K), as ``chip_smoke.py`` makes them."""
+    gen = torch.Generator(device=cuda).manual_seed(m + 3 * k + 7 * n)
+    x = torch.randn((m, k), device=cuda, generator=gen)
+    w = torch.randn((k, n), device=cuda, generator=gen) / math.sqrt(k)
+    return x.to(xdtype), w
+
+
+@pytest.mark.parametrize("injected", [False, True], ids=["clean", "inject"])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+def test_ft_matmul_kernel_matches_plain_at_path_shapes(cuda, shape, xdtype,
+                                                       injected):
+    m, k, n = shape
+    x, w = _path_operands(cuda, m, k, n, xdtype)
+    inj = torch.tensor([[m - 1, n // 3, 1, 75.0], [5, 7, 1, -30.0]]) \
+        if injected else None
+    before = ft_matmul.launches
+    got = ft_matmul(x, w, inject=inj)
+    assert ft_matmul.launches == before + 1
+    want = ft_matmul_plain(x, w, inject=inj)
+    for part in GEMM_PARTS:
+        g, r = getattr(got, part).float(), getattr(want, part).float()
+        step = BF16_STEP if (part == "c" and xdtype == torch.bfloat16) \
+            else GEMM_TOL
+        err = (g - r).abs().max().item()
+        assert err <= step * r.abs().max().item(), (part, err)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_ft_matmul_kernel_is_bitwise_equal_across_cta_tiles(cuda, xdtype):
+    m, k, n = GEMM_SHAPES[1]
+    x, w = _path_operands(cuda, m, k, n, xdtype)
+    inj = torch.tensor([[m - 1, n // 3, 1, 75.0], [70, 7, 1, -30.0]])
+    tiles = [(tm, tn) for tm in ftk.KERNEL_TILES for tn in ftk.KERNEL_TILES]
+    outs = [ftk._launch(x, w, inj, *t) for t in tiles]
+    for t, o in zip(tiles[1:], outs[1:]):
+        for part in GEMM_PARTS:
+            assert torch.equal(getattr(o, part), getattr(outs[0], part)), \
+                (t, part)
+
+
+def test_ft_matmul_build_has_no_spills_and_two_ctas_per_sm(cuda):
+    ft_matmul(*(t.to(cuda) for t in _int_mats(128, 128, 128)))   # builds
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    build_log = ftk._build.library_path("ft_matmul").with_suffix(".log")
+    rows = smoke.ft_matmul_ptxas(build_log.read_text())
+    assert len(rows) == 16                # 4 operand types x 4 CTA tiles
+    assert all(r["spill_stores"] == r["spill_loads"] == 0 for r in rows)
+    assert all(r["registers"] <= 128 for r in rows)
+    assert ftk.blocks_per_sm(torch.float32, torch.float32, 128, 128) >= 2
+    # the down projection's grid is 1.45 waves of 128 x 128 CTAs: the
+    # wrapper takes a tile that fills its waves
+    m, _, n = GEMM_SHAPES[1]
+    assert ftk.device_cta_tile(m, n, 128, 128, torch.float32, torch.float32,
+                               cuda) != (128, 128)
