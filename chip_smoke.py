@@ -17,23 +17,29 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   residual, bf16 activations, f32 weights, 4 x 512 tokens) under
   ``FTContext`` with a Poisson fault schedule over its three sites.
 
-After the build it prints, for every ``ft_matmul_tile`` instance, its
-registers and spill bytes (ptxas) and the CTAs an SM runs (occupancy
-query); a spill, or fewer than two CTAs a SM of the float32 128 x 128
-instance, fails the run. It then holds each kernel against its plain torch
-version on the card at the paths' shapes (``block_fft`` in every pass's
-real layout, with its pass twiddle; ``ft_matmul`` also bitwise on integer
-operands, across repeated calls and across its CTA tiles), times kernel,
-plain version and the library call (``torch.fft``, ``torch.matmul``) with
-CUDA events (and the protected MLP block against the unprotected one),
-takes ``ft_matmul``'s kernels'
-device times per call from ``torch.profiler``, and runs one ``plan.fft``
-call of each FFT case under ``torch.profiler``, which must show exactly one
-CUDA kernel per pass, all ``block_fft``. The last two lines are
-the ``kernels`` JSON and ``{"ok": true, "device": ...}``. Any failed check
+After the build it prints, for every ``abft_fft_kernel`` and
+``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
+``ft_matmul`` the CTAs an SM runs (occupancy query); a spill in a fast
+``abft_fft`` instance or in any ``ft_matmul`` instance, or fewer than two
+CTAs a SM of the float32 128 x 128 instance, fails the run. One
+``plan.ft_fft`` call must launch one ``abft_fft`` and one ``block_fft``
+(the checksum FFT over [X.e2; X.e3]). It then holds each kernel against
+its plain torch version on the card at the paths' shapes (``block_fft`` in
+every pass's real layout, with its pass twiddle; ``abft_fft`` also bitwise
+across repeated calls; ``ft_matmul`` also bitwise on integer operands,
+across repeated calls and across its CTA tiles), times kernel, plain
+version and the library call (``torch.fft``, ``torch.matmul``) with CUDA
+events (and the protected MLP block against the unprotected one), takes
+``abft_fft``'s and ``ft_matmul``'s kernels' device times per call from
+``torch.profiler``, traces one ``plan.ft_fft`` call (its kernels, device
+times and the device's idle share over the call), and runs one
+``plan.fft`` call of each FFT case under ``torch.profiler``, which must
+show exactly one CUDA kernel per pass, all ``block_fft``. The last two
+lines are the ``kernels`` JSON and ``{"ok": true, "device": ...}``. Any failed check
 raises and exits non-zero; without a CUDA device it exits 1 and prints no
 result.
 """
+import dataclasses
 import json
 import math
 import os
@@ -156,6 +162,23 @@ def ptxas_info(log: str) -> dict:
             if hit := _PTXAS_REGISTERS.search(line):
                 out[fn]["registers"] = int(hit[1])
     return out
+
+
+_ABFT_INSTANCE = re.compile(r"abft_fft_kernelI(6float2|7double2)Lb([01])E")
+
+
+def abft_ptxas(log: str) -> list:
+    """Registers, spill bytes and stack of every ``abft_fft_kernel``
+    instance in a build log: ``[{"dtype", "fast", "registers",
+    "spill_stores", "spill_loads", "stack"}]`` (fast: the register-codelet
+    instance; else the generic stages)."""
+    rows = []
+    for fn, info in ptxas_info(log).items():
+        hit = _ABFT_INSTANCE.search(fn)
+        if hit:
+            rows.append({"dtype": "complex64" if hit[1] == "6float2"
+                         else "complex128", "fast": hit[2] == "1", **info})
+    return sorted(rows, key=lambda r: (r["dtype"], r["fast"]))
 
 
 def ft_matmul_ptxas(log: str) -> list:
@@ -501,7 +524,9 @@ def main() -> int:
     from repro_torch.kernels import ft_matmul as ftmm
     from repro_torch.kernels.ft_matmul import ft_matmul
     from repro_torch.kernels.stockham import block_fft, block_fft_plain
-    from repro_torch.kernels.stockham_abft import abft_fft, abft_fft_plain
+    from repro_torch.kernels.stockham_abft import (abft_fft, abft_fft_plain,
+                                                   launch_geometry,
+                                                   max_active_clusters)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -520,13 +545,23 @@ def main() -> int:
     times = _build.build()
     log(f"nvcc: {json.dumps({k: round(v, 1) for k, v in times.items()})} "
         f"({time.perf_counter() - t0:.1f} s wall)")
-    for kname in _build.KERNELS:
-        if kname == "ft_matmul":
-            continue                    # one line per instance, below
-        build_log = _build.library_path(kname).with_suffix(".log")
-        for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {kname}: {line.strip()}")
+    build_log = _build.library_path("block_fft").with_suffix(".log")
+    for line in build_log.read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas block_fft: {line.strip()}")
+    # every abft_fft_kernel instance; the fast (register-codelet) ones must
+    # not spill
+    abft_instances = abft_ptxas(_build.library_path("abft_fft")
+                                .with_suffix(".log").read_text())
+    for row in abft_instances:
+        spill = row["spill_stores"] + row["spill_loads"]
+        log(f"  ptxas abft_fft_kernel<{row['dtype']}, "
+            f"{'fast' if row['fast'] else 'generic'}>: {row['registers']} "
+            f"registers, {spill} spill bytes, stack {row['stack']}")
+        check(not row["fast"] or spill == 0,
+              f"abft_fft_kernel {row}: a fast instance spills")
+    check(len(abft_instances) == 4,
+          f"{len(abft_instances)} abft_fft_kernel instances in the build log")
     # every ft_matmul_tile instance: registers and spill bytes (ptxas) and
     # the CTAs an SM runs (occupancy query); no spills, and two CTAs a SM
     # of the float32 128 x 128 instance
@@ -605,6 +640,45 @@ def main() -> int:
                 f"{[k for k, _ in kern]}")
         return kern
 
+    def trace_call(fn, want, attempts=3):
+        """One call of ``fn`` under torch.profiler after a warm-up:
+        ``(kernels, window_ms, idle)``: its CUDA kernels as (name, device
+        ms) in launch order, the window from the call's start on the host
+        to its last kernel's end, and the share of that window in which no
+        kernel ran. ``want(names)`` says whether a trace is whole (the
+        tracer can drop an event); up to ``attempts`` calls are traced."""
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        cuda_dev = torch.autograd.DeviceType.CUDA
+        for _ in range(attempts):
+            with torch.profiler.profile(activities=acts) as prof:
+                with torch.profiler.record_function("traced_call"):
+                    fn()
+                torch.cuda.synchronize()
+            evs = prof.events()
+            mark = [e for e in evs if e.name == "traced_call"
+                    and e.device_type != cuda_dev]
+            kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                          for e in evs if e.device_type == cuda_dev
+                          and e.name != "traced_call")
+            if mark and kern and want([k for _, _, k in kern]):
+                break
+            log(f"torch.profiler trace incomplete: {[k for _, _, k in kern]}")
+        t0 = mark[0].time_range.start
+        t1 = max(mark[0].time_range.end, kern[-1][1])
+        busy, lo, hi = 0.0, kern[0][0], kern[0][1]
+        for a, b_, _ in kern[1:]:           # the union of the kernels' spans
+            if a > hi:
+                busy += hi - lo
+                lo, hi = a, b_
+            else:
+                hi = max(hi, b_)
+        busy += hi - lo
+        return ([(k, (b_ - a) / 1e3) for a, b_, k in kern], (t1 - t0) / 1e3,
+                1.0 - busy / (t1 - t0))
+
     # ---- phases 2 and 3: the FFT path, launch counts from this run only
     block_fft.launches = 0
     abft_fft.launches = 0
@@ -656,7 +730,7 @@ def main() -> int:
         label = f"plan.ft_fft {dtype} 2^{logn}x{b}"
         res = count_call(label, lambda: p.ft_fft(x))
         check(per_call["abft_fft"][label] == 1
-              and per_call["block_fft"][label] == 2,
+              and per_call["block_fft"][label] == 1,
               f"{label}: launches {per_call}")
         clean_err = max_err(res.y, ref)
         check(clean_err <= tol, f"ft_fft clean {dtype}: {clean_err} > {tol}")
@@ -715,13 +789,13 @@ def main() -> int:
     # ---- phase 4: each kernel against its plain version on the card, with
     # the plan's own stages and device tables: every pass of every FFT case
     # in its real layout and with its pass twiddle, and the checksum FFT of
-    # the FT cases on its (G, N) rows
+    # the FT cases on its (2G, N) rows [X.e2; X.e3]
     kerr = {"block_fft": 0.0, "abft_fft": 0.0}
     kratio = {"block_fft": 0.0, "abft_fft": 0.0}   # worst err / tolerance
     for dtype, logn, b, p, _ in path_rows:
         pl = p.local_plan
         if p.spec.ft is not None:     # the checksum FFT on (G, N)
-            rows = b // (min(pl.bs, b) * FT_TRANSACTIONS)
+            rows = 2 * b // (min(pl.bs, b) * FT_TRANSACTIONS)
             checks = [(0, False, rows, None)]
         else:
             checks = [(i, inverse, b, lay)
@@ -784,6 +858,11 @@ def main() -> int:
                 log(f"{what}: " + ", ".join(
                     f"{k} {e:.3e} ({r:.2f} of tol)"
                     for k, (e, r) in parts.items()))
+            again = abft_fft(x, stages, inject=inj, tables=tables, **kw)
+            for part, u, v in zip(("y", "delta", "cs"), got, again):
+                check(torch.equal(u, v), f"abft_fft {dtype} per_signal="
+                                         f"{per_signal}: two calls differ "
+                                         f"in {part}")
             ms = cuda_ms(lambda: abft_fft(x, stages, tables=tables, **kw),
                          iters=5, warmup=1)
             log(f"abft_fft {dtype} ({b}, {n}) bs={bs} T={FT_TRANSACTIONS} "
@@ -829,6 +908,50 @@ def main() -> int:
                        + b * itemsize // 2, fft_flops + 12 * b * n)
     path_fft_ms = cuda_ms(lambda: p_fft.fft(x))
     path_ft_ms = cuda_ms(lambda: p_ft.ft_fft(x))
+    # abft_fft on the device, its launch geometry, per_signal and complex128
+    abft_dev = [ms for kname, ms in device_kernels(
+        lambda: [abft_fft(x, stages, tables=tables, **abft_kw)
+                 for _ in range(10)]) if "abft_fft" in kname]
+    abft_dev_ms = sum(abft_dev) / len(abft_dev)
+    abft_geo = launch_geometry(stages, x.dtype, bs, FT_TRANSACTIONS)
+    abft_clusters = max_active_clusters(abft_geo, dev)
+    abft_ps_ms = cuda_ms(lambda: abft_fft(x, stages, tables=tables, bs=bs,
+                                          transactions=FT_TRANSACTIONS,
+                                          per_signal=True))
+    x128 = randn((b, n), "complex128")
+    tables128 = plan(FFTSpec(shape=(b, n), dtype="complex128",
+                             ft=FTConfig(transactions=FT_TRANSACTIONS))
+                     ).tables[False][0]
+    abft128_ms = cuda_ms(lambda: abft_fft(x128, stages, tables=tables128,
+                                          **abft_kw))
+    abft128_bound = (2 * b * n + 4 * groups * n) * 16 / HBM_BYTES_PER_S \
+        * 1e3 + b * 8 / HBM_BYTES_PER_S * 1e3
+    del x128
+    # one plan.ft_fft call under torch.profiler: one abft_fft, one
+    # block_fft (the checksum FFT), then the decode's torch kernels
+    ft_kern, ft_window, ft_idle = trace_call(
+        lambda: p_ft.ft_fft(x),
+        lambda names: (sum("abft_fft" in k for k in names),
+                       sum("block_fft" in k for k in names)) == (1, 1))
+    check((sum("abft_fft" in k for k, _ in ft_kern),
+           sum("block_fft" in k for k, _ in ft_kern)) == (1, 1),
+          f"plan.ft_fft under torch.profiler: {[k for k, _ in ft_kern]}")
+    ft_host = host_ms(lambda: p_ft.ft_fft(x))
+    ft_trace = {"kernels": [[k[:80], ms] for k, ms in ft_kern],
+                "device_ms": sum(ms for _, ms in ft_kern),
+                "window_ms": ft_window, "idle_share": ft_idle,
+                "host_ms": ft_host, "events_ms": path_ft_ms}
+    log(f"abft_fft {dtype} ({b}, {n}): {abft_ms:.4f} ms by events, device "
+        f"{abft_dev_ms:.4f} ms, {abft_bound[0] / abft_ms:.1%} of its "
+        f"{abft_bound[0]:.4f} ms bound; per_signal {abft_ps_ms:.4f} ms; "
+        f"complex128 {abft128_ms:.4f} ms ({abft128_bound / abft128_ms:.1%} "
+        f"of {abft128_bound:.4f} ms); geometry {abft_geo} "
+        f"({abft_geo.accumulators} sums), {abft_clusters} clusters at once")
+    log(f"plan.ft_fft trace: {len(ft_kern)} kernels, "
+        f"{ft_trace['device_ms']:.4f} ms on the device in a "
+        f"{ft_window:.4f} ms window (idle {ft_idle:.1%}); host "
+        f"{ft_host:.4f} ms a call; " + ", ".join(
+            f"{k[:48]} {ms:.4f}" for k, ms in ft_kern))
     log(f"times at {dtype} N=2^{logn} B={b} (bs={bs}, T={FT_TRANSACTIONS}, "
         f"G={groups}): block_fft {blk_ms:.4f} ms (device {blk_dev_ms:.4f} "
         f"ms over {len(blk_dev)} kernels, host {blk_host_ms:.4f} ms a "
@@ -904,6 +1027,13 @@ def main() -> int:
          "launches_per_call": per_call["abft_fft"],
          "max_abs_err": kerr["abft_fft"], "max_abs_err_parts": abft_parts,
          "max_err_over_tol": kratio["abft_fft"], "ms": abft_ms,
+         "device_ms": abft_dev_ms, "bound_share": abft_bound[0] / abft_ms,
+         "per_signal_ms": abft_ps_ms, "complex128_ms": abft128_ms,
+         "complex128_bound_ms": abft128_bound,
+         "cluster": abft_geo.cluster,
+         "geometry": dataclasses.asdict(abft_geo),
+         "max_active_clusters": abft_clusters,
+         "instances": abft_instances, "plan_ft_fft_trace": ft_trace,
          "plain_ms": abft_plain, "bound_ms": abft_bound[0],
          "bound_by": abft_bound[1], "library_ms": None,
          "torch_fft_ms": lib_ms, "overhead_vs_block_fft":

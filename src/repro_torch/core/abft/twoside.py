@@ -29,18 +29,24 @@ __all__ = ["GroupChecksums", "Verdict", "detect_locate", "apply_correction"]
 
 @dataclasses.dataclass
 class GroupChecksums:
-    """Complex (G, N) checksum tensors for G transaction groups."""
+    """Complex (G, N) checksum tensors for G transaction groups.
+
+    ``inputs`` is ``[cs2_in, cs3_in]`` as one (2, G, N) tensor where they
+    already are one (the fused kernel's layout), so the protected operator
+    runs on both in one call without a copy."""
 
     cs2_in: torch.Tensor
     cs3_in: torch.Tensor
     cs2_out: torch.Tensor
     cs3_out: torch.Tensor
+    inputs: torch.Tensor | None = None
 
     @classmethod
     def from_packed(cls, cs: torch.Tensor) -> "GroupChecksums":
         """From the fused kernel's (4, G, N) complex layout
         ``[X.e2, X.e3, Y.e2, Y.e3]`` (views, no copy)."""
-        return cls(cs2_in=cs[0], cs3_in=cs[1], cs2_out=cs[2], cs3_out=cs[3])
+        return cls(cs2_in=cs[0], cs3_in=cs[1], cs2_out=cs[2], cs3_out=cs[3],
+                   inputs=cs[:2])
 
 
 @dataclasses.dataclass
@@ -64,11 +70,17 @@ def detect_locate(
 ) -> Verdict:
     """Run detection + location on group checksums.
 
-    ``forward`` is the protected linear operator applied to the (G, N) input
-    checksums — one extra F per *group*, amortized over its signals.
+    ``forward`` is the protected linear operator applied row by row to the
+    input checksums — one extra F per *group* and checksum, amortized over
+    its signals. It runs once, on the (2G, N) block ``[cs2_in; cs3_in]``.
     """
-    d2 = forward(cs.cs2_in) - cs.cs2_out          # == -eps on the error
-    d3 = forward(cs.cs3_in) - cs.cs3_out          # == -id_s * eps
+    inputs = cs.inputs
+    if inputs is None:
+        inputs = torch.stack([cs.cs2_in, cs.cs3_in])
+    g, n = cs.cs2_in.shape
+    f_in = forward(inputs.reshape(2 * g, n)).reshape(2, g, n)
+    d2 = f_in[0] - cs.cs2_out                     # == -eps on the error
+    d3 = f_in[1] - cs.cs3_out                     # == -id_s * eps
     scale = torch.sqrt(torch.mean(_power(cs.cs2_out), dim=-1)) + EPS
     score = torch.sqrt(torch.mean(_power(d2), dim=-1)) / scale
     flagged = score > threshold

@@ -65,7 +65,9 @@ def _fft_recursive(x: torch.Tensor, stages, inverse: bool) -> torch.Tensor:
         raise ValueError(f"stage {st} does not fit length {n}")
     lead = tuple(x.shape[:-1])
     z = x.reshape(lead + (r, m))
-    z = torch.einsum("kr,...rm->...km", _factor_const(r, x, inverse), z)
+    # a broadcast matmul computes each signal alike whatever the batch
+    # (einsum's path, and so its rounding, changes with the batch size)
+    z = torch.matmul(_factor_const(r, x, inverse), z)
     if m > 1:
         z = z * _twiddle_const(r, m, x, inverse)
         z = _fft_recursive(z, stages[1:], inverse)  # FFT along last axis (m)

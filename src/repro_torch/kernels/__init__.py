@@ -1,8 +1,8 @@
 """CUDA kernels for the paper's compute hot spots (sm_90a, csrc/).
 
 stockham.py       -- block FFT (csrc/block_fft.cu) + its plain torch version
-stockham_abft.py  -- + fused two-sided ABFT (csrc/abft_fft.cu), one CTA per
-                     checksum group looping over its transactions
+stockham_abft.py  -- + fused two-sided ABFT (csrc/abft_fft.cu), one
+                     thread-block cluster per checksum group
 ft_matmul.py      -- fused two-side ABFT GEMM (csrc/ft_matmul.cu) + its
                      plain torch version; the core.gemm plan runs it
 ft_matmul_tiles.py -- times the GEMM kernel with each CTA tile on a card

@@ -11,7 +11,7 @@
 // r locations it read, so the stage is in place with one barrier after it.
 // That is the reference's recursion with its transposes deferred: after the
 // last stage, output k = d0 + r0*(d1 + r1*(d2 + ...)) sits at position
-// ((d0*r1 + d1)*r2 + d2)... , which digit_rev() computes.
+// ((d0*r1 + d1)*r2 + d2)... (fft_tile.cuh's natural_index inverts it).
 //
 // W and T come precomputed from the host (repro_torch.core.fft.factors), as
 // one flat table per plan: for each stage W_r (r*r, row-major [k1][n1]) and,
@@ -22,10 +22,6 @@
 #include <cuda_runtime.h>
 
 namespace turbofft {
-
-constexpr int kThreads = 256;          // threads per CTA, both kernels
-constexpr int kTileElems = 8192;       // complex points per CTA tile
-constexpr int kMaxRegRadix = 16;       // butterflies held in registers
 
 template <typename R> struct Cplx;
 template <> struct Cplx<float> { using T = float2; };
@@ -64,18 +60,6 @@ __device__ __forceinline__ V cscale(V a, R s) {
 __device__ __forceinline__ int stage_log_radix(unsigned long long logr,
                                                int st) {
   return (int)((logr >> (4 * st)) & 15ull);
-}
-
-// Position in shared memory of output point k after all stages.
-__device__ __forceinline__ int digit_rev(int k, int nst,
-                                         unsigned long long logr) {
-  int q = 0;
-  for (int st = 0; st < nst; ++st) {
-    const int lr = stage_log_radix(logr, st);
-    q = (q << lr) | (k & ((1 << lr) - 1));
-    k >>= lr;
-  }
-  return q;
 }
 
 // Radix-RAD butterfly with every point in registers (RAD <= 16).

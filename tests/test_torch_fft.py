@@ -278,10 +278,11 @@ def test_plan_resolves_once_and_keeps_device_tables(monkeypatch, crand):
     monkeypatch.setattr(ops, "abft_fft", spy_abft)
     pf = plan(FFTSpec(shape=(16, 256), ft=FTConfig(), device=CPU))
     pf.ft_fft(_t(crand(16, 256)))
-    # the fused kernel, then detect_locate's checksum FFTs (X.e2 and X.e3)
+    # the fused kernel, then detect_locate's one checksum FFT over the
+    # (2G, N) block [X.e2; X.e3]
     for st, tab, *_ in fused + seen:
         assert st is pf.local_plan.stages[0] and tab is pf.tables[False][0]
-    assert len(fused) == 1 and len(seen) == 2
+    assert len(fused) == 1 and len(seen) == 1
 
 
 def test_plan_rejects_wrong_transform_axis(crand):

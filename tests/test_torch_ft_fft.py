@@ -30,6 +30,7 @@ from repro_torch.core.abft import twoside
 from repro_torch.core.fft import FFTSpec, FTConfig, make_plan, plan
 from repro_torch.core.ft import injection
 from repro_torch.kernels import ops
+from repro_torch.kernels.stockham import block_fft_plain
 from repro_torch.kernels.stockham_abft import abft_fft, abft_fft_plain
 
 CPU = "cpu"
@@ -105,6 +106,19 @@ def test_abft_geometry_and_inverse_errors_match_reference(crand):
         abft_fft(x, stages, bs=4, transactions=2)
     with pytest.raises(NotImplementedError, match="forward"):
         abft_fft(x, stages, bs=4, inverse=True)
+    # an unknown encoding raises whether or not per-signal checksums are
+    # taken, on the kernel's CPU path and through ft_fft, as the reference
+    xn = crand(8, 64)
+    for per_signal in (False, True):
+        with pytest.raises(ValueError, match="unknown encoding"):
+            abft_fft(x, stages, bs=4, transactions=3, per_signal=per_signal,
+                     encoding="bogus")
+        kw = dict(transactions=2, bs=2, per_signal=per_signal,
+                  encoding="e3")
+        with pytest.raises(ValueError, match="unknown encoding"):
+            _port_ft(xn, **kw)
+        with pytest.raises(ValueError, match="unknown encoding"):
+            _ref_ft(xn, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +270,55 @@ def test_detect_locate_and_correction_vs_reference(rng):
     np.testing.assert_allclose(fixed.numpy(), np.asarray(ref_fixed),
                                atol=1e-12)
     np.testing.assert_allclose(fixed.numpy()[6] - y[6], -eps, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("g,n", [(1, 8), (1, 16), (2, 32), (3, 512),
+                                 (5, 8192), (8, 1024), (256, 64)])
+def test_merged_checksum_fft_gives_the_verdict_of_two_calls(g, n, dtype,
+                                                            rng):
+    """detect_locate runs the protected operator once on the (2G, N) block
+    [X.e2; X.e3] of the fused kernel's cs; that is bitwise the verdict of
+    one call on X.e2 and one on X.e3. One CPU thread: torch's elementwise
+    kernels split a large tensor over threads at offsets that move with its
+    size, and a chunk's scalar tail rounds a complex product unlike the
+    vector body."""
+    stages = make_plan(n).stages[0]
+    cs = (rng.standard_normal((4, g, n))
+          + 1j * rng.standard_normal((4, g, n))).astype(dtype)
+    cs[2] = np.fft.fft(cs[0])
+    cs[3] = np.fft.fft(cs[1])
+    cs[2, g - 1, n // 3] += 5.0 - 4.0j           # one SEU in the last group
+    cs[3, g - 1, n // 3] += 7 * (5.0 - 4.0j)
+    calls = []
+
+    def merged(c):
+        calls.append(c.shape)
+        return block_fft_plain(c, stages)
+
+    def two_calls(c):
+        calls.append(c.shape)
+        return torch.cat([block_fft_plain(c[:g], stages),
+                          block_fft_plain(c[g:], stages)])
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = twoside.detect_locate(
+            twoside.GroupChecksums.from_packed(_t(cs)), merged, 1e-4)
+        want = twoside.detect_locate(
+            twoside.GroupChecksums.from_packed(_t(cs)), two_calls, 1e-4)
+    finally:
+        torch.set_num_threads(threads)
+    assert calls == [(2 * g, n)] * 2
+    for field in ("error_score", "flagged", "location", "correction"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    assert bool(got.flagged[g - 1]) and int(got.location[g - 1]) == 6
+    # a GroupChecksums built field by field takes the same single call
+    sums = twoside.GroupChecksums(*(_t(cs[j]) for j in range(4)))
+    again = twoside.detect_locate(sums, merged, 1e-4)
+    assert calls[-1] == (2 * g, n)
+    assert torch.equal(again.location, got.location)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.complex64, np.float64,

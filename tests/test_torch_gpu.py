@@ -10,7 +10,8 @@ conftest:
 Tolerance: the suite's ``ATOL[dtype] * max|ref|`` (4e-5 complex64, 1e-11
 complex128); the kernel and its plain version sum in different orders. The
 fused kernel's checksums are held row by row (each part, each group), and
-its per-signal divergence elementwise (see ``_check_abft``). The GEMM
+its per-signal divergence elementwise (see ``_check_abft``); two calls
+are bitwise equal, and its fast build instances have no spills. The GEMM
 kernel ``ft_matmul``: bitwise on integer-valued operands (every sum exact);
 on random ones each float32 part to 1e-4 * its max (float32 sums of up to
 K = 8192 terms in another order than cuBLAS's: sqrt(K) * 2^-24 is about
@@ -177,26 +178,126 @@ def _delta_noise(delta_clean):
     return 4.0 * max(delta_clean.abs().max().item(), eps)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+# (bs, T): T in {1, 3, 4, 8, 16}, bs in {1, 2, 4}; at N = 8192 (bs, T) =
+# (4, 8) is 32 tiles on a cluster of 8 (4 tiles a CTA, running sums in
+# shared memory) and (1, 3), (2, 3) are 3 and 6 tiles on 4 and 8 CTAs
+ABFT_GROUPS = [(1, 1), (1, 3), (2, 3), (1, 4), (4, 4), (4, 8), (1, 16),
+               (2, 16)]
+
+
 @pytest.mark.parametrize("per_signal", [False, True])
-@pytest.mark.parametrize("n,b,bs,t", [(512, 32, 8, 2),      # registers
-                                      (8192, 16, 1, 4),     # global cs
-                                      (64, 96, 4, 3)])
-def test_abft_kernel_matches_plain(cuda, n, b, bs, t, per_signal, dtype):
-    x = _rand(b, n, dtype).to(cuda)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [8, 64, 512, 2048, 4096, 8192])
+def test_abft_kernel_matches_plain(cuda, n, dtype, per_signal):
+    """Two groups of each (bs, T), clean, then the SEU in the first tile at
+    column 0 and in the last tile at column N - 1."""
     stages = make_plan(n).stages[0]
-    inj = torch.tensor([b // bs - 1, bs - 1, n // 3, 1, 25.0, -40.0])
-    noise = None
-    for inject in (None, inj):                    # the clean call first
-        kw = dict(bs=bs, transactions=t, per_signal=per_signal,
-                  inject=inject)
-        before = abft_fft.launches
-        got = abft_fft(x, stages, **kw)
-        assert abft_fft.launches == before + 1
-        want = abft_fft_plain(x, stages, **kw)
-        if noise is None:
-            noise = _delta_noise(want[1])
-        _check_abft(got, want, noise)
+    for bs, t in ABFT_GROUPS:
+        b = 2 * bs * t
+        x = _rand(b, n, dtype, seed=bs * t).to(cuda)
+        noise = None
+        for inject in (None, [0, 0, 0, 1, 25.0, -40.0],
+                       [b // bs - 1, bs - 1, n - 1, 1, -30.0, 15.0]):
+            inj = None if inject is None else torch.tensor(inject)
+            kw = dict(bs=bs, transactions=t, per_signal=per_signal,
+                      inject=inj)
+            before = abft_fft.launches
+            got = abft_fft(x, stages, **kw)
+            assert abft_fft.launches == before + 1
+            want = abft_fft_plain(x, stages, **kw)
+            if noise is None:                     # the clean call first
+                noise = _delta_noise(want[1])
+            _check_abft(got, want, noise)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,bs,t", [(8192, 1, 4), (8192, 4, 8), (256, 2, 3)])
+def test_abft_kernel_is_bitwise_repeatable(cuda, n, bs, t, dtype):
+    x = _rand(4 * bs * t, n, dtype).to(cuda)
+    stages = make_plan(n).stages[0]
+    inj = torch.tensor([1, bs - 1, n // 5, 1, 9.0, 2.0])
+    a = abft_fft(x, stages, bs=bs, transactions=t, inject=inj)
+    b = abft_fft(x, stages, bs=bs, transactions=t, inject=inj)
+    for part, u, v in zip(("y", "delta", "cs"), a, b):
+        assert torch.equal(u, v), part
+
+
+@pytest.mark.parametrize("radices,n", [((128, 8), 1024), ((128, 64), 8192),
+                                       ((2,) * 7, 128)])
+def test_abft_kernel_on_reference_stages(cuda, radices, n):
+    """The reference plan's stages (radix 128 included) run the generic
+    instance with the same checksum machinery."""
+    stages = plan_from_reference(n, (n,), (radices,), 8).stages[0]
+    for dtype in DTYPES:
+        x = _rand(24, n, dtype).to(cuda)
+        inj = torch.tensor([2, 1, n - 1, 1, 25.0, -40.0])
+        for per_signal in (False, True):
+            kw = dict(bs=2, transactions=3, per_signal=per_signal)
+            clean = abft_fft_plain(x, stages, **kw)
+            got = abft_fft(x, stages, inject=inj, **kw)
+            want = abft_fft_plain(x, stages, inject=inj, **kw)
+            _check_abft(got, want, _delta_noise(clean[1]))
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_abft_build_fast_instances_have_no_spills_or_stack(cuda):
+    x = _rand(4, 64, torch.complex64).to(cuda)
+    abft_fft(x, make_plan(64).stages[0], bs=1, transactions=4)   # builds
+    log = ftk._build.library_path("abft_fft").with_suffix(".log")
+    rows = _chip_smoke().abft_ptxas(log.read_text())
+    assert sorted((r["dtype"], r["fast"]) for r in rows) == [
+        ("complex128", False), ("complex128", True),
+        ("complex64", False), ("complex64", True)]
+    for r in rows:
+        if r["fast"]:
+            assert r["spill_stores"] == r["spill_loads"] == 0, r
+            assert r["stack"] == 0, r
+            assert r["registers"] <= (64 if r["dtype"] == "complex64"
+                                      else 128), r
+
+
+def test_abft_timed_geometry_schedules(cuda):
+    from repro_torch.kernels.stockham_abft import (launch_geometry,
+                                                   max_active_clusters)
+    stages = make_plan(8192).stages[0]
+    for dtype, bs, t in ((torch.complex64, 1, 4), (torch.complex128, 1, 4),
+                         (torch.complex64, 4, 8), (torch.complex128, 4, 8)):
+        geo = launch_geometry(stages, dtype, bs, t)
+        assert max_active_clusters(geo, cuda) >= 1, geo
+
+
+def test_plan_ft_fft_launches_one_abft_and_one_block_fft(cuda):
+    """One plan.ft_fft call: one fused kernel, one checksum FFT over the
+    (2G, N) block [X.e2; X.e3], by the launch counts and under
+    torch.profiler."""
+    b, n = 256, 4096
+    x = _rand(b, n, torch.complex64).to(cuda)
+    p = plan(FFTSpec(shape=(b, n), ft=FTConfig()))
+    before = (abft_fft.launches, block_fft.launches)
+    p.ft_fft(x)
+    assert (abft_fft.launches - before[0], block_fft.launches - before[1]) \
+        == (1, 1)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):      # the tracer can drop an event, never add one
+        with torch.profiler.profile(activities=acts) as prof:
+            p.ft_fft(x)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = (sum("abft_fft" in nm for nm in names),
+                  sum("block_fft" in nm for nm in names))
+        if counts == (1, 1):
+            break
+    assert counts == (1, 1), names
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -363,10 +464,7 @@ def test_ft_matmul_kernel_is_bitwise_equal_across_cta_tiles(cuda, xdtype):
 
 def test_ft_matmul_build_has_no_spills_and_two_ctas_per_sm(cuda):
     ft_matmul(*(t.to(cuda) for t in _int_mats(128, 128, 128)))   # builds
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     build_log = ftk._build.library_path("ft_matmul").with_suffix(".log")
     rows = smoke.ft_matmul_ptxas(build_log.read_text())
     assert len(rows) == 16                # 4 operand types x 4 CTA tiles
