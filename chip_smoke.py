@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-(all at once) and drives the port's two paths:
+(all at once) and drives the port's three paths:
 
 * FFT: the local rank-1 fft / ifft / ft_fft path through
   ``plan(FFTSpec(...))`` at the sizes of ``turbofft_bench.CONFIG``'s corners
@@ -15,7 +15,15 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   ``plan(GEMMSpec(...)).ft_matmul`` on the MLP's two product shapes with an
   SEU campaign, then the protected SwiGLU MLP block (rmsnorm -> mlp ->
   residual, bf16 activations, f32 weights, 4 x 512 tokens) under
-  ``FTContext`` with a Poisson fault schedule over its three sites.
+  ``FTContext`` with a Poisson fault schedule over its three sites;
+* the local extensions at typical user grids (``extension_cases``): rfft /
+  irfft, fft2 / ifft2 (complex64 and complex128), rfft2 / irfft2, a rank-3
+  fftn / ifftn, real and complex fft_convolve and correlate,
+  fft_convolve2, power_spectrum (complex and one-sided real), a fft2 whose
+  non-last axis is over 8192 points (the copy path), each against its
+  ``torch.fft`` counterpart at ATOL[dtype] * max|ref| with its
+  ``block_fft`` launches counted, and ``ft_ifft`` over an SEU campaign
+  (injected == detected == located == corrected, no false alarm).
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -34,8 +42,15 @@ events (and the protected MLP block against the unprotected one), takes
 ``torch.profiler``, traces one ``plan.ft_fft`` call (its kernels, device
 times and the device's idle share over the call), and runs one
 ``plan.fft`` call of each FFT case under ``torch.profiler``, which must
-show exactly one CUDA kernel per pass, all ``block_fft``. The last two
-lines are the ``kernels`` JSON and ``{"ok": true, "device": ...}``. Any failed check
+show exactly one CUDA kernel per pass, all ``block_fft``. For the
+extensions it holds ``block_fft`` against its plain version in every
+strided column layout they launch (in place), and runs one call of each
+path under ``torch.profiler``: fft2 must be exactly two ``block_fft``
+kernels and nothing else, fftn three, the copy path three and two copies;
+the other kernels of a call (the Hermitian unpack's, the spectral
+products') are listed; each path is timed against ``torch.fft`` and its
+byte bound (input + output once at 3.35 TB/s). The last two lines are
+the ``kernels`` JSON and ``{"ok": true, "device": ...}``. Any failed check
 raises and exits non-zero; without a CUDA device it exits 1 and prints no
 result.
 """
@@ -52,7 +67,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
-ATOL = {"complex64": 4e-5, "complex128": 1e-11}
+ATOL = {"complex64": 4e-5, "complex128": 1e-11, "float32": 4e-5,
+        "float64": 1e-11}
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_FLOPS = {"complex64": 67e12,          # fp32 outside the tensor cores
               "complex128": 34e12}         # fp64 outside the tensor cores
@@ -510,6 +526,233 @@ def gemm_time_phase(dev, cuda_ms, device_kernels):
     return rows
 
 
+# The local extensions at full width: typical user grids, each well beyond
+# the 50 MB L2. Each case is (label, dtype of its tolerance, block_fft
+# launches a call, the count of the call's other CUDA kernels when it is
+# fixed (None: listed, not checked), make inputs, the port's call,
+# torch.fft's call); inputs are made from SEED.
+FT_IFFT_CASE = ("complex64", 13, 1024)    # (dtype, log2 N, batch), bs = 1
+# (dtype, shape, axis) of the block_fft launches over strided columns that
+# the extensions run, held against the plain version in phase 4
+AXIS_LAYOUTS = (("complex64", (4, 4096, 4096), 1),
+                ("complex128", (2, 4096, 4096), 1),
+                ("complex64", (4, 4096, 2049), 1),
+                ("complex64", (512, 512, 512), 1),
+                ("complex64", (512, 512, 512), 0))
+
+
+def _seeded(dev, shape, dtype, salt=0):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + sum(shape) + salt)
+    return torch.randn(shape, dtype=getattr(torch, dtype), device=dev,
+                       generator=gen)
+
+
+def extension_cases(dev):
+    """The extensions' paths as a user calls them, at full width."""
+    import torch
+    from repro_torch.core.fft import (FFTSpec, extensions, fft_convolve2,
+                                      make_plan, plan, spectral)
+
+    def rfft_pair(dtype, shape):
+        cdt = "complex128" if dtype == "float64" else "complex64"
+        make = lambda: (_seeded(dev, shape, dtype),)         # noqa: E731
+        spec = lambda: (torch.fft.rfft(_seeded(dev, shape, dtype)),)  # noqa
+        passes = make_plan(shape[-1] // 2).num_passes
+        return [
+            (f"rfft {dtype} {shape}", cdt, passes, None, make,
+             extensions.rfft, torch.fft.rfft),
+            (f"irfft {dtype} {shape}", dtype, passes, None, spec,
+             extensions.irfft, torch.fft.irfft)]
+
+    def grid(dtype, shape, rank, copies=0):
+        # copies: the other kernels of a call (the copy path's two)
+        p = plan(FFTSpec(shape=shape, dtype=dtype, rank=rank))
+        make = lambda: (_seeded(dev, shape, dtype),)         # noqa: E731
+        dims = tuple(range(-rank, 0))
+        launches = sum(make_plan(n).num_passes for n in shape[-rank:])
+        name = "fftn" if rank == 3 else "fft2"
+        return [
+            (f"{name} {dtype} {shape}", dtype, launches, copies, make,
+             p.fft, lambda x: torch.fft.fftn(x, dim=dims)),
+            (f"i{name} {dtype} {shape}", dtype, launches, copies, make,
+             p.ifft, lambda x: torch.fft.ifftn(x, dim=dims))]
+
+    def conv_ref(a, v):
+        n = spectral._conv_nfft(a.shape[-1], v.shape[-1])
+        out = torch.fft.ifft(torch.fft.fft(a, n=n) * torch.fft.fft(v, n=n))
+        return out[..., :a.shape[-1] + v.shape[-1] - 1]
+
+    def conv_real_ref(a, v, corr=False):
+        la, lv = a.shape[-1], v.shape[-1]
+        n = spectral._conv_nfft(la, lv)
+        if corr:
+            v = v.flip(-1)
+        return torch.fft.irfft(torch.fft.rfft(a, n=n) * torch.fft.rfft(v, n=n),
+                               n=n)[..., :la + lv - 1]
+
+    sig, taps = (1024, 7168), (1025,)
+    real_sig = lambda: (_seeded(dev, sig, "float32"),         # noqa: E731
+                        _seeded(dev, taps, "float32", 1))
+    cplx_sig = lambda: (_seeded(dev, sig, "complex64"),       # noqa: E731
+                        _seeded(dev, taps, "complex64", 1))
+    img = lambda: (_seeded(dev, (4, 2048, 2048), "float32"),  # noqa: E731
+                   _seeded(dev, (33, 33), "float32", 1))
+
+    def conv2_ref(a, v):
+        s = (4096, 4096)
+        full = torch.fft.irfft2(torch.fft.rfft2(a, s=s)
+                                * torch.fft.rfft2(v, s=s), s=s)
+        return full[..., :2080, :2080]
+
+    r2 = (4, 4096, 4096)
+    cases = (rfft_pair("float32", (1024, 16384))
+             + rfft_pair("float64", (1024, 16384))
+             + rfft_pair("float32", (256, 1 << 21))
+             + grid("complex64", (4, 4096, 4096), 2)
+             + grid("complex128", (2, 4096, 4096), 2)
+             + [(f"rfft2 float32 {r2}", "complex64", 2, None,
+                 lambda: (_seeded(dev, r2, "float32"),), extensions.rfft2,
+                 torch.fft.rfft2),
+                (f"irfft2 float32 {r2}", "float32", 2, None,
+                 lambda: (torch.fft.rfft2(_seeded(dev, r2, "float32")),),
+                 extensions.irfft2, torch.fft.irfft2)]
+             + grid("complex64", (512, 512, 512), 3)
+             + [("fft_convolve float32 (1024, 7168) * 1025", "float32", 2,
+                 None, real_sig, spectral.fft_convolve, conv_real_ref),
+                ("correlate float32 (1024, 7168) * 1025", "float32", 2,
+                 None, real_sig, spectral.correlate,
+                 lambda a, v: conv_real_ref(a, v, corr=True)),
+                ("fft_convolve complex64 (1024, 7168) * 1025", "complex64",
+                 3, None, cplx_sig, spectral.fft_convolve, conv_ref),
+                ("fft_convolve2 float32 (4, 2048, 2048) * (33, 33)",
+                 "float32", 6, None, img, fft_convolve2, conv2_ref),
+                ("power_spectrum complex64 (1024, 8192)", "float32", 1,
+                 None, lambda: (_seeded(dev, (1024, 8192), "complex64"),),
+                 spectral.power_spectrum,
+                 lambda x: torch.fft.fft(x).abs() ** 2 / x.shape[-1]),
+                ("power_spectrum real float32 (1024, 16384)", "float32", 1,
+                 None, lambda: (_seeded(dev, (1024, 16384), "float32"),),
+                 lambda x: spectral.power_spectrum(x, real=True),
+                 lambda x: torch.fft.rfft(x).abs() ** 2 / x.shape[-1])]
+             # a non-last axis over 8192 points: the copy path
+             + grid("complex64", (2, 16384, 512), 2, copies=2)[:1])
+    return cases
+
+
+def extensions_drive(cases):
+    """Drive every extension path once, as a user calls it: each result
+    against torch.fft's at ATOL[dtype] * max|ref|, and the block_fft
+    launches of the call by the wrapper's count. Returns one row a path."""
+    import torch
+    from repro_torch.kernels.stockham import block_fft
+
+    rows = []
+    for label, dtype, blk, _, make, port, ref in cases:
+        inp = make()
+        before = block_fft.launches
+        got = port(*inp)
+        launches = block_fft.launches - before
+        want = ref(*inp)
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{label}: {tuple(got.shape)} {got.dtype} against torch.fft's "
+              f"{tuple(want.shape)} {want.dtype}")
+        err = (got - want).abs().max().item()
+        tol = ATOL[dtype] * want.abs().max().item()
+        check(err <= tol, f"{label}: err {err} > {tol}")
+        check(launches == blk, f"{label}: {launches} block_fft launches, "
+                               f"not {blk}")
+        nbytes = sum(t.numel() * t.element_size() for t in inp) \
+            + got.numel() * got.element_size()
+        rows.append({"path": label, "max_abs_err": err, "tol": tol,
+                     "block_fft_launches": launches, "bytes": nbytes,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        log(f"extension {label}: err {err:.3e} tol {tol:.3e}, {launches} "
+            f"block_fft launches")
+        del inp, got, want
+    return rows
+
+
+def ft_ifft_campaign(dev):
+    """``ft_ifft`` (complex64 (1024, 8192), T = 4, bs = 1) over an SEU
+    schedule: injected == detected == located == corrected, no flag on a
+    clean call, the output within ATOL of ``torch.fft.ifft``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.fft import extensions
+    from repro_torch.core.ft import poisson_schedule
+
+    dtype, logn, b = FT_IFFT_CASE
+    n, bs = 1 << logn, 1
+    x = _seeded(dev, (b, n), dtype)
+    ref = torch.fft.ifft(x)
+    tol = ATOL[dtype] * ref.abs().max().item()
+    kw = dict(transactions=FT_TRANSACTIONS, bs=bs)
+    seu = {"injected": 0, "detected": 0, "located": 0, "corrected": 0,
+           "false_alarms": 0, "clean_calls": 0}
+    sched = poisson_schedule(np.random.default_rng(SEED + 1),
+                             steps=SEU_STEPS, rate_per_step=0.8,
+                             tiles=b // bs, bs=bs, n=n)
+    worst = 0.0
+    for step in range(-1, SEU_STEPS):     # step -1: a clean call
+        inj = None if step < 0 else sched.for_step(step)
+        res = extensions.ft_ifft(x, inject=inj, **kw)
+        flagged = res.flagged.cpu().numpy()
+        if inj is not None and float(inj[3]) > 0:
+            seu["injected"] += 1
+            seu["detected"] += int(flagged.sum() == 1)
+            want_sig = int(inj[0]) * bs + int(inj[1])
+            seu["located"] += int(flagged.sum() == 1 and int(
+                res.location.cpu().numpy()[flagged][0]) == want_sig)
+            seu["corrected"] += int(res.corrected)
+        else:
+            seu["false_alarms"] += int(flagged.sum())
+            seu["clean_calls"] += 1
+        err = (res.y - ref).abs().max().item()
+        check(err <= tol, f"ft_ifft step {step}: err {err} > {tol}")
+        worst = max(worst, err)
+    log(f"ft_ifft {dtype} N=2^{logn} B={b} T={FT_TRANSACTIONS} bs={bs}: "
+        f"SEU campaign {json.dumps(seu)}; worst err {worst:.3e} (tol "
+        f"{tol:.3e})")
+    check(seu["injected"] > 0 and seu["injected"] == seu["detected"]
+          == seu["located"] == seu["corrected"] and seu["false_alarms"] == 0,
+          f"ft_ifft SEU campaign: {seu}")
+    return dict(seu, max_abs_err=worst, tol=tol)
+
+
+def extensions_measure(cases, rows, cuda_ms, device_kernels):
+    """Per path: one call's CUDA kernels under torch.profiler (the
+    block_fft launches the wrapper counted; fft2 two and fftn three and
+    nothing else, the copy path two copies; the other kernels are listed),
+    and the port's and torch.fft's CUDA-event times beside the byte bound
+    (input + output once)."""
+    for row, (label, _, blk, n_other, make, port, ref) in zip(rows, cases):
+        inp = make()
+        kern = []
+        for _ in range(3):      # the tracer can drop an event, never add one
+            kern = device_kernels(lambda: port(*inp))
+            if sum("block_fft" in k for k, _ in kern) == blk:
+                break
+        names = [k for k, _ in kern]
+        n_blk = sum("block_fft" in k for k in names)
+        others = [k[:60] for k in names if "block_fft" not in k]
+        check(n_blk == blk and n_other in (None, len(others)),
+              f"{label} under torch.profiler: {n_blk} block_fft (want "
+              f"{blk}) and {len(others)} other kernels (want {n_other}): "
+              f"{others}")
+        ms = cuda_ms(lambda: port(*inp), iters=5, warmup=1)
+        lib = cuda_ms(lambda: ref(*inp), iters=5, warmup=1)
+        row.update(ms=ms, torch_fft_ms=lib, kernels=len(names),
+                   block_fft_device_ms=sum(t for k, t in kern
+                                           if "block_fft" in k),
+                   device_ms=sum(t for _, t in kern), other_kernels=others)
+        log(f"times {label}: port {ms:.4f} ms ({len(names)} kernels, "
+            f"{n_blk} block_fft {row['block_fft_device_ms']:.4f} ms on the "
+            f"device), torch.fft {lib:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms; others: {others}")
+        del inp
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -518,12 +761,13 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core.fft import FFTSpec, FTConfig, plan
-    from repro_torch.core.fft.plan import pass_layouts
+    from repro_torch.core.fft.plan import axis_layout, pass_layouts
     from repro_torch.core.ft import poisson_schedule
     from repro_torch.kernels import _build
     from repro_torch.kernels import ft_matmul as ftmm
     from repro_torch.kernels.ft_matmul import ft_matmul
-    from repro_torch.kernels.stockham import block_fft, block_fft_plain
+    from repro_torch.kernels.stockham import (_tile_signals, block_fft,
+                                              block_fft_plain)
     from repro_torch.kernels.stockham_abft import (abft_fft, abft_fft_plain,
                                                    launch_geometry,
                                                    max_active_clusters)
@@ -786,6 +1030,21 @@ def main() -> int:
     check(gemm_launches["ft_matmul"] > 0,
           f"a kernel of the path was never launched: {gemm_launches}")
 
+    # ---- phases 2c and 3c: the local extensions, counts from this run only
+    ext_cases = extension_cases(dev)
+    block_fft.launches = 0
+    abft_fft.launches = 0
+    ft_matmul.launches = 0
+    ext_rows = extensions_drive(ext_cases)
+    ft_ifft_seu = ft_ifft_campaign(dev)
+    torch.cuda.synchronize()
+    ext_launches = {"block_fft": block_fft.launches,
+                    "abft_fft": abft_fft.launches,
+                    "ft_matmul": ft_matmul.launches}
+    log(f"extensions path launches, whole run: {json.dumps(ext_launches)}")
+    check(ext_launches["block_fft"] > 0 and ext_launches["abft_fft"] > 0,
+          f"a kernel of the path was never launched: {ext_launches}")
+
     # ---- phase 4: each kernel against its plain version on the card, with
     # the plan's own stages and device tables: every pass of every FFT case
     # in its real layout and with its pass twiddle, and the checksum FFT of
@@ -832,6 +1091,7 @@ def main() -> int:
                 f"{tol:.3e}")
             del x, out
     abft_parts = dict.fromkeys(ABFT_PARTS, 0.0)
+    axis_rows = []
     for dtype, logn, b in FT_CASES:
         n = 1 << logn
         p = plan(FFTSpec(shape=(b, n), dtype=dtype,
@@ -868,6 +1128,39 @@ def main() -> int:
             log(f"abft_fft {dtype} ({b}, {n}) bs={bs} T={FT_TRANSACTIONS} "
                 f"per_signal={per_signal}: {ms:.4f} ms")
         del x, got, want
+    # block_fft in the extensions' strided column layouts, in place as the
+    # path runs them: every non-last axis of the grids above (C/2+1 = 2049
+    # columns: one signal a tile, the scalar path)
+    for dtype, shape, axis in AXIS_LAYOUTS:
+        n = shape[axis]
+        lay = axis_layout(math.prod(shape[:axis]), n,
+                          math.prod(shape[axis + 1:]))
+        stages = plan(FFTSpec(shape=(1, n), dtype=dtype)).local_plan.stages[0]
+        x = randn(shape, dtype)
+        for inverse in (False, True):
+            kw = dict(inverse=inverse, scale=1.0 / n if inverse else 1.0,
+                      layout=lay)
+            got = x.clone()
+            block_fft(got, stages, out=got, **kw)
+            want = block_fft_plain(x, stages, **kw)
+            err = max_err(got, want)
+            tol = ATOL[dtype] * want.abs().max().item()
+            what = f"block_fft {dtype} {shape} axis {axis} inverse={inverse}"
+            check(err <= tol, f"{what} vs plain: {err} > {tol}")
+            kerr["block_fft"] = max(kerr["block_fft"], err)
+            kratio["block_fft"] = max(kratio["block_fft"], err / tol)
+            del got, want
+        ms = cuda_ms(lambda: block_fft(x, stages, out=x, layout=lay),
+                     iters=5, warmup=1)
+        gbps = 2 * x.numel() * x.element_size() / ms / 1e6
+        log(f"block_fft {dtype} {shape} axis {axis} {lay}: {ms:.4f} ms, "
+            f"{gbps:.1f} GB/s in place (bound "
+            f"{2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3:.4f}"
+            f" ms); err {err:.3e} tol {tol:.3e}")
+        axis_rows.append({"dtype": dtype, "shape": list(shape), "axis": axis,
+                          "ms": ms, "gb_per_s": gbps,
+                          "signals_per_tile": _tile_signals(n, lay)})
+        del x
     kerr["abft_fft"] = max(abft_parts.values())
     log(f"kernel vs plain max abs err: {json.dumps(kerr)}; abft_fft by "
         f"part: {json.dumps(abft_parts)}; worst err/tol: "
@@ -996,6 +1289,10 @@ def main() -> int:
                 f"{k[:72]} {ms:.4f} ms" for k, ms in kern))
     del path_rows
 
+    # ---- phase 5c: the extensions' kernels under torch.profiler, and times
+    extensions_measure(ext_cases, ext_rows, cuda_ms, device_kernels)
+    del ext_cases
+
     # ---- phases 4b and 5b: ft_matmul against its plain version; times
     gemm_parts, gemm_ratio = gemm_kernel_phase(dev)
     gemm_rows = gemm_time_phase(dev, cuda_ms, device_kernels)
@@ -1019,11 +1316,16 @@ def main() -> int:
          "device_ms": blk_dev_ms, "host_ms": blk_host_ms,
          "plain_ms": blk_plain, "bound_ms": blk_bound[0],
          "bound_by": blk_bound[1], "library_ms": lib_ms,
-         "shapes": fft_shapes},
+         "launches_by_path": {"fft": launches["block_fft"],
+                              "extensions": ext_launches["block_fft"]},
+         "shapes": fft_shapes, "extensions": ext_rows,
+         "axis_layouts": axis_rows},
         {"name": "abft_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/abft_fft.cu",
          "replaces": "src/repro/kernels/stockham_abft.py:119",
          "launches": launches["abft_fft"],
+         "launches_by_path": {"fft": launches["abft_fft"],
+                              "extensions": ext_launches["abft_fft"]},
          "launches_per_call": per_call["abft_fft"],
          "max_abs_err": kerr["abft_fft"], "max_abs_err_parts": abft_parts,
          "max_err_over_tol": kratio["abft_fft"], "ms": abft_ms,
@@ -1034,6 +1336,7 @@ def main() -> int:
          "geometry": dataclasses.asdict(abft_geo),
          "max_active_clusters": abft_clusters,
          "instances": abft_instances, "plan_ft_fft_trace": ft_trace,
+         "ft_ifft_seu": ft_ifft_seu,
          "plain_ms": abft_plain, "bound_ms": abft_bound[0],
          "bound_by": abft_bound[1], "library_ms": None,
          "torch_fft_ms": lib_ms, "overhead_vs_block_fft":

@@ -1,18 +1,36 @@
 """TurboFFT core: plans, factor/twiddle tables, Stockham FFT, large-N passes,
-and the plan/execute front door."""
+the local extensions (real-input, 2-D/n-D, spectral consumers) and the
+plan/execute front door."""
 from . import factors
 from .plan import (Plan, StagePlan, make_plan, block_radices,
                    plan_from_reference)
 from .stockham import (fft, ifft, fft_with_plan, block_fft_stages, naive_dft,
                        radix2_fft)
 from .large import fft_large
-from .api import (FFTSpec, FTConfig, FFTPlan, plan, spec_for,
-                  plan_cache_info, plan_cache_clear)
 
 __all__ = [
     "factors", "Plan", "StagePlan", "make_plan", "block_radices",
     "plan_from_reference", "fft", "ifft", "fft_with_plan",
     "block_fft_stages", "naive_dft", "radix2_fft", "fft_large",
-    "FFTSpec", "FTConfig", "FFTPlan", "plan", "spec_for", "plan_cache_info",
-    "plan_cache_clear",
 ]
+from .extensions import (rfft, irfft, fft2, ifft2, rfft2,  # noqa: E402
+                         irfft2, ft_ifft)
+
+__all__ += ["rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2", "ft_ifft"]
+
+from .spectral import (fft_convolve, correlate, power_spectrum,  # noqa: E402
+                       conv_spec)
+
+__all__ += ["fft_convolve", "correlate", "power_spectrum", "conv_spec"]
+
+from .multidim import fft_convolve2  # noqa: E402
+
+__all__ += ["fft_convolve2"]
+
+# the plan/execute front door (the single dispatch path every public entry
+# point funnels through)
+from .api import (FFTSpec, FTConfig, FFTPlan, plan, spec_for,  # noqa: E402
+                  plan_cache_info, plan_cache_clear)
+
+__all__ += ["FFTSpec", "FTConfig", "FFTPlan", "plan", "spec_for",
+            "plan_cache_info", "plan_cache_clear"]

@@ -2,12 +2,14 @@
 :class:`FFTPlan` executor.
 
 An :class:`FFTSpec` is a frozen, hashable description of a transform (shape,
-dtype, rank, fault-tolerance config, device); :func:`plan` resolves it ONCE —
-the local stage plan and its stage tables uploaded to the device — and hands
-back an :class:`FFTPlan` whose executors (``plan.fft / ifft / ft_fft``) run
-``kernels.ops`` on that stage plan and those tables. This is the local
-rank-1 complex subset of ``repro.core.fft.api``; the other paths raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+dtype, rank, real input, fault-tolerance config, device); :func:`plan`
+resolves it ONCE — the stage plan of every transform axis and its stage
+tables uploaded to the device — and hands back an :class:`FFTPlan` whose
+executors (``fft/ifft``, ``fft2/ifft2``, ``rfft/irfft``, ``rfft2/irfft2``,
+``ft_fft``, ``convolve/correlate``, ``power_spectrum``) run ``kernels.ops``
+on those stage plans and tables. This is the local (single-device) subset
+of ``repro.core.fft.api``; sharded specs raise ``NotImplementedError``
+naming ROADMAP queue 1 item 10, which ports them.
 """
 from __future__ import annotations
 
@@ -20,13 +22,14 @@ import torch
 from repro_torch.core import plan as planbase
 from repro_torch.core.plan import FTConfig
 
-from .plan import make_plan
+from . import extensions, multidim, spectral
 
 __all__ = ["FFTSpec", "FTConfig", "FFTPlan", "plan", "spec_for",
            "plan_cache_info", "plan_cache_clear", "plan_cache_keys"]
 
 _COMPLEX_DTYPES = {"complex64": torch.complex64,
                    "complex128": torch.complex128}
+_ITEM_10 = "ROADMAP queue 1 item 10 (sharded FFT on torch.distributed)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,13 +38,20 @@ class FFTSpec:
 
     ``shape`` is the full operand shape — leading batch dims plus the last
     ``rank`` transform axes. ``dtype`` must be a complex dtype (executors
-    coerce real inputs). ``ft`` attaches an :class:`FTConfig`. ``device`` is
-    where the plan runs: ``"cuda"`` (the kernels) by default, ``"cpu"`` for
-    the kernels' plain versions. Specs are value objects: equal specs hash
-    equal and hit the same cached :class:`FFTPlan`.
+    coerce real inputs). ``ft`` attaches an :class:`FTConfig` (rank-1
+    complex plans). ``device`` is where the plan runs: ``"cuda"`` (the
+    kernels) by default, ``"cpu"`` for the kernels' plain versions. Specs
+    are value objects: equal specs hash equal and hit the same cached
+    :class:`FFTPlan`.
 
-    This slice runs rank 1, complex, unsharded transforms: ``rank`` other
-    than 1, ``real=True`` and ``mesh`` raise ``NotImplementedError``.
+    ``real=True`` declares the OPERAND real-valued: ``shape`` stays the
+    full real shape, ``dtype`` is the complex precision the half spectrum
+    carries, and the plan binds the ``rfft/irfft`` (rank 1) or
+    ``rfft2/irfft2`` (rank 2) executors — the packed half-length
+    transforms. Rank 2 and 3 bind ``fft2/ifft2`` (alias ``fftn/ifftn``):
+    every power-of-two axis runs the block-FFT kernel, any other length the
+    direct DFT. ``mesh`` raises ``NotImplementedError`` (ROADMAP queue 1
+    item 10).
     """
 
     shape: tuple[int, ...]
@@ -76,16 +86,26 @@ class FFTSpec:
         object.__setattr__(self, "device", str(torch.device(self.device)))
         if self.mesh is not None:
             raise NotImplementedError(
-                "sharded transforms (FFTSpec.mesh) are not ported yet: "
-                "ROADMAP queue 1 item 10 (sharded FFT on torch.distributed)")
+                f"sharded transforms (FFTSpec.mesh) are not ported yet: "
+                f"{_ITEM_10}")
         if self.real:
-            raise NotImplementedError(
-                "real-input transforms are not ported yet: ROADMAP queue 1 "
-                "item 8 (local extensions)")
-        if self.rank != 1:
-            raise NotImplementedError(
-                f"rank-{self.rank} transforms are not ported yet: ROADMAP "
-                f"queue 1 item 8 (local extensions)")
+            if self.rank == 3:
+                raise ValueError(
+                    "real plans are rank 1 (rfft) or rank 2 (rfft2); rank=3 "
+                    "has no real pipeline yet")
+            if self.ft is not None and self.rank != 2:
+                raise ValueError(
+                    "the 1-D real path has no ft pipeline — fault-tolerant "
+                    "real transforms are the rank-2 slab (rfft2 with "
+                    "FFTSpec(rank=2, real=True, ft=...))")
+        if self.ft is not None and self.rank == 3:
+            raise ValueError("fault-tolerant transforms are 1-D and 2-D "
+                             "(slab) only; rank=3 has no ft pipeline yet")
+        if self.ft is not None and self.rank == 2:
+            raise ValueError(
+                f"fault-tolerant 2-D transforms run the sharded grouped ABFT "
+                f"on the slab transpose: the spec needs a mesh, which is "
+                f"{_ITEM_10}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -103,31 +123,39 @@ class FFTSpec:
 
 
 def spec_for(x, *, rank: int = 1, ft: FTConfig | None = None,
-             device="cuda") -> FFTSpec:
+             real: bool = False, device="cuda") -> FFTSpec:
     """Build the :class:`FFTSpec` describing ``x``'s transform on
-    ``device``; real dtypes map to ``complex64``."""
+    ``device``. On a C2C spec real dtypes map to ``complex64``; on a real
+    spec (``real=True``) the operand's precision is KEPT: ``float64``
+    signals plan a ``complex128`` half spectrum."""
     x = torch.as_tensor(x)
-    dt = x.dtype if x.is_complex() else torch.complex64
+    dt = x.dtype
+    if not x.is_complex():
+        dt = (torch.complex128 if real and dt == torch.float64
+              else torch.complex64)
     return FFTSpec(shape=tuple(x.shape), dtype=planbase.dtype_name(dt),
-                   rank=rank, ft=ft, device=str(device))
+                   rank=rank, ft=ft, real=real, device=str(device))
 
 
 @planbase.register_plan_type(FFTSpec)
 class FFTPlan(planbase.Plan):
     """Pre-resolved executor bundle for one :class:`FFTSpec`.
 
-    The constructor resolves the device, the local stage plan, the stage
-    tables of every pass and the pass twiddle tables of every pass but the
-    last, in each direction (uploaded to the device once, kept here:
-    ``tables[inverse][i]`` and ``twiddles[inverse][i]`` for pass i), and
-    binds the executors to them, so the executors decide nothing. Construct
-    via :func:`plan` (LRU-cached on the spec), not directly.
+    The constructor resolves the device and, for every transform axis, its
+    stage plan, the stage tables of every pass and the pass twiddle tables
+    of every pass but the last, in each direction (uploaded to the device
+    once, kept in ``axes``: one :class:`~repro_torch.kernels.ops.AxisFFT`
+    per axis, ``None`` for a length that runs the direct DFT). A rank-1
+    complex plan also keeps its axis as ``local_plan``, ``tables[inverse]``
+    and ``twiddles[inverse]``. A real plan binds its N/2-point axis (the
+    packed half-length transform) and, at rank 1, the full-length C2C that
+    its spectral consumers run. The executors are bound to these, so they
+    decide nothing. Construct via :func:`plan` (LRU-cached on the spec),
+    not directly.
     """
 
     def __init__(self, spec: FFTSpec):
-        from repro_torch.kernels import ops as _ops  # lazy: ops imports this
-        from repro_torch.kernels.stockham import (pass_twiddle_table,
-                                                  stage_tables)
+        from repro_torch.kernels import ops  # lazy: ops imports this module
 
         super().__init__(spec)
         self.rank = spec.rank
@@ -137,36 +165,76 @@ class FFTPlan(planbase.Plan):
         self.device = planbase.resolve_device(spec.device, "FFTSpec")
         self.decomp = "local"
         self.groups = None
-        n = self.tshape[0]
-        self.local_plan = make_plan(n, batch=self.batch)
-        dtype = spec.torch_dtype
-        self.tables = {
-            inverse: tuple(stage_tables(st, dtype, inverse=inverse,
-                                        device=self.device)
-                           for st in self.local_plan.stages)
-            for inverse in (False, True)
-        }
-        facs = self.local_plan.kernel_factors
-        self.twiddles = {
-            inverse: tuple(pass_twiddle_table(math.prod(facs[i:]), dtype,
-                                              inverse=inverse,
-                                              device=self.device)
-                           for i in range(len(facs) - 1))
-            for inverse in (False, True)
-        }
-        self._fwd = functools.partial(_ops._fft_impl, plan=self.local_plan,
-                                      tables=self.tables[False],
-                                      twiddles=self.twiddles[False],
+        self._rdtype = multidim._real_of(spec.torch_dtype)
+        self._fwd = self._inv = None      # C2C executors (None: none bound)
+        if spec.real:
+            self._build_real(ops)
+        else:
+            self._build_c2c(ops)
+
+    def _axis(self, ops, n: int, batch: int = 1):
+        return ops.axis_fft(n, self.spec.torch_dtype, self.device,
+                            batch=batch)
+
+    def _bind_c2c(self, ops, ax):
+        """Bind ``_fwd``/``_inv`` to the last-axis transform ``ax``."""
+        self._fwd, self._inv = (
+            functools.partial(ops._fft_impl, plan=ax.plan,
+                              tables=ax.tables[inv],
+                              twiddles=ax.twiddles[inv], inverse=inv)
+            for inv in (False, True))
+
+    def _build_c2c(self, ops):
+        if self.rank == 1:
+            n = self.tshape[0]
+            ax = self._axis(ops, n, batch=self.batch)
+            if ax is None:
+                raise ValueError(f"N must be a power of two, got {n}")
+            self.axes = (ax,)
+            self.local_plan = ax.plan
+            self.tables = ax.tables
+            self.twiddles = ax.twiddles
+            self._bind_c2c(ops, ax)
+            return
+        self.axes = tuple(self._axis(ops, n) for n in self.tshape)
+        self._fwd = functools.partial(multidim._local_fftn, axes=self.axes,
                                       inverse=False)
-        self._inv = functools.partial(_ops._fft_impl, plan=self.local_plan,
-                                      tables=self.tables[True],
-                                      twiddles=self.twiddles[True],
+        self._inv = functools.partial(multidim._local_fftn, axes=self.axes,
                                       inverse=True)
 
+    def _build_real(self, ops):
+        """Bind the real executors: rank 1 ``extensions._rfft/_irfft``
+        (plus the full-length C2C of the spectral consumers), rank 2
+        ``multidim._local_rfft2/_local_irfft2``."""
+        cc = self.tshape[-1]
+        half = self._axis(ops, cc // 2) if cc % 2 == 0 else None
+        if self.rank == 1:
+            self.axes = (half,)
+            full = self._axis(ops, cc)
+            if full is not None:
+                self._bind_c2c(ops, full)
+            self._rfwd = functools.partial(extensions._rfft, half=half)
+            self._rinv = functools.partial(extensions._irfft, half=half,
+                                           n=cc)
+            return
+        rows = self._axis(ops, self.tshape[-2])
+        self.axes = (rows, half)
+        self._rfwd = functools.partial(multidim._local_rfft2, rows=rows,
+                                       half=half)
+        self._rinv = functools.partial(multidim._local_irfft2, rows=rows,
+                                       half=half, cc=cc)
+
     def _coerce(self, x):
-        """Match the plan's complex dtype and device (real inputs are
-        coerced, the legacy contract)."""
+        """Match the plan's dtype and device: a C2C plan coerces real
+        inputs to its complex dtype (the legacy contract); a real plan
+        REJECTS complex operands and casts to its real precision."""
         x = torch.as_tensor(x)
+        if self.spec.real:
+            if x.is_complex():
+                raise ValueError(
+                    f"a real plan takes a real operand, got {x.dtype} — "
+                    f"build a C2C FFTSpec (real=False) for complex signals")
+            return x.to(device=self.device, dtype=self._rdtype)
         return x.to(device=self.device, dtype=self.spec.torch_dtype)
 
     def _check_tshape(self, x):
@@ -176,22 +244,88 @@ class FFTPlan(planbase.Plan):
                 f"not match the planned {self.tshape} — build a new "
                 f"FFTSpec (plans are shape-specialized, like cufftPlanMany)")
 
+    def _c2c_only(self):
+        if self.spec.real:
+            raise ValueError(
+                "this plan is real-input — its executors are rfft/irfft "
+                "(rfft2/irfft2); build a C2C FFTSpec (real=False) for "
+                "fft/ifft")
+
+    def _real_only(self):
+        if not self.spec.real:
+            raise ValueError(
+                "this plan is C2C — build the FFTSpec with real=True for "
+                "rfft/irfft")
+
     def fft(self, x):
-        """Forward transform over the planned axis (complex in/out)."""
+        """Forward transform over the planned axes (complex in/out)."""
+        self._c2c_only()
         x = self._coerce(x)
         self._check_tshape(x)
         return self._fwd(x)
 
     def ifft(self, x):
-        """Inverse transform (1/N normalized)."""
+        """Inverse transform (1/N normalized, N the product of the planned
+        axes)."""
+        self._c2c_only()
         x = self._coerce(x)
         self._check_tshape(x)
         return self._inv(x)
 
+    # rank-2/3 spellings (same executors; the rank lives in the spec)
+    def fft2(self, x):
+        if self.rank < 2:
+            raise ValueError("fft2 needs a rank>=2 FFTSpec")
+        return self.fft(x)
+
+    def ifft2(self, x):
+        if self.rank < 2:
+            raise ValueError("ifft2 needs a rank>=2 FFTSpec")
+        return self.ifft(x)
+
+    fftn = fft2
+    ifftn = ifft2
+
+    def rfft(self, x):
+        """Real-input forward transform -> the ``(..., N/2+1)``-bin half
+        spectrum (rank 1) or ``(..., R, C/2+1)`` (rank 2). Requires a real
+        plan; complex operands are rejected, not silently truncated."""
+        self._real_only()
+        x = self._coerce(x)
+        self._check_tshape(x)
+        return self._rfwd(x)
+
+    def irfft(self, y):
+        """Inverse of :meth:`rfft`: half spectrum -> the planned real
+        shape. The spectrum's transform axes must be the planned shape's
+        Hermitian half (``last axis -> n//2 + 1`` bins)."""
+        self._real_only()
+        y = torch.as_tensor(y)
+        want = self.tshape[:-1] + (self.tshape[-1] // 2 + 1,)
+        if tuple(y.shape[-self.rank:]) != want:
+            raise ValueError(
+                f"half-spectrum axes {tuple(y.shape[-self.rank:])} do not "
+                f"match the planned {want} (the Hermitian half of "
+                f"{self.tshape}) — build a new FFTSpec")
+        return self._rinv(y.to(device=self.device,
+                               dtype=self.spec.torch_dtype))
+
+    # rank-2 spellings (same executors; the rank lives in the spec)
+    def rfft2(self, x):
+        if self.rank != 2:
+            raise ValueError("rfft2 needs a rank-2 FFTSpec")
+        return self.rfft(x)
+
+    def irfft2(self, y):
+        if self.rank != 2:
+            raise ValueError("irfft2 needs a rank-2 FFTSpec")
+        return self.irfft(y)
+
     def ft_fft(self, x, *, inject=None, bs=None):
-        """Fault-tolerant forward transform (requires ``spec.ft``): the fused
-        ABFT kernel pipeline (:class:`~repro_torch.kernels.ops.FTFFTResult`);
-        ``bs`` is its per-call tile-size override."""
+        """Fault-tolerant forward transform (requires ``spec.ft``, which
+        only a rank-1 complex spec takes): the fused ABFT kernel pipeline
+        (:class:`~repro_torch.kernels.ops.FTFFTResult`); ``bs`` is its
+        per-call tile-size override."""
         ft = self.spec.ft
         if ft is None:
             raise ValueError("this plan has no FTConfig — set FFTSpec.ft")
@@ -209,11 +343,90 @@ class FFTPlan(planbase.Plan):
             per_signal=ft.per_signal, encoding=ft.encoding,
             threshold=ft.threshold, correct=ft.correct, inject=inject)
 
+    # -- spectral consumers ----------------------------------------------
+
+    def _operands(self, a, v):
+        """``a`` and ``v`` on the plan's device, in its real precision when
+        both are real (the packed path) and its complex one otherwise;
+        and whether they are both real."""
+        a = torch.as_tensor(a)
+        v = torch.as_tensor(v)
+        _, real = spectral._result_dtypes(a, v)
+        if not real and self.spec.real:
+            raise ValueError(
+                f"a real plan takes real operands, got {a.dtype} and "
+                f"{v.dtype} — build the spec with spectral.conv_spec")
+        dt = self._rdtype if real else self.spec.torch_dtype
+        return (a.to(device=self.device, dtype=dt),
+                v.to(device=self.device, dtype=dt), real)
+
+    def convolve(self, a, v, *, mode: str = "full"):
+        """Linear convolution at the planned transform size: 1-D through
+        the spectral pair (padded to the plan's N), 2-D through the round
+        trip over the planned (nr, nc) grid. The planned size(s) must be
+        the padded FFT size of the operands (``spectral.conv_spec``,
+        ``multidim.fft_convolve2``)."""
+        if self.rank == 1:
+            return self._spectral_pair(a, v, conj_kernel=False, mode=mode)
+        if self.rank == 2:
+            a, v, real = self._operands(a, v)
+            if a.dim() < 2 or v.dim() < 2:
+                raise ValueError("fft_convolve2 needs 2-D operands")
+            grid = multidim._conv2_shape(a.shape[-2:], v.shape[-2:])
+            if grid != self.tshape:
+                raise ValueError(
+                    f"operand grids {tuple(a.shape[-2:])} and "
+                    f"{tuple(v.shape[-2:])} need a {grid} plan, but this "
+                    f"plan is for {self.tshape} — build the spec with "
+                    f"multidim.fft_convolve2")
+            if real and not self.spec.real:
+                a, v = a.to(self.spec.torch_dtype), v.to(self.spec.torch_dtype)
+            out = multidim._convolve2(a, v, mode=mode, axes=self.axes,
+                                      real=self.spec.real)
+            return out.real if real and out.is_complex() else out
+        raise ValueError("convolve supports rank 1 and 2 plans")
+
+    def correlate(self, a, v, *, mode: str = "full"):
+        """Cross-correlation (``np.correlate`` conventions), rank-1 only."""
+        if self.rank != 1:
+            raise ValueError("correlate is 1-D only")
+        return self._spectral_pair(a, v, conj_kernel=True, mode=mode)
+
+    def _spectral_pair(self, a, v, *, conj_kernel: bool, mode: str):
+        a, v, real = self._operands(a, v)
+        la, lv = a.shape[-1], v.shape[-1]
+        nfft = spectral._conv_nfft(la, lv)
+        if nfft != self.tshape[0]:
+            raise ValueError(
+                f"operand lengths ({la}, {lv}) need an nfft={nfft} plan, "
+                f"but this plan is for {self.tshape[0]} — build the spec "
+                f"with spectral.conv_spec / fft_convolve")
+        out_len = nfft if conj_kernel else la + lv - 1
+        pair = spectral._spectral_real if real else spectral._spectral_pair
+        full = pair(spectral._pad_tail(a, nfft), spectral._pad_tail(v, nfft),
+                    conj_kernel=conj_kernel, out_len=out_len,
+                    fwd=self._fwd, inv=self._inv)
+        if conj_kernel:
+            full = torch.roll(full, lv - 1, dims=-1)[..., :la + lv - 1]
+        return spectral._crop(full, la, lv, mode)
+
+    def power_spectrum(self, x):
+        """Periodogram ``|X|^2 / N`` over the planned axes (natural
+        order). A real plan returns the one-sided ``N/2+1``-bin spectrum
+        via the packed rfft."""
+        if self.spec.real:
+            y = self.rfft(x)
+        else:
+            x = self._coerce(x)
+            self._check_tshape(x)
+            y = self._fwd(x)
+        return y.abs().square_().div_(self.n)
+
     def __repr__(self):
         s = self.spec
         return (f"FFTPlan(shape={s.shape}, dtype={s.dtype}, rank={s.rank}, "
-                f"decomp={self.decomp!r}, device={str(self.device)!r}, "
-                f"ft={s.ft is not None})")
+                f"real={s.real}, decomp={self.decomp!r}, "
+                f"device={str(self.device)!r}, ft={s.ft is not None})")
 
 
 def plan(spec: FFTSpec) -> FFTPlan:

@@ -32,7 +32,8 @@ import math
 from typing import Sequence
 
 __all__ = ["Plan", "StagePlan", "PassLayout", "make_plan", "block_radices",
-           "pass_layouts", "plan_from_reference", "MAX_BLOCK_N"]
+           "axis_layout", "pass_layouts", "plan_from_reference",
+           "MAX_BLOCK_N"]
 
 # Largest signal length executed in a single shared-memory block FFT, for
 # both complex64 (64 KiB) and complex128 (128 KiB).
@@ -133,6 +134,18 @@ def _merged(axes) -> tuple[tuple[int, int, int], ...]:
             c = pc * c
         out.append((c, si, so))
     return tuple(out) or ((1, 0, 0),)
+
+
+@functools.lru_cache(maxsize=256)
+def axis_layout(lead: int, size: int, inner: int) -> PassLayout:
+    """The layout of a launch along one axis of a contiguous ``(lead, size,
+    inner)`` block: ``lead * inner`` signals of ``size`` points, each point
+    ``inner`` apart, read and written in place. The signals' fastest axis
+    is ``inner`` (stride 1), as pass 0 of :func:`pass_layouts` has it; the
+    last axis of an operand (``inner == 1``) is :meth:`PassLayout.rows`."""
+    span = size * inner
+    return PassLayout(_merged(((lead, span, span), (inner, 1, 1))),
+                      inner, inner)
 
 
 @functools.lru_cache(maxsize=256)

@@ -7,6 +7,10 @@
   writes the output transposed, with no torch operation on the data
   between launches. The inverse is scaled by 1/N exactly once, in the
   first pass's launch.
+* :func:`fft2` / :func:`ifft2` — the 2-D transform over the last two axes
+  (a rank-2 plan). Each power-of-two axis of up to 8192 points that is not
+  the last is ONE block-FFT launch that reads and writes its strided
+  columns in place (:func:`_fft_axis`, ``core.fft.plan.axis_layout``).
 * :func:`ft_fft` — the full TurboFFT pipeline: fused two-sided-ABFT kernel ->
   detect -> locate -> delayed batched correction. Returns an
   :class:`FTFFTResult` with the corrected outputs and the FT telemetry.
@@ -18,19 +22,22 @@ The entry points build (or LRU-hit) the :class:`~repro_torch.core.fft.api
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
 
 from repro_torch.core.abft import twoside
 from repro_torch.core.fft import api as fft_api
+from repro_torch.core.fft.multidim import _is_pow2
 from repro_torch.core.fft.plan import (MAX_BLOCK_N, Plan, StagePlan,
-                                       pass_layouts)
+                                       axis_layout, make_plan, pass_layouts)
 
-from .stockham import block_fft
+from .stockham import block_fft, pass_twiddle_table, stage_tables
 from .stockham_abft import abft_fft
 
-__all__ = ["fft", "ifft", "ft_fft", "FTFFTResult"]
+__all__ = ["fft", "ifft", "fft2", "ifft2", "ft_fft", "FTFFTResult",
+           "AxisFFT", "axis_fft"]
 
 
 def _pad_batch(x: torch.Tensor, bs: int):
@@ -43,27 +50,31 @@ def _pad_batch(x: torch.Tensor, bs: int):
 
 def _block_fft_c(x2d: torch.Tensor, stages: Sequence[StagePlan],
                  tables: torch.Tensor, *, inverse: bool,
-                 scale: float = 1.0) -> torch.Tensor:
-    """Single-pass complex block FFT, (B, N) -> (B, N), times ``scale``. The
-    kernel's grid covers any batch, so no padding to a tile size is needed."""
+                 scale: float = 1.0,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """Single-pass complex block FFT, (B, N) -> (B, N), times ``scale``,
+    into ``out`` (which may be ``x2d``; new when omitted). The kernel's grid
+    covers any batch, so no padding to a tile size is needed."""
     return block_fft(x2d.contiguous(), stages, inverse=inverse, scale=scale,
-                     tables=tables)
+                     tables=tables, out=out)
 
 
 def _fft_multipass(x2d: torch.Tensor, plan: Plan,
                    tables: Sequence[torch.Tensor],
                    twiddles: Sequence[torch.Tensor], *, inverse: bool,
-                   scale: float = 1.0) -> torch.Tensor:
+                   scale: float = 1.0,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel-level N1 x N2 (x N3) composition (paper Fig. 3): pass i is one
     block-FFT launch through ``plan.stages[i]`` in the layout
     :func:`~repro_torch.core.fft.plan.pass_layouts` gives it, times the
     pass twiddle ``twiddles[i]`` (all but the last pass). The first pass
     reads ``x2d`` into a scratch buffer, the middle one (3 passes) works in
-    place there, the last writes the transposed output. ``scale`` rides the
-    first pass's launch only."""
+    place there, the last writes the transposed output into ``out`` (new
+    when omitted; it may be ``x2d``, which the first pass has read whole).
+    ``scale`` rides the first pass's launch only."""
     layouts = pass_layouts(x2d.shape[0], plan.kernel_factors)
     scratch = torch.empty_like(x2d)
-    y = torch.empty_like(x2d)
+    y = torch.empty_like(x2d) if out is None else out
     src = x2d
     for i, layout in enumerate(layouts):
         last = i == len(layouts) - 1
@@ -78,21 +89,99 @@ def _fft_multipass(x2d: torch.Tensor, plan: Plan,
 
 def _fft_impl(x: torch.Tensor, plan: Plan, tables: Sequence[torch.Tensor],
               twiddles: Sequence[torch.Tensor] = (), *,
-              inverse: bool = False) -> torch.Tensor:
+              inverse: bool = False, scale: float | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """Run ``plan`` (the FFT plan's local stage plan) with ``tables``, its
     per-pass stage tables in this direction, and ``twiddles``, its pass
     twiddle tables (one per pass but the last), over the last axis of
-    ``x``."""
+    ``x``, times ``scale`` (1/N on the inverse when omitted), into ``out``
+    (a contiguous tensor of ``x``'s shape, which may be ``x``; new when
+    omitted)."""
     shape = x.shape
     x2d = x.reshape(-1, plan.n).contiguous()
-    scale = 1.0 / plan.n if inverse else 1.0
+    out2d = None if out is None else out.view(-1, plan.n)
+    if scale is None:
+        scale = 1.0 / plan.n if inverse else 1.0
     if plan.num_passes == 1:
         y = _block_fft_c(x2d, plan.stages[0], tables[0], inverse=inverse,
-                         scale=scale)
+                         scale=scale, out=out2d)
     else:
         y = _fft_multipass(x2d, plan, tables, twiddles, inverse=inverse,
-                           scale=scale)
+                           scale=scale, out=out2d)
     return y.reshape(shape)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AxisFFT:
+    """One power-of-two transform axis as a plan binds it: its local stage
+    plan, and per direction (``tables[inverse]``, ``twiddles[inverse]``)
+    the stage tables of every pass and the pass twiddles of every pass but
+    the last, on the plan's device."""
+
+    plan: Plan
+    tables: dict
+    twiddles: dict
+
+
+def axis_fft(n: int, dtype: torch.dtype, device, *,
+             batch: int = 1) -> AxisFFT | None:
+    """Upload the stage and pass-twiddle tables of an ``n``-point axis to
+    ``device`` (each table once per process: they are cached by stages,
+    dtype, direction and device) and bundle them with the stage plan of
+    ``make_plan(n, batch)``. ``None`` when ``n`` is not a power of two: such
+    an axis runs the direct DFT."""
+    if not _is_pow2(n):
+        return None
+    p = make_plan(n, batch=batch)
+    facs = p.kernel_factors
+    return AxisFFT(
+        plan=p,
+        tables={inv: tuple(stage_tables(st, dtype, inverse=inv,
+                                        device=device) for st in p.stages)
+                for inv in (False, True)},
+        twiddles={inv: tuple(pass_twiddle_table(math.prod(facs[i:]), dtype,
+                                                inverse=inv, device=device)
+                             for i in range(len(facs) - 1))
+                  for inv in (False, True)})
+
+
+def _fft_axis(x: torch.Tensor, axis: int, plan: Plan,
+              tables: Sequence[torch.Tensor],
+              twiddles: Sequence[torch.Tensor] = (), *,
+              inverse: bool = False, scale: float | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """The transform along ``axis`` of the contiguous ``x`` through ``plan``
+    (its per-pass ``tables`` and ``twiddles`` in this direction), times
+    ``scale`` (1/N on the inverse when omitted), into ``out`` (a contiguous
+    tensor like ``x``, which may be ``x`` itself; new when omitted).
+
+    The last axis is :func:`_fft_impl`. Any other axis of up to
+    ``MAX_BLOCK_N`` points is ONE block-FFT launch through
+    :func:`~repro_torch.core.fft.plan.axis_layout`: its columns are read
+    strided and written back through the same strides, with no copy of the
+    operand. A longer non-last axis is moved last (one copy), transformed
+    by :func:`_fft_impl` and moved back (a second copy)."""
+    axis %= x.dim()
+    n = x.shape[axis]
+    if n != plan.n:
+        raise ValueError(f"axis {axis} of {tuple(x.shape)} has {n} points, "
+                         f"the plan {plan.n}")
+    if scale is None:
+        scale = 1.0 / n if inverse else 1.0
+    if axis == x.dim() - 1:
+        return _fft_impl(x, plan, tables, twiddles, inverse=inverse,
+                         scale=scale, out=out)
+    if plan.num_passes == 1:
+        layout = axis_layout(math.prod(x.shape[:axis]), n,
+                             math.prod(x.shape[axis + 1:]))
+        return block_fft(x.contiguous(), plan.stages[0], inverse=inverse,
+                         scale=scale, tables=tables[0], layout=layout,
+                         twiddle=None, out=out)
+    y = _fft_impl(x.movedim(axis, -1).contiguous(), plan, tables, twiddles,
+                  inverse=inverse, scale=scale).movedim(-1, axis)
+    if out is None:
+        return y.contiguous()
+    return out.copy_(y)
 
 
 def _as_complex(x) -> torch.Tensor:
@@ -113,6 +202,20 @@ def ifft(x, *, device="cuda") -> torch.Tensor:
     """Inverse transform over the last axis (1/N normalized)."""
     x = _as_complex(x)
     return fft_api.plan(fft_api.spec_for(x, rank=1, device=device)).ifft(x)
+
+
+def fft2(x, *, device="cuda") -> torch.Tensor:
+    """2-D forward transform over the last two axes (complex in/out; real
+    inputs are coerced to complex64), on ``device``: a rank-2 plan. Odd and
+    other non-power-of-two axes run the direct DFT."""
+    x = _as_complex(x)
+    return fft_api.plan(fft_api.spec_for(x, rank=2, device=device)).fft(x)
+
+
+def ifft2(x, *, device="cuda") -> torch.Tensor:
+    """Inverse of :func:`fft2` (normalized by 1/(R*C))."""
+    x = _as_complex(x)
+    return fft_api.plan(fft_api.spec_for(x, rank=2, device=device)).ifft(x)
 
 
 # ---------------------------------------------------------------------------

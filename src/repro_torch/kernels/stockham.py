@@ -113,14 +113,13 @@ def pack_radices(stages: Sequence[StagePlan]) -> int:
 
 def _tile_signals(n: int, layout: PassLayout) -> int:
     """Signals per CTA tile: as many whole signals as fit ``_TILE_POINTS``,
-    taken along the fastest axis (which they must divide when there are
-    slower axes), and no more than the launch has."""
+    taken along the fastest axis (a power of two that divides its count
+    when there are slower axes, so a tile never straddles two of them: one
+    signal a tile at an odd count), and no more than the launch has."""
     sigs = max(1, _TILE_POINTS // n)
     if len(layout.axes) > 1:
-        sigs = min(sigs, layout.fast_count)
-        if layout.fast_count % sigs:
-            raise ValueError(f"{sigs} signals per tile do not divide the "
-                             f"fastest axis of {layout}")
+        fast = layout.fast_count
+        sigs = min(sigs, fast & -fast)
     total = layout.signals
     return min(sigs, 1 << max(total - 1, 0).bit_length())
 

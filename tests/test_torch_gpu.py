@@ -39,7 +39,8 @@ from repro_torch.kernels.stockham_abft import abft_fft, abft_fft_plain
 
 pytestmark = pytest.mark.gpu
 
-ATOL = {torch.complex64: 4e-5, torch.complex128: 1e-11}
+ATOL = {torch.complex64: 4e-5, torch.complex128: 1e-11,
+        torch.float32: 4e-5, torch.float64: 1e-11}
 DTYPES = [torch.complex64, torch.complex128]
 
 
@@ -316,6 +317,164 @@ def test_ft_fft_detect_locate_correct_on_card(cuda, dtype):
                          ft=FTConfig())).ft_fft(x)
     assert not clean.flagged.any()
     _close(clean.y, want)
+
+
+# ---------------------------------------------------------------------------
+# the local extensions on kernels 1 and 2
+# ---------------------------------------------------------------------------
+
+RDTYPES = [torch.float32, torch.float64]
+
+
+def _rrand(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed + sum(shape))
+    return torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+
+
+def _crand(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed + 3 * sum(shape))
+    return torch.from_numpy(rng.standard_normal(shape)
+                            + 1j * rng.standard_normal(shape)).to(dtype)
+
+
+def _name(dtype):
+    return str(dtype).split(".")[1]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 64, 128), (3, 256, 32), (1, 8192, 4),
+                                   (2, 12, 30), (2, 8, 16, 32)])
+def test_fftn_on_card_matches_torch_fft_and_cpu(cuda, shape, dtype):
+    """fft2 / fftn (rank 3 for 4-D shapes) on the card against torch.fft
+    and against the same plan's device="cpu" result; a power-of-two axis
+    of <= 8192 points is one block_fft launch."""
+    rank = 3 if len(shape) == 4 else 2
+    x = _crand(shape, dtype)
+    p = plan(FFTSpec(shape=shape, dtype=_name(dtype), rank=rank))
+    pc = plan(FFTSpec(shape=shape, dtype=_name(dtype), rank=rank,
+                      device="cpu"))
+    axes = tuple(range(-rank, 0))
+    before = block_fft.launches
+    got = p.fft(x.to(cuda))
+    pow2 = sum(n & (n - 1) == 0 for n in shape[-rank:])
+    assert block_fft.launches - before == pow2
+    factor = 2.0 if rank == 3 else 1.0
+    _close(got, torch.fft.fftn(x.to(cuda), dim=axes), factor)
+    _close(got, pc.fft(x), factor)
+    back = p.ifft(got)
+    _close(back, torch.fft.ifftn(got, dim=axes), factor)
+    _close(back, x, factor)
+
+
+@pytest.mark.parametrize("dtype", RDTYPES)
+@pytest.mark.parametrize("n", [64, 1024, 16384, 1 << 15, 511])
+def test_rfft_irfft_on_card(cuda, n, dtype):
+    """The packed rfft (half length one pass up to 8192, then two passes)
+    and its inverse against torch.fft and the CPU path; odd n is the
+    direct DFT."""
+    from repro_torch.core.fft import extensions as ext
+
+    x = _rrand((3, n), dtype)
+    got = ext.rfft(x.to(cuda))
+    _close(got, torch.fft.rfft(x.to(cuda)))
+    _close(got, ext.rfft(x, device="cpu"))
+    back = ext.irfft(got, n=n)
+    assert back.shape == x.shape and back.dtype == dtype
+    _close(back, x)
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 128), (2, 512, 1024), (2, 16, 27),
+                                   (2, 64, 30)])
+def test_rfft2_irfft2_on_card(cuda, shape):
+    """rfft2 / irfft2 against torch.fft and the CPU path; C/2+1 is odd in
+    the first two shapes (the column launch takes one signal a tile), C is
+    odd in the third (the direct DFT)."""
+    x = _rrand(shape, torch.float32)
+    p = plan(FFTSpec(shape=shape, rank=2, real=True))
+    pc = plan(FFTSpec(shape=shape, rank=2, real=True, device="cpu"))
+    got = p.rfft2(x.to(cuda))
+    _close(got, torch.fft.rfft2(x.to(cuda)))
+    _close(got, pc.rfft2(x))
+    back = p.irfft2(got)
+    assert back.shape == x.shape
+    _close(back, x)
+
+
+@pytest.mark.parametrize("real", [True, False])
+def test_convolve_correlate_on_card(cuda, real):
+    from repro_torch.core.fft import spectral
+
+    if real:
+        a, v = _rrand((4, 700), torch.float32), _rrand((129,), torch.float32)
+    else:
+        a, v = (_crand((4, 700), torch.complex64),
+                _crand((129,), torch.complex64))
+    nfft = 1024
+    fa = torch.fft.fft(a.to(cuda), n=nfft)
+    fv = torch.fft.fft(v.to(cuda), n=nfft)
+    want = torch.fft.ifft(fa * fv)[..., :828]
+    want = want.real if real else want
+    for mode in ("full", "same", "valid"):
+        got = spectral.fft_convolve(a.to(cuda), v.to(cuda), mode=mode)
+        assert got.is_cuda and got.is_complex() != real
+        _close(got, spectral._crop(want, 700, 129, mode))
+        _close(got, spectral.fft_convolve(a, v, mode=mode, device="cpu"))
+        cor = spectral.correlate(a.to(cuda), v.to(cuda), mode=mode)
+        _close(cor, spectral.correlate(a, v, mode=mode, device="cpu"))
+
+
+def test_fft_convolve2_and_power_spectrum_on_card(cuda):
+    from repro_torch.core.fft import multidim, spectral
+
+    a, k = _rrand((2, 60, 50), torch.float32), _rrand((5, 7), torch.float32)
+    s = (64, 64)
+    want = torch.fft.irfft2(torch.fft.rfft2(a.to(cuda), s=s)
+                            * torch.fft.rfft2(k.to(cuda), s=s), s=s)
+    got = multidim.fft_convolve2(a.to(cuda), k.to(cuda))
+    _close(got, want[..., :64, :56])
+    _close(got, multidim.fft_convolve2(a, k, device="cpu"))
+    x = _crand((3, 4096), torch.complex64)
+    _close(spectral.power_spectrum(x.to(cuda)),
+           torch.fft.fft(x.to(cuda)).abs() ** 2 / 4096)
+    r = _rrand((3, 4096), torch.float32)
+    _close(spectral.power_spectrum(r.to(cuda), real=True),
+           torch.fft.rfft(r.to(cuda)).abs() ** 2 / 4096)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ft_ifft_on_card_detects_and_corrects(cuda, dtype):
+    from repro_torch.core.fft import extensions as ext
+
+    b, n, bs = 64, 1024, 2
+    x = _rand(b, n, dtype).to(cuda)
+    before = abft_fft.launches
+    res = ext.ft_ifft(x, transactions=4, bs=bs, threshold=1e-6,
+                      inject=torch.tensor([5, 1, 37, 1, 40.0, 25.0]))
+    assert abft_fft.launches == before + 1
+    flagged = res.flagged.cpu()
+    assert int(flagged.sum()) == 1 and int(res.corrected) == 1
+    assert int(res.location.cpu()[flagged][0]) == 5 * bs + 1
+    _close(res.y, torch.fft.ifft(x), factor=2.0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lead,n,inner", [(3, 64, 128), (4, 4096, 65),
+                                          (2, 8192, 3), (1, 512, 4096),
+                                          (5, 16, 33)])
+def test_block_fft_kernel_matches_plain_in_axis_layouts(cuda, lead, n, inner,
+                                                        dtype):
+    """One launch over the strided columns of a (lead, n, inner) block, in
+    place, against the plain version: an odd ``inner`` takes one signal a
+    tile and the scalar path."""
+    from repro_torch.core.fft.plan import axis_layout
+
+    x = _rand(lead * n, inner, dtype).to(cuda).reshape(lead, n, inner)
+    stages = make_plan(n).stages[0]
+    lay = axis_layout(lead, n, inner)
+    want = block_fft_plain(x, stages, scale=0.25, layout=lay)
+    got = x.clone()
+    block_fft(got, stages, scale=0.25, layout=lay, out=got)
+    _close(got, want)
 
 
 # ---------------------------------------------------------------------------

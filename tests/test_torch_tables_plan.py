@@ -205,13 +205,32 @@ def test_spec_validation_messages():
         api.plan({"shape": (8, 64)})
 
 
-@pytest.mark.parametrize("kw,item", [(dict(rank=2), "item 8"),
-                                     (dict(real=True), "item 8"),
-                                     (dict(mesh=object()), "item 10")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "item 10")])
 def test_spec_rejects_unported_paths_naming_the_roadmap_item(kw, item):
-    shape = (8, 64, 64) if kw.get("rank") == 2 else (8, 64)
     with pytest.raises(NotImplementedError, match=item):
-        api.FFTSpec(shape=shape, **kw)
+        api.FFTSpec(shape=(8, 64), **kw)
+
+
+@pytest.mark.parametrize("kw,shape", [(dict(rank=2), (8, 64, 64)),
+                                      (dict(real=True), (8, 64))])
+def test_rank2_and_real_specs_plan_and_run_on_the_cpu(kw, shape):
+    """The local extensions' specs plan, with every axis's tables uploaded
+    at build, and run: rank 2 against np.fft.fft2, real against
+    np.fft.rfft."""
+    rng = np.random.default_rng(sum(shape))
+    p = api.plan(api.FFTSpec(shape=shape, device="cpu", **kw))
+    assert all(ax is not None and ax.tables[False] for ax in p.axes)
+    if kw.get("real"):
+        x = rng.standard_normal(shape).astype(np.float32)
+        got, want = p.rfft(torch.from_numpy(x)), np.fft.rfft(x)
+        np.testing.assert_allclose(p.irfft(got).numpy(), x, rtol=0,
+                                   atol=4e-5 * np.abs(x).max())
+    else:
+        x = (rng.standard_normal(shape)
+             + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        got, want = p.fft(torch.from_numpy(x)), np.fft.fft2(x)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=4e-5 * np.abs(want).max())
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch):
