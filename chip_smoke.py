@@ -23,7 +23,21 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   non-last axis is over 8192 points (the copy path), each against its
   ``torch.fft`` counterpart at ATOL[dtype] * max|ref| with its
   ``block_fft`` launches counted, and ``ft_ifft`` over an SEU campaign
-  (injected == detected == located == corrected, no false alarm).
+  (injected == detected == located == corrected, no false alarm);
+* the serving runtime (``serve_phase``): both modes of ``python -m
+  repro_torch.launch.serve`` as subprocesses (each prints a rel_err within
+  the complex64 tolerance), then one ``ServeRuntime`` (max_batch 16, two
+  workers, 2 ms deadline) driven by four client threads with 448 seeded
+  requests, half numpy arrays and half card tensors, over seven buckets
+  (``serve_tenants`` and an ft campaign of one fault in every other closed
+  group of 16): every result on the device its request came from and
+  within ATOL of ``torch.fft`` of the zero-padded request; every bucket's
+  completed == submitted with nothing failed, rejected or timed out; the
+  ``block_fft`` and ``abft_fft`` launches equal to each bucket plan's
+  launches a batch over its batches; the ft ledger exact (the location the
+  faulted row, no flag on a clean batch); under 2 GB of device memory.
+  Then convolve and correlate through ``serve_plan``, and the runtime at
+  max_batch 1 against 16 on throughput (printed).
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -753,6 +767,392 @@ def extensions_measure(cases, rows, cuda_ms, device_kernels):
         del inp
 
 
+# The serving runtime at full width: the tenants users of the paper's grid
+# send (turbofft_bench: N from 2^3 to 2^25, batch up to 1024), each a
+# (bucket label, request shapes, dtype, submit kwargs, requests, torch.fft
+# of a request zero-padded to the bucket).
+SERVE_CONFIG = dict(max_batch=16, workers=2, deadline_ms=2.0,
+                    queue_depth=512)
+SERVE_CLIENTS = 4            # client 0 runs the ft campaign
+SERVE_WINDOW = 48            # requests a client keeps in flight (3 x 48
+                             # over 6 buckets: enough to fill batches of 16)
+FT_GROUPS = 8                # closed groups of max_batch ft requests
+SERVE_MEMORY_LIMIT = 2e9     # bytes of device memory for the whole phase
+CONV_SHAPE, CONV_TAPS = (16, 7168), 1025
+SERVE_CLI = (("fft", "n=1048576,batch=16"),
+             ("serve", "n=8192,workers=2,max_batch=16,deadline_ms=2"))
+
+
+def serve_tenants():
+    import torch
+
+    def fft_to(n):
+        return lambda x: torch.fft.fft(x, n=n)
+
+    return (
+        ("fft:8192:c64", ((6000,), (8192,)), "complex64", {}, 96,
+         fft_to(8192)),
+        ("fft:8192:c128", ((8192,),), "complex128", {}, 48, fft_to(8192)),
+        ("fft:1048576:c64", ((700000,), (1 << 20,)), "complex64", {}, 32,
+         fft_to(1 << 20)),
+        ("fft:131072:c64:real", ((100000,),), "float32", {"real": True}, 48,
+         lambda x: torch.fft.rfft(x, n=1 << 17)),
+        ("spectrum:65536:c64", ((50000,),), "complex64", {"op": "spectrum"},
+         48, lambda x: torch.fft.fft(x, n=1 << 16).abs().square()
+         / (1 << 16)),
+        ("fft:1024x1024:c64", ((1000, 1000),), "complex64", {}, 48,
+         lambda x: torch.fft.fft2(x, s=(1024, 1024))),
+    )
+
+
+def _serve_request(dev, i, shape, dtype, on_card):
+    """Request ``i``: seeded, as a numpy array or a tensor on the card."""
+    import numpy as np
+    if on_card:
+        return _seeded(dev, shape, dtype, salt=i)
+    rng = np.random.default_rng(SEED + i)
+    x = rng.standard_normal(shape)
+    if dtype.startswith("complex"):
+        x = x + 1j * rng.standard_normal(shape)
+    return x.astype(dtype)
+
+
+def _check_served(dev, label, x, y, ref, dtype):
+    """A served result: on the device its request came from, within
+    ATOL[dtype] * max|ref| of torch.fft's transform of the zero-padded
+    request on the card. Returns the error."""
+    import numpy as np
+    import torch
+    if torch.is_tensor(x):
+        check(torch.is_tensor(y) and y.device == x.device,
+              f"serve {label}: a card request came back as {type(y)}")
+        xd, yd = x, y
+    else:
+        check(isinstance(y, np.ndarray),
+              f"serve {label}: a numpy request came back as {type(y)}")
+        xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    want = ref(xd)
+    check(tuple(yd.shape) == tuple(want.shape),
+          f"serve {label}: shape {tuple(yd.shape)} for {tuple(want.shape)}")
+    err = (yd - want).abs().max().item()
+    tol = ATOL[dtype] * want.abs().max().item()
+    check(err <= tol, f"serve {label}: err {err} > {tol}")
+    return err
+
+
+def serve_cli(dev, env):
+    """Both CLI modes as subprocesses on ``dev``, started together; each
+    must exit 0 and print a rel_err within the complex64 tolerance."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", mode,
+         "--device", dev.type, "--fft-spec", spec], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for mode, spec in SERVE_CLI]
+    rows = []
+    try:
+        for (mode, spec), proc in zip(SERVE_CLI, procs):
+            out, _ = proc.communicate(timeout=300)
+            hit = re.findall(r"rel_err=(\S+)", out)
+            check(proc.returncode == 0 and hit,
+                  f"launch.serve --mode {mode}: exit {proc.returncode}\n"
+                  f"{out[-3000:]}")
+            err = float(hit[-1])
+            check(err <= ATOL["complex64"],
+                  f"launch.serve --mode {mode}: rel_err {err}")
+            line = [ln for ln in out.splitlines() if "rel_err=" in ln][-1]
+            log(f"launch.serve --mode {mode} --fft-spec {spec}: {line}")
+            rows.append({"mode": mode, "spec": spec, "rel_err": err,
+                         "line": line})
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rows
+
+
+def _ft_campaign(dev, rt, start, out, errors):
+    """Client 0: FT_GROUPS closed groups of max_batch ft requests (complex64,
+    8192 points, numpy and card tensors in turn), one Fault in every other
+    group, as ``benchmarks/fft_serving.py``'s ``run_ft_campaign`` paces it:
+    a group is sent, then its results are awaited. The requests are made
+    before ``start``. Appends (group, faulted row or -1, requests, handles,
+    results) to ``out``."""
+    import numpy as np
+    from repro_torch.serve import Fault
+
+    mb = SERVE_CONFIG["max_batch"]
+    rng = np.random.default_rng(SEED + 99)
+    try:
+        groups = []
+        for g in range(FT_GROUPS):
+            xs = [_serve_request(dev, 10_000 + g * mb + i, (8192,),
+                                 "complex64", i % 2 == 1) for i in range(mb)]
+            frow = int(rng.integers(mb)) if g % 2 == 0 else -1
+            fault = Fault(row=0, col=int(rng.integers(8192)),
+                          eps_re=float(rng.choice((-1, 1))
+                                       * (150.0 + 100.0 * rng.random())))
+            groups.append((g, frow, fault, xs))
+        start.wait()
+        for g, frow, fault, xs in groups:
+            hs = [rt.submit(x, ft=True, faults=fault if i == frow else None)
+                  for i, x in enumerate(xs)]
+            out.append((g, frow, xs, hs,
+                        [h.result(timeout=120.0) for h in hs]))
+    except Exception as e:                     # reported by the main thread
+        errors.append(e)
+
+
+def _client(dev, rt, share, start, out, errors):
+    """Clients 1..3: their share of the tenants' requests, made before
+    ``start``, then sent in their seeded order with SERVE_WINDOW in flight.
+    Appends (tenant, request, handle, result) to ``out``."""
+    import collections
+    try:
+        reqs = [(tenant, _serve_request(dev, i, shape, tenant[2], i % 2 == 1))
+                for i, (tenant, shape) in share]
+        start.wait()
+        window = collections.deque()
+        for tenant, x in reqs:
+            window.append((tenant, x, rt.submit(x, **tenant[3])))
+            if len(window) >= SERVE_WINDOW:
+                item = window.popleft()
+                out.append(item + (item[2].result(timeout=120.0),))
+        while window:
+            item = window.popleft()
+            out.append(item + (item[2].result(timeout=120.0),))
+    except Exception as e:                     # reported by the main thread
+        errors.append(e)
+
+
+def _check_ft_group(g, frow, hs):
+    """A closed ft group's batches, in submission order: the faulted batch
+    flags, corrects and locates the faulted row; the others raise no
+    alarm."""
+    start = 0
+    while start < len(hs):
+        fill = hs[start].info["batch_fill"]
+        has = start <= frow < start + fill
+        for i in range(start, start + fill):
+            info = hs[i].info
+            check(info["flagged"] == has and info["corrected"] == int(has),
+                  f"ft group {g} row {i}: {info}")
+            if has:
+                check(info["location"] == frow - start,
+                      f"ft group {g}: located {info['location']}, faulted "
+                      f"row {frow - start}")
+        start += fill
+
+
+def serve_phase(dev):
+    """The serving runtime on the card (``repro_torch.serve``): the CLI in
+    both modes, then one ServeRuntime (max_batch 16, 2 workers, 2 ms
+    deadline) driven by 4 client threads over the tenants of
+    ``serve_tenants`` and an ft campaign, with exact launch counts. The
+    clients make their requests first; the timed run is sending them and
+    awaiting the results, which are checked after it. Then convolve and
+    correlate unbatched through ``serve_plan``, and the same runtime at
+    max_batch 1 against 16 on throughput. Returns a dict."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.stockham import block_fft
+    from repro_torch.kernels.stockham_abft import abft_fft
+    from repro_torch.core.fft import api
+    from repro_torch.serve import (Fault, QueueFullError, RuntimeConfig,
+                                   ServeRuntime, build_fft_spec, serve_plan)
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli = serve_cli(dev, env)
+    t_cli = time.perf_counter() - t_phase
+
+    tenants = serve_tenants()
+    rng = np.random.default_rng(SEED)
+    order = []                             # (tenant, request shape)
+    for tenant in tenants:
+        shapes, count = tenant[1], tenant[4]
+        order += [(tenant, shapes[j % len(shapes)]) for j in range(count)]
+    order = [order[k] for k in rng.permutation(len(order))]
+    shares = [[] for _ in range(SERVE_CLIENTS - 1)]
+    for i, req in enumerate(order):
+        shares[i % len(shares)].append((i, req))
+    n_requests = len(order) + FT_GROUPS * SERVE_CONFIG["max_batch"]
+    ft_tenant = ("fft:8192:c64:ft", ((8192,),), "complex64", {"ft": True})
+    # a throwaway runtime first: a process's first batches load torch's
+    # copy kernels (CUDA loads modules at first use), which the measured
+    # run should not count. Each bucket's batch is a card, a host and a
+    # card request, so the host rows take the indexed copy
+    with ServeRuntime(RuntimeConfig(**SERVE_CONFIG, device=str(dev))) as rt:
+        hs = [rt.submit(_serve_request(dev, 30_000 + j, t[1][0], t[2],
+                                       j != 1), **t[3])
+              for t in tenants + (ft_tenant,) for j in range(3)]
+        hs.append(rt.submit(_serve_request(dev, 30_003, (8192,),
+                                           "complex64", False),
+                            ft=True, faults=Fault(col=5)))
+        rt.drain()
+        for h in hs:
+            h.result(timeout=120.0)
+    with ServeRuntime(RuntimeConfig(**SERVE_CONFIG, device=str(dev))) as rt:
+        # admit (plan and warm) every bucket, and count each plan's
+        # launches a batch, before the counted run
+        per_batch = {}
+        keys = [rt.bucketer.key_for(shapes[-1], dtype, **kw)
+                for _, shapes, dtype, kw, _, _ in tenants]
+        keys.append(rt.bucketer.key_for(ft_tenant[1][0], ft_tenant[2],
+                                        **ft_tenant[3]))
+        for key in keys:
+            p = rt.admit(key)
+            xb = torch.zeros((SERVE_CONFIG["max_batch"],) + key.tshape,
+                             dtype=rt._payload_dtype(p), device=dev)
+            before = (block_fft.launches, abft_fft.launches)
+            serve_plan(p, xb, op=key.op)
+            per_batch[key.label] = (block_fft.launches - before[0],
+                                    abft_fft.launches - before[1])
+        check([k.label for k in keys[:-1]] == [t[0] for t in tenants],
+              f"serve buckets {[k.label for k in keys]}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        block_fft.launches = 0
+        abft_fft.launches = 0
+        served, ft_groups, errors = [], [], []
+        start = threading.Barrier(SERVE_CLIENTS + 1)
+        threads = [threading.Thread(target=_ft_campaign,
+                                    args=(dev, rt, start, ft_groups, errors))]
+        threads += [threading.Thread(target=_client, args=(
+            dev, rt, share, start, served, errors)) for share in shares]
+        for th in threads:
+            th.start()
+        start.wait(timeout=300)          # every client has made its requests
+        t0 = time.perf_counter()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not errors, f"serve clients failed: {errors[:1]!r}")
+        check(not any(th.is_alive() for th in threads),
+              "a serve client did not finish")
+        torch.cuda.synchronize()
+        launches = {"block_fft": block_fft.launches,
+                    "abft_fft": abft_fft.launches}
+        peak = torch.cuda.max_memory_allocated() - base
+        buckets = rt.stats()["buckets"]
+    results, device_ms = [], {}
+    for tenant, x, h, y in served:
+        results.append(_check_served(dev, tenant[0], x, y, tenant[5],
+                                     tenant[2]))
+        device_ms.setdefault(tenant[0], []).append(h.info["device_ms"])
+    for g, frow, xs, hs, ys in ft_groups:
+        _check_ft_group(g, frow, hs)
+        for x, h, y in zip(xs, hs, ys):
+            results.append(_check_served(
+                dev, "fft:8192:c64:ft", x, y,
+                lambda v: torch.fft.fft(v, n=8192), "complex64"))
+            device_ms.setdefault("fft:8192:c64:ft", []).append(
+                h.info["device_ms"])
+    del served, ft_groups
+    check(len(results) == n_requests >= 400,
+          f"serve: {len(results)} results of {n_requests} requests")
+    want = {"block_fft": 0, "abft_fft": 0}
+    for label, st in buckets.items():
+        check(st["completed"] == st["submitted"] and st["failed"]
+              == st["rejected"] == st["timeouts"] == 0,
+              f"serve bucket {label}: {st}")
+        want["block_fft"] += st["batches"] * per_batch[label][0]
+        want["abft_fft"] += st["batches"] * per_batch[label][1]
+    check(launches == want and launches["abft_fft"] > 0,
+          f"serve launches {launches}, the plans' launches a batch over "
+          f"the batches {want}")
+    ft = buckets["fft:8192:c64:ft"]
+    check(ft["injected"] == ft["detected"] == ft["corrected"]
+          == FT_GROUPS // 2 and ft.get("uncorrectable", 0) == 0,
+          f"serve ft campaign: {ft}")
+    rows = {}
+    for label, st in buckets.items():
+        rows[label] = {k: st[k] for k in ("submitted", "batches",
+                                          "p50_ms", "p95_ms", "p99_ms")}
+        rows[label].update(
+            mean_fill=st["batch_occupancy"] * SERVE_CONFIG["max_batch"],
+            requests_per_s=st["completed"] / wall,
+            batch_device_ms=float(np.mean(device_ms[label])),
+            launches_per_batch=dict(zip(("block_fft", "abft_fft"),
+                                        per_batch[label])))
+        log(f"serve {label}: p50 {st['p50_ms']:.3f} ms, p95 "
+            f"{st['p95_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms; "
+            f"{st['batches']} batches, mean fill "
+            f"{rows[label]['mean_fill']:.2f} of {SERVE_CONFIG['max_batch']}, "
+            f"{rows[label]['requests_per_s']:.1f} requests/s; a request's "
+            f"batch {rows[label]['batch_device_ms']:.4f} ms on the card "
+            f"(mean); launches a batch {per_batch[label]}")
+    log(f"serve: {len(results)} requests from {SERVE_CLIENTS} clients in "
+        f"{wall:.3f} s ({len(results) / wall:.1f} requests/s), worst err "
+        f"{max(results):.3e}; launches {json.dumps(launches)} = the plans' "
+        f"launches a batch over the batches; ft campaign injected "
+        f"{ft['injected']} detected {ft['detected']} corrected "
+        f"{ft['corrected']}; peak device memory {peak / 1e9:.3f} GB")
+    check(peak < SERVE_MEMORY_LIMIT, f"serve phase peak memory {peak}")
+
+    # convolve and correlate, unbatched through serve_plan
+    conv = {}
+    a = _seeded(dev, CONV_SHAPE, "float32")
+    v = _seeded(dev, (CONV_TAPS,), "float32", 1)
+    la, lv = CONV_SHAPE[-1], CONV_TAPS
+    nfft = 1 << (la + lv - 2).bit_length()
+    for op, vv in (("convolve", v), ("correlate", v.flip(-1))):
+        p = api.plan(build_fft_spec(CONV_SHAPE, op=op,
+                                    kernel_shape=(CONV_TAPS,),
+                                    device=str(dev)))
+        before = block_fft.launches
+        y, info = serve_plan(p, a, op=op, kernel=v)
+        blk = block_fft.launches - before
+        full = torch.fft.irfft(torch.fft.rfft(a, n=nfft)
+                               * torch.fft.rfft(vv, n=nfft), n=nfft)
+        start = (min(la, lv) - 1) // 2
+        ref = full[..., start:start + max(la, lv)]
+        err = (y - ref).abs().max().item()
+        tol = ATOL["float32"] * ref.abs().max().item()
+        check(y.shape == ref.shape and err <= tol,
+              f"serve_plan {op}: err {err} > {tol}")
+        conv[op] = {"max_abs_err": err, "tol": tol, "block_fft": blk,
+                    "info": info}
+        log(f"serve_plan {op} float32 {CONV_SHAPE} * {CONV_TAPS}: err "
+            f"{err:.3e} tol {tol:.3e}, {blk} block_fft launches, {info}")
+
+    # the same runtime at max_batch 1 and 16 on throughput (printed only)
+    thr = {}
+    xs = [_serve_request(dev, 20_000 + i, (8192,), "complex64", False)
+          for i in range(32)]
+    for mb in (1, SERVE_CONFIG["max_batch"]):
+        with ServeRuntime(RuntimeConfig(**dict(SERVE_CONFIG, max_batch=mb),
+                                        device=str(dev))) as rt:
+            rt.submit(xs[0]).result(timeout=60.0)
+            hs = []
+            t0 = time.perf_counter()
+            for i in range(512):
+                while True:
+                    try:
+                        hs.append(rt.submit(xs[i % len(xs)]))
+                        break
+                    except QueueFullError:
+                        time.sleep(0.0005)
+            for h in hs:
+                h.result(timeout=120.0)
+            thr[mb] = len(hs) / (time.perf_counter() - t0)
+    log(f"serve throughput, complex64 8192-point numpy requests, 512 "
+        f"back to back: max_batch=1 {thr[1]:.1f} requests/s, max_batch="
+        f"{SERVE_CONFIG['max_batch']} {thr[SERVE_CONFIG['max_batch']]:.1f} "
+        f"requests/s")
+    seconds = time.perf_counter() - t_phase
+    log(f"serve phase: {seconds:.1f} s (CLI {t_cli:.1f} s)")
+    return {"requests": len(results), "clients": SERVE_CLIENTS,
+            "config": SERVE_CONFIG, "wall_s": wall, "buckets": rows,
+            "launches": launches, "peak_memory_bytes": peak,
+            "max_abs_err": max(results), "ft": ft, "unbatched": conv,
+            "throughput_rps": {str(k): v for k, v in thr.items()},
+            "cli": cli, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -771,7 +1171,9 @@ def main() -> int:
     from repro_torch.kernels.stockham_abft import (abft_fft, abft_fft_plain,
                                                    launch_geometry,
                                                    max_active_clusters)
+    from repro_torch.kernels.trace_age import PRIMER, prime
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full fp32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -864,20 +1266,25 @@ def main() -> int:
 
     def device_kernels(fn, want=None, attempts=3):
         """(name, device ms) of every CUDA kernel one call of ``fn`` runs,
-        from torch.profiler after a warm-up call. With ``want``, up to
-        ``attempts`` calls are traced until one shows ``want`` kernels (the
-        tracer can drop an event; an extra kernel shows every time)."""
+        from torch.profiler after a warm-up call. Each trace starts with
+        ``trace_age.prime`` (left out of the kernels): in a process that
+        has run for a while the tracer drops the first kernels of a trace
+        (ROADMAP queue 3). With ``want``, up to ``attempts`` calls are
+        traced until one shows ``want`` kernels (the tracer can drop an
+        event; an extra kernel shows every time)."""
         fn()
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         for _ in range(attempts):
             with torch.profiler.profile(activities=acts) as prof:
+                prime()
                 fn()
                 torch.cuda.synchronize()
             kern = [(e.name, e.time_range.elapsed_us() / 1e3)
                     for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and PRIMER not in e.name]
             if want is None or len(kern) == want:
                 break
             log(f"torch.profiler traced {len(kern)} kernels, not {want}: "
@@ -890,7 +1297,8 @@ def main() -> int:
         ms) in launch order, the window from the call's start on the host
         to its last kernel's end, and the share of that window in which no
         kernel ran. ``want(names)`` says whether a trace is whole (the
-        tracer can drop an event); up to ``attempts`` calls are traced."""
+        tracer can drop an event); up to ``attempts`` calls are traced,
+        each after ``trace_age.prime``."""
         fn()
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
@@ -898,6 +1306,7 @@ def main() -> int:
         cuda_dev = torch.autograd.DeviceType.CUDA
         for _ in range(attempts):
             with torch.profiler.profile(activities=acts) as prof:
+                prime()
                 with torch.profiler.record_function("traced_call"):
                     fn()
                 torch.cuda.synchronize()
@@ -906,7 +1315,8 @@ def main() -> int:
                     and e.device_type != cuda_dev]
             kern = sorted((e.time_range.start, e.time_range.end, e.name)
                           for e in evs if e.device_type == cuda_dev
-                          and e.name != "traced_call")
+                          and e.name != "traced_call"
+                          and PRIMER not in e.name)
             if mark and kern and want([k for _, _, k in kern]):
                 break
             log(f"torch.profiler trace incomplete: {[k for _, _, k in kern]}")
@@ -1167,6 +1577,7 @@ def main() -> int:
         f"{json.dumps(kratio)}")
 
     # ---- phase 5: times by CUDA events at the single-pass main-path shape
+    log(f"phase 5 starts {time.perf_counter() - t_start:.1f} s into the run")
     dtype, logn, b = FFT_CASES[0]
     n = 1 << logn
     x = randn((b, n), dtype)
@@ -1305,6 +1716,16 @@ def main() -> int:
         f"{mlp_ms['protected_ms'] / mlp_ms['unprotected_ms'] - 1:+.1%})")
     del mlp_blocks
 
+    # ---- phase 6: the serving runtime, counts from its run only. It runs
+    # after the traces, so that it adds nothing to the process's age at
+    # them (the tracer drops more of a trace's first kernels in an older
+    # process, ROADMAP queue 3)
+    log(f"phase 6 starts {time.perf_counter() - t_start:.1f} s into the run")
+    serve = serve_phase(dev)
+    check(serve["launches"]["block_fft"] > 0
+          and serve["launches"]["abft_fft"] > 0,
+          f"a kernel of the path was never launched: {serve['launches']}")
+
     kernels = [
         {"name": "block_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_fft.cu",
@@ -1317,15 +1738,17 @@ def main() -> int:
          "plain_ms": blk_plain, "bound_ms": blk_bound[0],
          "bound_by": blk_bound[1], "library_ms": lib_ms,
          "launches_by_path": {"fft": launches["block_fft"],
-                              "extensions": ext_launches["block_fft"]},
+                              "extensions": ext_launches["block_fft"],
+                              "serve": serve["launches"]["block_fft"]},
          "shapes": fft_shapes, "extensions": ext_rows,
-         "axis_layouts": axis_rows},
+         "axis_layouts": axis_rows, "serve": serve},
         {"name": "abft_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/abft_fft.cu",
          "replaces": "src/repro/kernels/stockham_abft.py:119",
          "launches": launches["abft_fft"],
          "launches_by_path": {"fft": launches["abft_fft"],
-                              "extensions": ext_launches["abft_fft"]},
+                              "extensions": ext_launches["abft_fft"],
+                              "serve": serve["launches"]["abft_fft"]},
          "launches_per_call": per_call["abft_fft"],
          "max_abs_err": kerr["abft_fft"], "max_abs_err_parts": abft_parts,
          "max_err_over_tol": kratio["abft_fft"], "ms": abft_ms,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -317,8 +318,12 @@ def block_fft(x: torch.Tensor, stages: Sequence[StagePlan], *,
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"block_fft launch failed: CUDA error {err}")
-    block_fft.launches += 1
+    with launch_lock:
+        block_fft.launches += 1
     return out
 
 
 block_fft.launches = 0
+# the serving runtime's workers launch from several threads at once, and a
+# bare ``+= 1`` on a launch count can lose one: counts change under this lock
+launch_lock = threading.Lock()

@@ -41,7 +41,7 @@ from repro_torch.core.fft.plan import MAX_BLOCK_N, StagePlan
 
 from . import _build
 from .stockham import (_check_tables, block_fft_plain, device_key,
-                       pack_radices, stage_tables)
+                       launch_lock, pack_radices, stage_tables)
 
 __all__ = ["abft_fft", "abft_fft_plain", "encoding_vectors",
            "launch_geometry", "max_active_clusters", "Geometry"]
@@ -303,7 +303,8 @@ def abft_fft(x: torch.Tensor, stages: Sequence[StagePlan], *, bs: int,
                  ctypes.addressof(packed), stream)
     if err != 0:
         raise RuntimeError(f"abft_fft launch failed: CUDA error {err}")
-    abft_fft.launches += 1
+    with launch_lock:
+        abft_fft.launches += 1
     return y, delta, cs
 
 
