@@ -37,7 +37,24 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   launches a batch over its batches; the ft ledger exact (the location the
   faulted row, no flag on a clean batch); under 2 GB of device memory.
   Then convolve and correlate through ``serve_plan``, and the runtime at
-  max_batch 1 against 16 on throughput (printed).
+  max_batch 1 against 16 on throughput (printed);
+* the LM path (phase 7, ``lm_drive``): Phi-4-mini 3.8B at its published
+  widths (32 layers, d_model 3072, d_ff 8192, vocab 200064; f32 params,
+  bf16 activations, random weights from a seeded CUDA generator), one
+  protected ``Model.apply`` prefill at 4 x 512 tokens against the
+  unprotected one (``LM_LOGIT_TOL``), then ``launch.serve.decode`` at
+  batch 4 (every protected product's M padded to 64) and 64, each
+  unprotected, protected and protected under the CLI's ``FaultSchedule``:
+  7 ``ft_matmul`` launches a layer per step and no call of the eager ABFT
+  path, the SEU ledger injected == detected == corrected == 2 x 32, the
+  SEU run's tokens those of the clean protected run, under 28 GB of device
+  memory; then Gemma-3 1B (local and global caches, tied embeddings)
+  protected at batch 4 under the same schedule. ``lm_measure`` then times
+  the prefill, traces one protected and one unprotected decode step under
+  ``torch.profiler`` (kernels, host ms, the device's idle share), holds
+  ``ft_matmul`` against its plain version at a decode step's padded MLP
+  shape and times it beside ``torch.matmul`` and its byte bound, and runs
+  ``python -m repro_torch.launch.serve --mode lm`` at Gemma-3 1B's widths.
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -1153,6 +1170,364 @@ def serve_phase(dev):
             "cli": cli, "seconds": seconds}
 
 
+# ---- phase 7: the LM path. Phi-4-mini 3.8B at its published widths (f32
+# params, bf16 activations, random weights from a seeded CUDA generator):
+# one protected prefill, then greedy decode at batch 4 (M padded to 64 in
+# every protected product) and 64 (aligned), each unprotected, protected
+# and protected under the CLI's FaultSchedule; then Gemma-3 1B (local and
+# global caches, tied embeddings) once, protected, and the CLI on the card
+LM_ARCH, LM_SMALL_ARCH = "phi4_mini_3p8b", "gemma3_1b"
+LM_PREFILL = (4, 512)              # (batch, tokens): M = 2048, no padding
+LM_BATCHES = (4, 64)
+LM_PROMPT, LM_GEN = 16, 32
+LM_FT_THRESHOLD = 1e-3
+LM_MEMORY_LIMIT = 28e9             # bytes of device memory, params included
+LM_SITES = 7                       # protected products a block: q k v o, MLP
+# the protected prefill against the unprotected one, on the last 16
+# positions' logits: LM_LOGIT_TOL * max|unprotected|. The unprotected path
+# rounds every weight to bf16 (2^-9 relative) and the protected one keeps
+# it float32; over 32 blocks those differences add up in the residual
+# stream, so the gate is loose: a broken product is off by O(1)
+LM_LOGIT_TOL = 2.0 ** -4
+DECODE_SHAPE = (4, 3072, 8192)     # a decode step's MLP up product
+LM_CLI = ("--mode", "lm", "--arch", "gemma3-1b", "--preset", "full", "--ft")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_drive(dev):
+    """Drive the LM path once (counts are the caller's to reset and read):
+    Phi-4-mini's prefill and decode runs, then Gemma-3 1B's. Returns
+    (results dict, Phi-4-mini's model pair and params, prefill tokens, the
+    batch-4 prompts) for the measurements that follow."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.launch.serve import decode, demo_schedule
+    from repro_torch.models import Model, count_params
+
+    def protect(cfg):
+        return dataclasses.replace(cfg, ft=dataclasses.replace(
+            cfg.ft, protect_linears=True, threshold=LM_FT_THRESHOLD))
+
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = get_config(LM_ARCH)
+    check((base.num_layers, base.d_model, base.d_ff, base.vocab_size)
+          == (32, 3072, 8192, 200064), f"{LM_ARCH}: {base}")
+    layers_n, vocab = base.num_layers, base.vocab_size
+    models = {"unprotected": Model(base), "protected": Model(protect(base))}
+    t0 = time.perf_counter()
+    params = models["unprotected"].init(
+        torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    res["params"] = count_params(base)
+    res["param_bytes"] = param_bytes
+    res["init_s"] = time.perf_counter() - t0
+    check(res["params"] == sum(t.numel() for t in _leaves(params)),
+          "count_params disagrees with the initialised tree")
+    log(f"LM {base.name}: {res['params']} params, {param_bytes / 1e9:.2f} GB "
+        f"({base.param_dtype}), activations {base.dtype}, initialised on "
+        f"the card in {res['init_s']:.1f} s")
+
+    # one protected prefill at 4 x 512 tokens, against the unprotected one
+    b, t = LM_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, vocab, (b, t), generator=gen, device=dev,
+                           dtype=torch.int32)
+    before = ft_matmul.launches
+    logits, aux = models["protected"].apply(params, {"tokens": tokens})
+    prefill_launches = ft_matmul.launches - before
+    check(prefill_launches == LM_SITES * layers_n,
+          f"protected prefill: {prefill_launches} ft_matmul launches")
+    check(tuple(logits.shape) == (b, t, vocab)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"protected prefill logits {tuple(logits.shape)} {logits.dtype}")
+    check(float(aux["ft_flagged"]) == 0, "protected prefill: flagged")
+    tail_p = logits[:, -16:].clone()
+    del logits
+    plain, _ = models["unprotected"].apply(params, {"tokens": tokens})
+    tail_u = plain[:, -16:].clone()
+    del plain
+    scale = tail_u.abs().max().item()
+    err = (tail_p - tail_u).abs().max().item()
+    agree = (tail_p.argmax(-1) == tail_u.argmax(-1)).float().mean().item()
+    check(err <= LM_LOGIT_TOL * scale,
+          f"protected vs unprotected prefill logits: {err} > "
+          f"{LM_LOGIT_TOL} * {scale}")
+    res["prefill"] = {"shape": [b, t], "ft_matmul_launches": prefill_launches,
+                      "max_score": float(aux["ft_max_score"]),
+                      "logit_err": err, "logit_max": scale,
+                      "logit_tol": LM_LOGIT_TOL * scale,
+                      "argmax_agreement": agree}
+    log(f"LM prefill {b} x {t}: {prefill_launches} ft_matmul launches, "
+        f"max score {float(aux['ft_max_score']):.3e}; protected vs "
+        f"unprotected logits err {err:.4e} (tol {LM_LOGIT_TOL * scale:.4e},"
+        f" max {scale:.4e}), argmax agreement {agree:.3f}")
+    del tail_p, tail_u
+
+    # greedy decode: each batch unprotected, protected, protected + SEUs
+    rng = np.random.default_rng(SEED)
+    steps = LM_PROMPT + LM_GEN - 1
+    res["decode"] = []
+    prompts4 = None
+    for batch in LM_BATCHES:
+        prompts = torch.as_tensor(
+            rng.integers(0, vocab, (batch, LM_PROMPT)), dtype=torch.int32,
+            device=dev)
+        prompts4 = prompts if prompts4 is None else prompts4
+        runs, toks = {}, {}
+        for label, model, sched in (
+                ("unprotected", models["unprotected"], None),
+                ("protected", models["protected"], None),
+                ("protected+SEU", models["protected"],
+                 demo_schedule(batch, LM_PROMPT))):
+            decode(model, params, prompts[:, :2], 2)       # warm-up
+            torch.cuda.synchronize()
+            before = ft_matmul.launches
+            t0 = time.perf_counter()
+            out = decode(model, params, prompts, LM_GEN, schedule=sched)
+            toks[label], stats = out if sched is not None else (out, None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ft_matmul.launches - before
+            tk = toks[label]
+            check(tuple(tk.shape) == (batch, LM_GEN)
+                  and int(tk.min()) >= 0 and int(tk.max()) < vocab,
+                  f"decode {label} batch {batch}: {tuple(tk.shape)}")
+            want = 0 if label == "unprotected" else \
+                LM_SITES * layers_n * steps
+            check(launches == want, f"decode {label} batch {batch}: "
+                                    f"{launches} ft_matmul launches, not "
+                                    f"{want}")
+            row = {"batch": batch, "run": label, "wall_s": wall,
+                   "ms_per_step": wall / steps * 1e3,
+                   "tokens_per_s": batch * LM_GEN / wall,
+                   "ft_matmul_launches": launches,
+                   "launches_per_step": launches / steps}
+            if stats is not None:
+                ledger = {"injected": sched.num_faults * layers_n,
+                          "detected": float(stats.detected),
+                          "corrected": float(stats.corrected),
+                          "max_score": float(stats.max_score)}
+                check(ledger["injected"] == ledger["detected"]
+                      == ledger["corrected"] == 2 * layers_n,
+                      f"decode SEU ledger batch {batch}: {ledger}")
+                check(torch.equal(tk, toks["protected"]),
+                      f"decode batch {batch}: the SEU run's tokens are not "
+                      f"the clean protected run's")
+                row["ledger"] = ledger
+            runs[label] = row
+            log(f"LM decode batch {batch} {label}: {wall:.3f} s, "
+                f"{row['ms_per_step']:.2f} ms a step, "
+                f"{row['tokens_per_s']:.1f} tokens/s, "
+                f"{row['launches_per_step']:.0f} ft_matmul launches a step"
+                + (f"; ledger {json.dumps(row['ledger'])}"
+                   if "ledger" in row else ""))
+        agree = (toks["protected"] == toks["unprotected"]).float().mean()
+        runs["token_agreement"] = agree.item()
+        runs["ft_overhead_per_step"] = (runs["protected"]["ms_per_step"]
+                                        / runs["unprotected"]["ms_per_step"]
+                                        - 1)
+        log(f"LM decode batch {batch}: protected step "
+            f"{runs['ft_overhead_per_step']:+.1%} over unprotected; greedy "
+            f"tokens agree at {agree.item():.3f}")
+        res["decode"].append(runs)
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    check(res["peak_memory_bytes"] < LM_MEMORY_LIMIT,
+          f"LM path peak memory {res['peak_memory_bytes']} bytes")
+    log(f"LM {base.name} path peak device memory "
+        f"{res['peak_memory_bytes'] / 1e9:.2f} GB (params "
+        f"{param_bytes / 1e9:.2f} GB)")
+
+    # Gemma-3 1B once, protected under the CLI's schedule
+    small = protect(get_config(LM_SMALL_ARCH))
+    gm = Model(small)
+    gparams = gm.init(torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev)
+    prompts = torch.as_tensor(
+        rng.integers(0, small.vocab_size, (4, LM_PROMPT)),
+        dtype=torch.int32, device=dev)
+    sched = demo_schedule(4, LM_PROMPT)
+    torch.cuda.synchronize()
+    before = ft_matmul.launches
+    t0 = time.perf_counter()
+    tk, stats = decode(gm, gparams, prompts, LM_GEN, schedule=sched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ft_matmul.launches - before
+    ledger = {"injected": sched.num_faults * small.num_layers,
+              "detected": float(stats.detected),
+              "corrected": float(stats.corrected)}
+    check(launches == LM_SITES * small.num_layers * steps,
+          f"{small.name} decode: {launches} ft_matmul launches")
+    check(ledger["injected"] == ledger["detected"] == ledger["corrected"],
+          f"{small.name} decode ledger: {ledger}")
+    check(tuple(tk.shape) == (4, LM_GEN) and int(tk.max()) < small.vocab_size,
+          f"{small.name} decode tokens {tuple(tk.shape)}")
+    res["small"] = {"arch": small.name, "params": count_params(small),
+                    "batch": 4, "wall_s": wall,
+                    "ms_per_step": wall / steps * 1e3,
+                    "tokens_per_s": 4 * LM_GEN / wall,
+                    "ft_matmul_launches": launches, "ledger": ledger}
+    log(f"LM {small.name} ({res['small']['params']} params, tied "
+        f"embeddings, local window {small.window_size}) protected decode "
+        f"batch 4 with the CLI schedule: {wall:.3f} s, "
+        f"{res['small']['ms_per_step']:.2f} ms a step, {launches} "
+        f"ft_matmul launches, ledger {json.dumps(ledger)}")
+    del gparams, gm
+    return res, models, params, tokens, prompts4
+
+
+def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
+               trace_call):
+    """Times of the LM path and its kernel at the decode shape: the
+    prefill by CUDA events, primed torch.profiler traces of one protected
+    and one unprotected decode step (kernels, host ms, device idle share),
+    ``ft_matmul``
+    against its plain version at a decode step's padded MLP shape, and the
+    CLI's ``--mode lm`` on the card. Returns a dict."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.gemm import GEMMSpec, plan
+    from repro_torch.core.plan import FTConfig
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_plain
+    from repro_torch.train import make_serve_step
+
+    res = {}
+    res["prefill_ms"] = {
+        label: cuda_ms(lambda m=m: m.apply(params, {"tokens": tokens}),
+                       iters=2, warmup=1)
+        for label, m in models.items()}
+    log(f"LM prefill {tuple(tokens.shape)} by events: protected "
+        f"{res['prefill_ms']['protected']:.2f} ms, unprotected "
+        f"{res['prefill_ms']['unprotected']:.2f} ms")
+
+    # one decode step at batch 4 under torch.profiler, protected (it must
+    # show 7 ft_matmul_tile kernels a layer) and unprotected
+    layers_n = models["protected"].cfg.num_layers
+    tok = prompts4[:, :1]
+    res["decode_trace"] = {}
+    for label, model in (("protected", models["protected"]),
+                         ("unprotected", models["unprotected"])):
+        step = make_serve_step(model, RunConfig(model=model.cfg))
+        cache = model.init_cache(batch=prompts4.shape[0],
+                                 max_len=LM_PROMPT + LM_GEN, device=dev)
+        fn = lambda: step(params, cache, tok, 0)        # noqa: E731
+        want = LM_SITES * layers_n if label == "protected" else 0
+        kern, window, idle = trace_call(
+            fn, lambda names: sum("ft_matmul_tile" in k for k in names)
+            == want)
+        host = host_ms(fn, iters=5)
+        groups = {}
+        for name, ms in kern:
+            key = re.sub(r"^void ", "", name)[:60]
+            n, tot = groups.get(key, (0, 0.0))
+            groups[key] = (n + 1, tot + ms)
+        top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:12]
+        row = {"batch": int(prompts4.shape[0]), "kernels": len(kern),
+               "ft_matmul_tile": sum("ft_matmul_tile" in k for k, _ in kern),
+               "device_ms": sum(ms for _, ms in kern), "window_ms": window,
+               "idle_share": idle, "host_ms": host,
+               "top": [[k, n, ms] for k, (n, ms) in top]}
+        res["decode_trace"][label] = row
+        log(f"LM decode step trace (batch {prompts4.shape[0]}, {label}): "
+            f"{len(kern)} kernels, {row['device_ms']:.3f} ms on the device "
+            f"in a {window:.3f} ms window (idle {idle:.1%}); host "
+            f"{host:.3f} ms a step; by name: " + "; ".join(
+                f"{k} x{n} {ms:.3f} ms" for k, (n, ms) in top))
+
+    # ft_matmul at a decode step's MLP up product: M = 4 padded to 64
+    m, k, n = DECODE_SHAPE
+    x, w = gemm_operands(dev, m, k, n, "bfloat16")
+    xp = F.pad(x, (0, 0, 0, -m % 64))
+    got, want = ft_matmul(xp, w, bm=64), ft_matmul_plain(xp, w)
+    errs = {}
+    for part in ("c", "out2", "pred2", "out3", "pred3"):
+        g, r = getattr(got, part).float(), getattr(want, part).float()
+        step_tol = BF16_STEP if part == "c" else GEMM_TOL
+        errs[part] = (g - r).abs().max().item()
+        check(errs[part] <= step_tol * r.abs().max().item(),
+              f"ft_matmul vs plain at the decode shape {part}: "
+              f"{errs[part]}")
+    unpadded = ft_matmul_plain(x, w).c.float()
+    check(not bool(got.c[m:].any())
+          and (got.c[:m].float() - unpadded).abs().max().item()
+          <= BF16_STEP * unpadded.abs().max().item(),
+          "ft_matmul at the decode shape: the padded product's first rows "
+          "are not the unpadded product")
+    # the plan hands the kernel a float32 X (its c stays float32 through
+    # the correction): the same product, rounded once afterwards
+    wide = ft_matmul(xp.float(), w, bm=64)
+    check(torch.equal(wide.c.to(torch.bfloat16), got.c)
+          and all(torch.equal(getattr(wide, part), getattr(got, part))
+                  for part in ("out2", "pred2", "out3", "pred3")),
+          "ft_matmul: a float32 X does not give the bf16 X's product")
+    xf, xpf = x.float(), xp.float()
+    p = plan(GEMMSpec((m, k, n), dtype="bfloat16",
+                      ft=FTConfig(threshold=LM_FT_THRESHOLD),
+                      device=str(dev)))
+    check(p.backend == "fused", f"decode-shape plan: {p.backend}")
+    nbytes = (x.numel() * 2 + w.numel() * 4 + m * n * 2 + 4 * n * 4)
+    flops = 2 * m * k * n + 3 * m * k + 4 * k * n + 3 * m * n
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    res["decode_shape"] = {
+        "shape": [m, k, n], "padded_m": int(xp.shape[0]), "x": "bfloat16",
+        "w": "float32",
+        "ms": cuda_ms(lambda: ft_matmul(xp, w, bm=64), iters=50),
+        "float32_x_ms": cuda_ms(lambda: ft_matmul(xpf, w, bm=64),
+                                iters=50),
+        "plain_ms": cuda_ms(lambda: ft_matmul_plain(xp, w), iters=50),
+        "library_ms": cuda_ms(lambda: torch.matmul(xf, w), iters=50),
+        "library_bf16_ms": cuda_ms(lambda: torch.matmul(
+            x, w.to(torch.bfloat16)), iters=50),
+        "plan_ft_matmul_ms": cuda_ms(lambda: p.ft_matmul(x, w), iters=50),
+        "bound_ms": max(tb, tf),
+        "bound_by": "bytes" if tb >= tf else "operations",
+        "max_abs_err": errs}
+    ds = res["decode_shape"]
+    log(f"ft_matmul at the decode shape {DECODE_SHAPE} (M padded to "
+        f"{ds['padded_m']}) bf16 x f32: {ds['ms']:.4f} ms (float32 X, as "
+        f"the plan runs it: {ds['float32_x_ms']:.4f} ms), plain "
+        f"{ds['plain_ms']:.4f} ms, torch.matmul f32 {ds['library_ms']:.4f} "
+        f"ms (bf16 weights {ds['library_bf16_ms']:.4f} ms), plan.ft_matmul "
+        f"{ds['plan_ft_matmul_ms']:.4f} ms; bound {ds['bound_ms']:.4f} ms "
+        f"({ds['bound_by']}); err {json.dumps(errs)}")
+
+    # the CLI on the card: --mode lm at Gemma-3 1B's published widths
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *LM_CLI], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    out = proc.stdout + proc.stderr
+    hit = re.search(r"ft: injected=(\d+) detected=(\d+) corrected=(\d+)",
+                    out)
+    check(proc.returncode == 0 and hit and hit[2] == hit[3] == "52",
+          f"launch.serve {' '.join(LM_CLI)}: exit {proc.returncode}\n"
+          f"{out[-3000:]}")
+    line = next(ln for ln in out.splitlines() if ln.startswith("generated"))
+    res["cli"] = {"argv": list(LM_CLI), "line": line, "ft": hit[0],
+                  "seconds": time.perf_counter() - t0}
+    log(f"launch.serve {' '.join(LM_CLI)}: {line}; {hit[0]} "
+        f"({res['cli']['seconds']:.1f} s with the process start)")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1726,6 +2101,44 @@ def main() -> int:
           and serve["launches"]["abft_fft"] > 0,
           f"a kernel of the path was never launched: {serve['launches']}")
 
+    # ---- phase 7: the LM path, counts from its run only; every protected
+    # product must launch ft_matmul (the eager ABFT path is counted too)
+    t7 = time.perf_counter()
+    log(f"phase 7 starts {t7 - t_start:.1f} s into the run")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for torch.matmul")
+    from repro_torch.core.abft import gemm as abft_gemm
+    eager_ft_matmul = abft_gemm.ft_matmul
+    eager_calls = []
+
+    def counted_eager(*args, **kwargs):
+        eager_calls.append(1)
+        return eager_ft_matmul(*args, **kwargs)
+
+    abft_gemm.ft_matmul = counted_eager
+    try:
+        block_fft.launches = 0
+        abft_fft.launches = 0
+        ft_matmul.launches = 0
+        lm, lm_models, lm_params, lm_tokens, lm_prompts = lm_drive(dev)
+        torch.cuda.synchronize()
+        lm_launches = {"block_fft": block_fft.launches,
+                       "abft_fft": abft_fft.launches,
+                       "ft_matmul": ft_matmul.launches}
+    finally:
+        abft_gemm.ft_matmul = eager_ft_matmul
+    log(f"LM path launches, whole run: {json.dumps(lm_launches)}; eager "
+        f"ABFT calls {len(eager_calls)}")
+    check(lm_launches["ft_matmul"] > 0 and not eager_calls,
+          f"LM path: {lm_launches}, {len(eager_calls)} eager ABFT calls")
+    lm["launches"] = lm_launches
+    lm.update(lm_measure(dev, lm_models, lm_params, lm_tokens, lm_prompts,
+                         cuda_ms, host_ms, trace_call))
+    del lm_models, lm_params, lm_tokens, lm_prompts
+    lm["seconds"] = time.perf_counter() - t7
+    log(f"phase 7 took {lm['seconds']:.1f} s; the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+
     kernels = [
         {"name": "block_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_fft.cu",
@@ -1768,8 +2181,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/ft_matmul.cu",
          "replaces": "src/repro/kernels/ft_matmul.py:149",
          "launches": gemm_launches["ft_matmul"],
+         "launches_by_path": {"gemm": gemm_launches["ft_matmul"],
+                              "lm": lm_launches["ft_matmul"]},
          "launches_per_call": {"plan.ft_matmul": 1,
-                               "protected MLP block": mlp_per_call},
+                               "protected MLP block": mlp_per_call,
+                               "protected prefill":
+                                   lm["prefill"]["ft_matmul_launches"],
+                               "protected decode step":
+                                   lm["decode"][0]["protected"][
+                                       "launches_per_step"]},
          "max_abs_err": max(gemm_parts.values()),
          "max_abs_err_parts": gemm_parts, "max_err_over_tol": gemm_ratio,
          "shape": main_row["shape"], "ms": main_row["ms"],
@@ -1781,7 +2201,8 @@ def main() -> int:
                                if r["x"] == r["w"] == "float32"
                                and r["tile"] == [128, 128]),
          "instances": ftmm_instances, "shapes": gemm_rows,
-         "mlp_block": mlp_ms, "seu": {"plan": gemm_seu, "mlp": mlp_seu}},
+         "mlp_block": mlp_ms, "seu": {"plan": gemm_seu, "mlp": mlp_seu},
+         "lm": lm},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Config registry: one module per architecture ported so far.
 ``get_config(name)`` returns the full ModelConfig; ``get_smoke_config(name)``
-returns the reduced same-family config used by CPU tests. ``ARCHS`` grows
-as the model stack is ported (``repro.configs`` lists the rest).
+returns the reduced same-family config used by CPU tests. ``ARCHS`` holds
+the dense decoder family, whose layers are ported; the reference's other
+architectures raise, naming what ports them (``NOT_YET_PORTED``).
 """
 from __future__ import annotations
 
@@ -11,20 +12,45 @@ from .base import (ModelConfig, ParallelConfig, RunConfig, ShapeConfig,
                    SHAPES)
 
 ARCHS = [
+    "qwen15_110b",
+    "phi3_medium_14b",
     "phi4_mini_3p8b",
+    "gemma3_1b",
 ]
+
+_ITEM_9 = "ROADMAP queue 1 item 9"
+# the reference's other architectures -> what ports them
+NOT_YET_PORTED = {
+    "recurrentgemma_2b": f"ssm.py (RG-LRU), {_ITEM_9}",
+    "xlstm_350m": f"ssm.py (mLSTM, sLSTM), {_ITEM_9}",
+    "deepseek_v3_671b": f"moe.py and MLA attention, {_ITEM_9}",
+    "llama4_maverick": f"moe.py, {_ITEM_9}",
+    "whisper_base": f"the encoder-decoder model, {_ITEM_9}",
+    "internvl2_1b": f"the VLM patch frontend stub, {_ITEM_9}",
+}
 
 # canonical ids as assigned (hyphens) -> module names
 _ALIASES = {
+    "qwen1.5-110b": "qwen15_110b",
+    "phi3-medium-14b": "phi3_medium_14b",
     "phi4-mini-3.8b": "phi4_mini_3p8b",
+    "gemma3-1b": "gemma3_1b",
+    "internvl2-1b": "internvl2_1b",
+    "xlstm-350m": "xlstm_350m",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "whisper-base": "whisper_base",
 }
 
 
 def _module(name: str):
     mod = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod in NOT_YET_PORTED:
+        raise ValueError(f"architecture {name!r} is not yet ported: it "
+                         f"needs {NOT_YET_PORTED[mod]}; ported: {ARCHS}")
     if mod not in ARCHS:
-        raise ValueError(f"unknown or not yet ported architecture {name!r}; "
-                         f"ported: {ARCHS}")
+        raise ValueError(f"unknown architecture {name!r}; ported: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 
@@ -41,5 +67,5 @@ def all_arch_names() -> list[str]:
 
 
 __all__ = ["ModelConfig", "ParallelConfig", "RunConfig", "ShapeConfig",
-           "SHAPES", "ARCHS", "get_config", "get_smoke_config",
-           "all_arch_names"]
+           "SHAPES", "ARCHS", "NOT_YET_PORTED", "get_config",
+           "get_smoke_config", "all_arch_names"]

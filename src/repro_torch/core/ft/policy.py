@@ -38,8 +38,8 @@ class FTPolicy:
     # numerical guards for training
     skip_nonfinite_updates: bool = True
     # checked-GEMM backend for protected linears (see core.gemm.GEMMSpec):
-    # "auto" resolves to the fused CUDA kernel ("fused") on a card when the
-    # dims are tile-aligned and to the torch path ("eager") otherwise. The
+    # "auto" resolves to the fused CUDA kernel ("fused") on a card (K and N
+    # tile-aligned, M padded) and to the torch path ("eager") on the CPU. The
     # reference's names map as "xla" -> "eager" and "pallas" -> "fused".
     gemm_backend: str = "auto"
 

@@ -15,10 +15,14 @@ plan/execute front door for checked GEMMs, mirroring ``core.fft.api``:
   ``"fused"`` the CUDA kernel (:mod:`repro_torch.kernels.ft_matmul`, the
   reference's ``"pallas"``) whose checksum strips are decoded by the SAME
   :func:`decode_columns`, so the two backends agree by construction.
-  ``"auto"`` resolves to ``"fused"`` when the dims are tile-aligned and the
-  plan runs on a card, to ``"eager"`` otherwise, as the reference's takes
-  the Pallas kernel only on the TPU. On a CPU plan ``"fused"`` runs the
-  kernel's plain torch version.
+  ``"auto"`` resolves to ``"fused"`` on a card and to ``"eager"`` on the
+  CPU, as the reference's takes the Pallas kernel only on the TPU. The
+  fused path needs K and N aligned to the tiles; M need not be: it is
+  padded with zero rows to a multiple of the kernel's smallest tile row
+  count (decode steps have M = the batch). A card plan with an unaligned K
+  or N raises rather than fall back; ``backend="eager"`` asks for the torch
+  path explicitly. On a CPU plan ``"fused"`` runs the kernel's plain torch
+  version.
 
 Injection descriptors are ``(4,)`` (or ``(F, 4)``) float rows
 ``[row, col, enable, eps]`` — ``enable`` lets one fixed program arm or
@@ -90,9 +94,10 @@ class GEMMSpec:
         object.__setattr__(self, "device", str(torch.device(self.device)))
 
 
-def _tile_aligned(shape, tiles) -> bool:
-    (m, k, n), (bm, bk, bn) = shape, tiles
-    return m % bm == 0 and k % bk == 0 and n % bn == 0
+def _kn_aligned(shape, tiles) -> bool:
+    """K and N are multiples of the tiles (M is padded, so any M runs)."""
+    (_, k, n), (_, bk, bn) = shape, tiles
+    return k % bk == 0 and n % bn == 0
 
 
 @planbase.register_plan_type(GEMMSpec)
@@ -111,15 +116,14 @@ class GEMMPlan(planbase.Plan):
         m, k, n = spec.shape
         self.device = planbase.resolve_device(spec.device, "GEMMSpec")
         backend = spec.backend
-        aligned = _tile_aligned(spec.shape, spec.tiles)
         if backend == "auto":
-            backend = ("fused" if aligned and self.device.type == "cuda"
-                       else "eager")
-        if backend == "fused" and not aligned:
+            backend = "fused" if self.device.type == "cuda" else "eager"
+        if backend == "fused" and not _kn_aligned(spec.shape, spec.tiles):
             raise ValueError(
-                f"GEMMSpec(backend='fused') needs tile-aligned dims: "
-                f"shape={spec.shape} vs tiles={spec.tiles} — use "
-                f"backend='eager' (or 'auto', which falls back)")
+                f"GEMMSpec(backend={spec.backend!r}) takes the fused kernel, "
+                f"which needs tile-aligned K and N: shape={spec.shape} vs "
+                f"tiles={spec.tiles} — pass backend='eager' for the torch "
+                f"path")
         if backend == "fused" and self.device.type == "cuda":
             bm, bk, bn = spec.tiles
             ft_kernel.check_kernel_tiles(bm, bn, bk)
@@ -195,14 +199,30 @@ _normalize_inject = ft_kernel.inject_rows
 
 
 def _ft_matmul_fused(x, w, inj, *, bm, bn, bk, threshold, with_correction):
-    x2 = x.reshape(-1, x.shape[-1])
+    """The kernel on ``x`` with M padded by zero rows, when it is not a
+    multiple of ``bm``, to a multiple of the kernel's smallest tile row
+    count: zero rows add nothing to e2ᵀC, e3ᵀC, e2ᵀX or e3ᵀX, so the strips
+    and their decode over the first M rows are those of the unpadded
+    product, and a fault's decoded row lies among them.
+
+    X goes to the kernel in float32, so that the product ``c`` it stores
+    stays float32 through the correction and is rounded to ``x.dtype`` once
+    after it, as on the eager path: the kernel widens every operand to
+    float32 as it loads it, so the product is the same, while a bf16 ``c``
+    would keep up to half a bf16 step of ``c + eps`` in the corrected
+    element."""
+    x2 = x.reshape(-1, x.shape[-1]).float()
     t = x2.shape[0]
-    res = ft_kernel.ft_matmul(x2, w, bm=bm, bn=bn, bk=bk, inject=inj)
+    if t % bm:
+        bm = min(ft_kernel.KERNEL_TILES)
+        x2 = torch.nn.functional.pad(x2, (0, 0, 0, -t % bm))
+    res = ft_kernel.ft_matmul(x2.contiguous(), w, bm=bm, bn=bn, bk=bk,
+                              inject=inj)
     d2 = res.pred2 - res.out2
     d3 = res.pred3 - res.out3
     scale = torch.sqrt(torch.mean(res.out2 * res.out2)) + EPS
     y, stats = abft_gemm.decode_columns(
-        res.c, d2, d3, scale, t=t, threshold=threshold,
+        res.c[:t], d2, d3, scale, t=t, threshold=threshold,
         with_correction=with_correction)
     return y.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype), stats
 

@@ -187,7 +187,7 @@ def ft_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128,
 
     x: (M, K), w: (K, N), each float32 or bfloat16 on the kernel's path.
     Dims must be multiples of the tile sizes (the ``core.gemm`` plan layer
-    takes the eager path otherwise). ``bm``, ``bn`` and ``bk`` constrain
+    pads M with zero rows). ``bm``, ``bn`` and ``bk`` constrain
     alignment only: the kernel runs its own K stage (16) and picks its CTA
     tile with :func:`device_cta_tile`; the outputs do not depend on the
     tile. ``inject`` is an optional ``(4,)`` ``[row, col, enable,

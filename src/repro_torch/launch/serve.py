@@ -1,5 +1,11 @@
-"""Serving entry point: the batched FFT endpoint and the multi-tenant serving
-worker, on one card.
+"""Serving entry point: batched greedy decode against the KV cache, the
+batched FFT endpoint and the multi-tenant serving worker, on one card.
+
+    # greedy decode of a model (the SMOKE config at --preset tiny, the
+    # published widths at --preset full); --ft protects every linear with
+    # the checked GEMM and injects a demo FaultSchedule of two SEUs
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --preset tiny --batch 4 --prompt-len 16 --gen 32 --ft
 
     # one plan, built at startup from a consolidated spec string
     PYTHONPATH=src python -m repro_torch.launch.serve --mode fft \
@@ -11,10 +17,9 @@ worker, on one card.
     PYTHONPATH=src python -m repro_torch.launch.serve --mode serve \
         --fft-spec "n=8192,workers=2,max_batch=16,deadline_ms=2"
 
-Both run on the card; ``--device cpu`` runs the kernels' plain versions
-instead. The LM decode mode (``--mode lm``) waits for the model stack
-(ROADMAP queue 1 item 9); meshes (``--fft-shards``/``--fft-data`` > 1)
-and chunked transactions for the sharded FFT (item 10).
+All three run on the card; ``--device cpu`` runs the kernels' plain
+versions instead. Meshes (``--fft-shards``/``--fft-data`` > 1) and chunked
+transactions for the sharded FFT wait for ROADMAP queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -24,14 +29,73 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import RunConfig
+from repro_torch.core.ft import FaultSchedule, FTStats
+from repro_torch.models import Model
 from repro_torch.serve.bucketing import ITEM_10
 from repro_torch.serve.specs import (SPEC_KEYS, _parse_chunks,
                                      apply_fft_spec_arg, build_fft_spec,
                                      serve_plan)
+from repro_torch.train import make_serve_step
 
-__all__ = ["serve_fft", "main", "SPEC_KEYS"]
+__all__ = ["decode", "demo_schedule", "serve_fft", "main", "SPEC_KEYS"]
 
-ITEM_9 = "ROADMAP queue 1 item 9 (the model stack)"
+
+def decode(model: Model, params, prompts: torch.Tensor, gen: int,
+           max_len: int | None = None, schedule=None):
+    """Prefill via repeated decode steps, then generate ``gen`` tokens.
+
+    ``prompts`` is a (B, P) integer tensor on the params' device.
+    ``schedule`` is an optional :class:`~repro_torch.core.ft.FaultSchedule`:
+    each step arms its GEMM fault descriptor
+    (:meth:`~repro_torch.core.ft.FaultSchedule.for_step_gemm`, copied to
+    the device once a step) in every protected block. Returns ``(tokens,
+    FTStats)`` when a schedule is given (online ABFT telemetry summed over
+    steps), else just ``tokens``.
+    """
+    cfg = model.cfg
+    b, p = prompts.shape
+    dev = prompts.device
+    max_len = max_len or (p + gen)
+    step_fn = make_serve_step(model, RunConfig(model=cfg))
+    cache = model.init_cache(batch=b, max_len=max_len, device=dev)
+    stats = FTStats.zeros(dev)
+
+    def inj(step):
+        return (None if schedule is None
+                else schedule.for_step_gemm(step).to(dev))
+
+    def fold(aux):
+        return stats.merge(FTStats(
+            detected=aux["ft_flagged"], corrected=aux["ft_corrected"],
+            max_score=aux["ft_max_score"],
+            skipped_updates=torch.zeros((), device=dev)))
+
+    # teacher-forced prefill (decode-path; exercises the cache end-to-end)
+    nxt = prompts[:, :1]
+    for i in range(p):
+        tok = prompts[:, i:i + 1]
+        nxt, cache, aux = step_fn(params, cache, tok, i, inj(i))
+        stats = fold(aux)
+    out = [nxt]
+    for j in range(gen - 1):
+        nxt, cache, aux = step_fn(params, cache, nxt, p + j, inj(p + j))
+        stats = fold(aux)
+        out.append(nxt)
+    toks = torch.cat(out, dim=1)
+    return toks if schedule is None else (toks, stats)
+
+
+def demo_schedule(batch: int, prompt_len: int) -> FaultSchedule:
+    """The CLI's two SEUs, which the online ABFT must catch: one
+    mid-prefill, one mid-generation — (step, site, row < batch, col,
+    eps_re, eps_im). Each block builds its own fault context, so an entry
+    faults its site in every block: the ledger counts entries x layers."""
+    return FaultSchedule(entries=(
+        (min(2, prompt_len - 1), 0, batch - 1, 3, 275.0, 0.0),
+        (prompt_len + 1, 1, 0, 11, -310.0, 0.0),
+    ))
 
 
 def _local_mesh(shards: int | None, data: int) -> None:
@@ -304,9 +368,14 @@ def main(argv=None):
                          "half-spectrum pipelines (rfft/rfft2, one-sided "
                          "spectrum, packed convolve)")
     ap.add_argument("--ft", action="store_true",
-                    help="FFT mode: run the fused two-side ABFT online")
+                    help="FFT mode: run the fused two-side ABFT online. "
+                         "LM mode: protect every linear with the checked "
+                         "GEMM plan (core.gemm) and inject a demo "
+                         "FaultSchedule of SEUs that the decode must "
+                         "detect and correct online")
     ap.add_argument("--ft-threshold", type=float, default=1e-3,
-                    help="LM-mode ABFT detection threshold")
+                    help="LM-mode ABFT detection threshold (relative "
+                         "per-column checksum divergence)")
     args = ap.parse_args(argv)
 
     if args.mode == "fft":
@@ -315,9 +384,43 @@ def main(argv=None):
     if args.mode == "serve":
         _main_serve(args)
         return
-    raise NotImplementedError(
-        f"--mode lm (batched decode of {args.arch}) needs attention, the "
-        f"transformer and the model: {ITEM_9}")
+    _main_lm(args)
+
+
+def _main_lm(args):
+    """Greedy decode of ``--arch`` with weights drawn from seed 0 on the
+    device and prompts from numpy's seed 0, as the reference CLI."""
+    import dataclasses
+
+    cfg = (get_config if args.preset == "full" else get_smoke_config)(
+        args.arch)
+    schedule = None
+    if args.ft:
+        cfg = dataclasses.replace(cfg, ft=dataclasses.replace(
+            cfg.ft, protect_linears=True, threshold=args.ft_threshold))
+        schedule = demo_schedule(args.batch, args.prompt_len)
+    dev = torch.device(args.device)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
+        dtype=torch.int32, device=dev)
+    t0 = time.time()
+    res = decode(model, params, prompts, args.gen, schedule=schedule)
+    toks, stats = res if args.ft else (res, None)
+    _sync(dev)
+    dt = time.time() - t0
+    rate = args.batch * args.gen / dt
+    print(f"generated {tuple(toks.shape)} in {dt:.2f}s ({rate:.1f} tok/s)")
+    if stats is not None:
+        print(f"ft: injected={schedule.num_faults} "
+              f"detected={float(stats.detected):.0f} "
+              f"corrected={float(stats.corrected):.0f} "
+              f"max_score={float(stats.max_score):.3f} "
+              f"backend={cfg.ft.gemm_backend}")
+    print(toks[:, :16].cpu().numpy())
 
 
 if __name__ == "__main__":

@@ -1,6 +1,10 @@
-"""Model substrate (functional torch), ported slice by slice: the layers
-and the weight carrier so far; attention, transformer and model follow."""
-from . import convert, layers
+"""Model substrate (functional torch), ported slice by slice: the layers,
+the weight carrier and the dense decoder family (attention, transformer
+blocks, the model)."""
+from . import attention, convert, layers, model, transformer
 from .convert import params_from_numpy
+from .model import Model, count_params, model_flops_per_token
 
-__all__ = ["convert", "layers", "params_from_numpy"]
+__all__ = ["attention", "convert", "layers", "model", "transformer",
+           "params_from_numpy", "Model", "count_params",
+           "model_flops_per_token"]

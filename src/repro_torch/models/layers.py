@@ -17,7 +17,8 @@ accumulation) and casts ``y`` back to ``x.dtype``; the unprotected one casts
 The init helpers draw from an explicit ``torch.Generator`` (the reference
 splits PRNG keys; the two give different numbers from one seed, so tests
 carry weights across instead). Tensors are made on the generator's
-device and moved to ``device``.
+device and moved to ``device``; on the ``meta`` device they are shapes
+only and no generator is needed (``models.model.count_params``).
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ __all__ = ["truncated_normal", "rmsnorm", "layernorm", "make_norm_params",
 # ---------------------------------------------------------------------------
 
 def _trunc_normal(gen: torch.Generator, shape, std: float, dtype, device):
+    if torch.device(device).type == "meta":     # shapes only: no draw
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * std).to(device=device, dtype=dtype)

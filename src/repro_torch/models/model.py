@@ -1,0 +1,288 @@
+"""Model assembly: embeddings -> (prefix | repeated super-blocks | tail) ->
+final norm -> lm head. Port of ``repro.models.model`` for the dense decoder
+family.
+
+Functional, as the reference: ``Model.init`` builds the param tree (on the
+``meta`` device it allocates nothing: :func:`count_params`),
+``Model.apply`` runs the full-sequence forward (training shapes and
+prefill), ``Model.decode_step`` advances one token against the cache tree
+from ``Model.init_cache``, whose tensors it writes in place.
+
+Left out: the encoder-decoder model (Whisper) and the modality frontend
+stubs raise, naming their ROADMAP item; ``remat`` belongs to the training
+slice; the reference's ``constrain_hidden``/``constrain_logits`` are
+no-ops without a mesh and come with LM parallelism (ROADMAP queue 1 item
+12).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+from . import layers
+from .transformer import (block_apply, check_kind, effective_kinds,
+                          init_block_state, layer_groups, make_block_params)
+
+__all__ = ["Model", "count_params", "model_flops_per_token"]
+
+_ITEM_9 = "ROADMAP queue 1 item 9"
+
+
+def _dt(name: str):
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def _zeros_aux(device):
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"moe_aux": z, "ft_flagged": z, "ft_corrected": z,
+            "ft_max_score": z}
+
+
+def _merge_aux(a, b):
+    return {
+        "moe_aux": a["moe_aux"] + b["moe_aux"],
+        "ft_flagged": a["ft_flagged"] + b["ft_flagged"],
+        "ft_corrected": a["ft_corrected"] + b["ft_corrected"],
+        "ft_max_score": torch.maximum(a["ft_max_score"], b["ft_max_score"]),
+    }
+
+
+def _index(tree, i):
+    """Slot ``i`` of every leaf's leading (stacked) axis; views."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stacked(make, n: int):
+    """``n`` trees from ``make(i)`` stacked along a new leading axis, one
+    slot at a time, so that only one tree is alive beside the stack."""
+    first = make(0)
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        out = t.new_empty((n,) + tuple(t.shape))
+        out[0] = t
+        return out
+
+    def fill(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                fill(dst[k], src[k], i)
+        else:
+            dst[i] = src
+
+    out = alloc(first)
+    del first
+    for i in range(1, n):
+        fill(out, make(i), i)
+    return out
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder model (Whisper) is not ported "
+            f"yet, {_ITEM_9}")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend (the VLM stub) is not "
+            f"ported yet, {_ITEM_9}")
+    for kind in sorted(set(effective_kinds(cfg))):
+        check_kind(kind)
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        _check_ported(self.cfg)
+
+    # ------------------------------------------------------------------ init
+    def init(self, gen: torch.Generator | None, device="cuda") -> dict:
+        """The param tree, drawn from ``gen`` on its device and moved to
+        ``device`` (on ``meta``: shapes only, ``gen`` may be None). The
+        reference's keys and nesting; its numbers come from JAX's PRNG, so
+        tests carry the reference's params across instead."""
+        cfg = self.cfg
+        pdt = _dt(cfg.param_dtype)
+        params: dict = {
+            "embed": {"embedding": layers.dense_init(
+                gen, (cfg.vocab_size, cfg.d_model), pdt, device=device)},
+            "final_norm": layers.make_norm_params(cfg.d_model, cfg.norm,
+                                                  device=device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = {"w": layers.dense_init(
+                gen, (cfg.d_model, cfg.vocab_size), pdt, device=device)}
+        params["stack"] = self._init_groups(gen, pdt, device)
+        return params
+
+    def _init_groups(self, gen, pdt, device) -> dict:
+        cfg = self.cfg
+        g = layer_groups(cfg)
+        out: dict = {}
+        if g.prefix:
+            out["prefix"] = {
+                str(i): make_block_params(gen, cfg, kind, pdt, device)
+                for i, kind in enumerate(g.prefix)}
+        if g.n_super:
+            out["scan"] = {
+                f"slot{j}": _stacked(
+                    lambda _, kind=kind: make_block_params(gen, cfg, kind,
+                                                           pdt, device),
+                    g.n_super)
+                for j, kind in enumerate(g.super_block)}
+        if g.tail:
+            out["tail"] = {
+                str(i): make_block_params(gen, cfg, kind, pdt, device)
+                for i, kind in enumerate(g.tail)}
+        return out
+
+    # --------------------------------------------------------------- forward
+    def apply(self, params, batch: dict, *, block_q: int = 1024,
+              inject=None):
+        """Full-sequence forward. Returns (logits_f32, aux).
+
+        ``inject`` threads a GEMM fault descriptor into every protected
+        block (see ``transformer.block_apply``).
+        """
+        adt = _dt(self.cfg.dtype)
+        x, positions = self._embed_inputs(params, batch, adt)
+        x, aux = self._run_groups(params["stack"], x, positions, block_q,
+                                  inject=inject)
+        return self._head(params, x), aux
+
+    def _embed(self, params, tokens, adt):
+        x = layers.embed(params["embed"], tokens, adt)
+        # the reference scales by sqrt(d_model) rounded to the activations'
+        # dtype first (55.43 -> 55.5 in bfloat16 at d_model 3072)
+        return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=adt,
+                                device=x.device)
+
+    def _embed_inputs(self, params, batch, adt):
+        x = self._embed(params, batch["tokens"], adt)
+        positions = torch.arange(x.shape[1], device=x.device)
+        return x, positions
+
+    def _head(self, params, x):
+        """Logits in float32 from the activations' dtype: the operands are
+        rounded to it and their products summed in float32 (the
+        reference's ``preferred_element_type=float32``)."""
+        cfg = self.cfg
+        x = layers.norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            w = params["embed"]["embedding"].T
+        else:
+            w = params["lm_head"]["w"]
+        return torch.matmul(x.float(), w.to(x.dtype).float())
+
+    def _run_groups(self, stack, x, positions, block_q, caches=None,
+                    cache_pos=None, inject=None):
+        """The blocks in order: prefix, the repeated super-blocks (slot j
+        of repeat i is layer ``i * len(super_block) + j``, the reference's
+        scan), tail. Every cache is written in place, so the cache tree
+        given is the new one."""
+        cfg = self.cfg
+        g = layer_groups(cfg)
+        aux = _zeros_aux(x.device)
+
+        def run(p, kind, cache):
+            nonlocal x, aux
+            x, _, a = block_apply(p, x, cfg=cfg, kind=kind,
+                                  positions=positions, cache=cache,
+                                  cache_pos=cache_pos, block_q=block_q,
+                                  ftp=cfg.ft, inject=inject)
+            aux = _merge_aux(aux, a)
+
+        def cache(group, key, i=None):
+            if caches is None:
+                return None
+            c = caches[group][key]
+            return c if i is None else _index(c, i)
+
+        for i, kind in enumerate(g.prefix):
+            run(stack["prefix"][str(i)], kind, cache("prefix", str(i)))
+        for i in range(g.n_super):
+            for j, kind in enumerate(g.super_block):
+                run(_index(stack["scan"][f"slot{j}"], i), kind,
+                    cache("scan", f"slot{j}", i))
+        for i, kind in enumerate(g.tail):
+            run(stack["tail"][str(i)], kind, cache("tail", str(i)))
+        return (x, aux) if caches is None else (x, aux, caches)
+
+    # ---------------------------------------------------------------- decode
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device="cuda"):
+        cfg = self.cfg
+        g = layer_groups(cfg)
+        caches: dict = {}
+        if g.prefix:
+            caches["prefix"] = {
+                str(i): init_block_state(cfg, kind, batch, max_len, dtype,
+                                         device)
+                for i, kind in enumerate(g.prefix)}
+        if g.n_super:
+            caches["scan"] = {
+                f"slot{j}": {k: t.new_zeros((g.n_super,) + tuple(t.shape))
+                             for k, t in init_block_state(
+                                 cfg, kind, batch, max_len, dtype,
+                                 device).items()}
+                for j, kind in enumerate(g.super_block)}
+        if g.tail:
+            caches["tail"] = {
+                str(i): init_block_state(cfg, kind, batch, max_len, dtype,
+                                         device)
+                for i, kind in enumerate(g.tail)}
+        return caches
+
+    def decode_step(self, params, cache, tokens, pos: int, *,
+                    block_q: int = 0, inject=None):
+        """One decode step. tokens: (B, T) (T = 1 in the decode loop); pos:
+        the write index, an int. Returns (logits_f32, cache, aux); the
+        cache's tensors are written in place.
+
+        ``inject`` threads a GEMM fault descriptor into every protected
+        block (serving arms it per step from a FaultSchedule).
+        """
+        adt = _dt(self.cfg.dtype)
+        x = self._embed(params, tokens, adt)
+        positions = pos + torch.arange(tokens.shape[1], device=x.device)
+        x, aux, new_caches = self._run_groups(
+            params["stack"], x, positions, block_q, caches=cache,
+            cache_pos=pos, inject=inject)
+        return self._head(params, x), new_caches, aux
+
+
+# ---------------------------------------------------------------------------
+# analytics
+# ---------------------------------------------------------------------------
+
+def count_params(cfg: ModelConfig) -> int:
+    """Exact parameter count from the param tree built on the ``meta``
+    device (shapes only, no allocation)."""
+    tree = Model(cfg).init(None, device="meta")
+
+    def leaves(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                yield from leaves(v)
+        else:
+            yield t
+
+    return int(sum(t.numel() for t in leaves(tree)))
+
+
+def model_flops_per_token(cfg: ModelConfig, params_total: int | None = None
+                          ) -> float:
+    """6 * N_active per token (dense) — the reference's MODEL_FLOPS basis."""
+    n = params_total if params_total is not None else count_params(cfg)
+    n_active = n - cfg.inactive_expert_params()
+    return 6.0 * n_active

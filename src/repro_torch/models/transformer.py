@@ -1,0 +1,186 @@
+"""Block assembly and the layer grouping. Port of
+``repro.models.transformer`` for the dense decoder family.
+
+A *block* = pre-norm mixer (attention family) + pre-norm MLP. Layers are
+grouped into (prefix, repeated super-blocks, tail) as in the reference,
+whose ``jax.lax.scan`` runs the super-blocks as one loop; here a Python
+loop walks the leading ``n_super`` axis of ``stack["scan"][f"slot{j}"]``.
+The param and cache trees keep that stacked axis, so the reference's
+params carry across unchanged (``models.convert.params_from_numpy``).
+
+The kinds ported are ``attn``/``local``/``global``/``bidir`` mixers with
+an ``mlp`` FFN. MLA, the recurrent mixers (``rglru``, ``mlstm``,
+``slstm``) and ``moe`` FFNs raise ``NotImplementedError``, naming the
+ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import attention, layers
+from .layers import FTContext
+
+__all__ = ["effective_kinds", "layer_groups", "make_block_params",
+           "block_apply", "init_block_state", "LayerGroups", "force_unroll",
+           "check_kind"]
+
+
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
+
+_ITEM_9 = "ROADMAP queue 1 item 9"
+_NOT_PORTED = {
+    "mla": f"MLA attention (with moe.py and DeepSeek-V3, {_ITEM_9})",
+    "rglru": f"the RG-LRU mixer (ssm.py with RecurrentGemma-2B, {_ITEM_9})",
+    "mlstm": f"the mLSTM mixer (ssm.py with xLSTM-350M, {_ITEM_9})",
+    "slstm": f"the sLSTM mixer (ssm.py with xLSTM-350M, {_ITEM_9})",
+    "moe": f"the MoE FFN (moe.py with DeepSeek-V3 and Llama-4, {_ITEM_9})",
+}
+
+
+def check_kind(kind: str) -> None:
+    """Raise ``NotImplementedError`` for a 'mixer|ffn' kind whose mixer or
+    FFN is not ported yet, naming its ROADMAP item; ``ValueError`` for one
+    that is no kind at all."""
+    base, ffn = kind.split("|")
+    for part in (base, ffn):
+        if part in _NOT_PORTED:
+            raise NotImplementedError(f"block kind {kind!r} needs "
+                                      f"{_NOT_PORTED[part]}, not ported yet")
+    if base not in ("attn", "local", "global", "bidir"):
+        raise ValueError(base)
+    if ffn != "mlp":
+        raise ValueError(ffn)
+
+
+def effective_kinds(cfg) -> tuple[str, ...]:
+    """Per-layer 'mixer|ffn' descriptors, e.g. 'attn|moe', 'rglru|mlp'."""
+    kinds = []
+    pat = cfg.block_pattern
+    for i in range(cfg.num_layers):
+        base = pat[i % len(pat)]
+        if base in RECURRENT_KINDS and base != "rglru":
+            ffn = "none"          # xLSTM blocks integrate their FFN
+        elif base == "rglru":
+            ffn = "mlp"
+        else:
+            ffn = "moe" if cfg.is_moe_layer(i) else "mlp"
+        kinds.append(f"{base}|{ffn}")
+    return tuple(kinds)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerGroups:
+    prefix: tuple[str, ...]          # unrolled leading layer kinds
+    super_block: tuple[str, ...]     # kinds within one repeated super-block
+    n_super: int                     # number of repeated super-blocks
+    tail: tuple[str, ...]            # unrolled trailing layer kinds
+
+    @property
+    def total(self) -> int:
+        return (len(self.prefix) + len(self.super_block) * self.n_super
+                + len(self.tail))
+
+
+# When True, layer_groups unrolls everything (no stacked super-blocks), as
+# the reference's dry-run asks for its two-point cost measurement.
+FORCE_UNROLL = False
+
+
+class force_unroll:
+    def __enter__(self):
+        global FORCE_UNROLL
+        self._old = FORCE_UNROLL
+        FORCE_UNROLL = True
+
+    def __exit__(self, *a):
+        global FORCE_UNROLL
+        FORCE_UNROLL = self._old
+
+
+def layer_groups(cfg) -> LayerGroups:
+    kinds = effective_kinds(cfg)
+    n = len(kinds)
+    # leading layers that break the periodic pattern (deepseek first-k-dense)
+    period = len(cfg.block_pattern)
+    if cfg.num_experts and cfg.moe_interval > 1:
+        period = int(np.lcm(period, cfg.moe_interval))
+    s = cfg.first_k_dense if cfg.num_experts else 0
+    rest = n - s
+    n_super = rest // period
+    tail_len = rest % period
+    if FORCE_UNROLL or n_super <= 1:  # not worth stacking
+        return LayerGroups(prefix=kinds, super_block=(), n_super=0, tail=())
+    return LayerGroups(
+        prefix=kinds[:s],
+        super_block=kinds[s:s + period],
+        n_super=n_super,
+        tail=kinds[s + period * n_super:] if tail_len else (),
+    )
+
+
+# ---------------------------------------------------------------------------
+# single block
+# ---------------------------------------------------------------------------
+
+def make_block_params(gen, cfg, kind: str, dtype=torch.float32,
+                      device="cuda") -> dict:
+    check_kind(kind)
+    p: dict = {"norm1": layers.make_norm_params(cfg.d_model, cfg.norm,
+                                                device=device)}
+    p["attn"] = attention.make_attn_params(
+        gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+        qkv_bias=cfg.qkv_bias, dtype=dtype, device=device)
+    p["norm2"] = layers.make_norm_params(cfg.d_model, cfg.norm,
+                                         device=device)
+    p["mlp"] = layers.make_mlp_params(gen, cfg.d_model,
+                                      cfg.dense_d_ff or cfg.d_ff, cfg.act,
+                                      dtype, device=device)
+    return p
+
+
+def block_apply(params, x, *, cfg, kind: str, positions=None, cache=None,
+                cache_pos=None, block_q=1024, ftp=None, inject=None):
+    """One transformer block. Returns (y, new_cache, aux_dict).
+
+    ``inject`` is an optional fault descriptor ``(F, 5)`` ``[site, row,
+    col, enable, eps]`` armed against this block's protected matmuls (site
+    = matmul index within the block, call order: q, k, v, o, then the
+    MLP's) — see :class:`FTContext`. Each block builds its own context, so
+    one descriptor faults its site in every block, as in the reference.
+    """
+    check_kind(kind)
+    base = kind.split("|")[0]
+    ft = (FTContext(ftp, inject=inject)
+          if (ftp is not None and ftp.protect_linears) else None)
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"moe_aux": z}
+
+    h = layers.norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
+    theta = cfg.rope_theta_global if base == "global" else cfg.rope_theta
+    mix, new_cache = attention.attention(
+        params["attn"], h, cfg=cfg,
+        kind={"attn": "causal", "global": "causal"}.get(base, base),
+        positions=positions, cache=cache, cache_pos=cache_pos,
+        theta=theta, block_q=block_q, ft=ft)
+    x = x + mix
+    h = layers.norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
+    x = x + layers.mlp(params["mlp"], h, cfg.act, ft=ft)
+
+    if ft is not None:
+        aux.update({k: v.to(x.device) for k, v in ft.summary().items()})
+    else:
+        aux.update({"ft_flagged": z, "ft_corrected": z, "ft_max_score": z})
+    return x, new_cache, aux
+
+
+def init_block_state(cfg, kind: str, batch: int, max_len: int,
+                     dtype=torch.bfloat16, device="cuda"):
+    """Decode-time cache for one block."""
+    check_kind(kind)
+    base, _ = kind.split("|")
+    if base == "local":
+        max_len = min(max_len, cfg.window_size)
+    return attention.init_kv_cache(cfg, batch, max_len, dtype, device=device)

@@ -328,15 +328,59 @@ def test_one_policy_configures_both_families():
 
 
 def test_fused_plan_requires_tile_alignment():
-    with pytest.raises(ValueError, match="tile-aligned"):
-        gemm.plan(gemm.GEMMSpec(shape=(100, 128, 128), ft=FT,
-                                backend="fused", device=CPU))
-    # auto on unaligned shapes falls back to the eager path; on the CPU
-    # auto is always eager (the kernel needs a card)
+    # the fused kernel needs K and N aligned to the tiles (M is padded)
+    for shape in ((128, 100, 128), (128, 128, 100)):
+        with pytest.raises(ValueError, match="tile-aligned K and N.*eager"):
+            gemm.plan(gemm.GEMMSpec(shape=shape, ft=FT, backend="fused",
+                                    device=CPU))
     assert gemm.plan(gemm.GEMMSpec(shape=(100, 128, 128), ft=FT,
-                                   device=CPU)).backend == "eager"
-    assert gemm.plan(gemm.GEMMSpec(shape=(128, 128, 128), ft=FT,
-                                   device=CPU)).backend == "eager"
+                                   backend="fused",
+                                   device=CPU)).backend == "fused"
+    # on the CPU auto is always eager (the kernel needs a card), aligned
+    # or not
+    for shape in ((100, 128, 128), (128, 100, 128), (128, 128, 128)):
+        assert gemm.plan(gemm.GEMMSpec(shape=shape, ft=FT,
+                                       device=CPU)).backend == "eager"
+
+
+@pytest.mark.parametrize("m", [1, 4, 100])
+def test_padded_fused_matches_eager_bitwise(rng, m):
+    """An M that is no multiple of the tile runs the fused path on zero
+    rows padded to a multiple of 64: y and every stat equal the eager
+    path's (and the reference's torch-free path) bit for bit on integer
+    operands, clean and with a fault."""
+    x, w = _int_mats(rng, m, 256, 128)
+    for inject in (None, [m // 2, 77.0, 1.0, 300.0]):
+        (y1, s1), (yr, sr) = _both(x, w, "eager", inject)
+        y2, s2 = _port_plan(_t(x), _t(w), "fused").ft_matmul(
+            _t(x), _t(w),
+            inject=None if inject is None else torch.tensor(inject))
+        assert y2.shape == (m, 128)
+        for y in (y2, yr):
+            _bits_equal(y1, y)
+        _stats_equal(s1, s2)
+        _ref_stats_equal(s1, sr)
+        np.testing.assert_array_equal(_np(y2), x @ w)
+        assert float(s2["flagged"]) == float(inject is not None)
+
+
+@pytest.mark.parametrize("m", [1, 4, 100])
+def test_padded_fused_corrects_a_fault_on_the_last_row(rng, m):
+    """A fault on row M - 1, the last real row before the padding, is
+    located there and corrected; a descriptor aimed at a padded row
+    addresses a zero row the decode never reports (a row past M is not a
+    valid location)."""
+    x, w = _int_mats(rng, m, 128, 256)
+    p = _port_plan(_t(x), _t(w), "fused")
+    y, s = p.ft_matmul(_t(x), _t(w),
+                       inject=torch.tensor([m - 1.0, 200.0, 1.0, -250.0]))
+    assert (float(s["flagged"]), float(s["corrected"]),
+            float(s["uncorrectable"])) == (1.0, 1.0, 0.0)
+    np.testing.assert_array_equal(_np(y), x @ w)
+    y, s = p.ft_matmul(_t(x), _t(w),
+                       inject=torch.tensor([m + 1.0, 5.0, 1.0, 250.0]))
+    assert float(s["corrected"]) == 0.0
+    np.testing.assert_array_equal(_np(y), x @ w)
 
 
 @pytest.mark.parametrize("tiles", TILES)

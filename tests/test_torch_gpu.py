@@ -599,7 +599,148 @@ def test_gemm_plan_auto_takes_the_kernel_on_cuda(cuda):
     for key in ("flagged", "corrected", "uncorrectable"):
         assert float(s[key]) == float(se[key]) == (0.0 if key ==
                                                     "uncorrectable" else 2.0)
-    assert gemm.plan(gemm.spec_for(x[:100], w, ft=cfg)).backend == "eager"
+    # a decode-shaped product (M = 4, no multiple of the tile): auto takes
+    # the kernel too, on M padded to 64 rows
+    x4 = x[:4]
+    p4 = gemm.plan(gemm.spec_for(x4, w, ft=cfg))
+    assert p4.backend == "fused"
+    before = ft_matmul.launches
+    y4, s4 = p4.ft_matmul(x4, w)
+    assert ft_matmul.launches == before + 1
+    assert torch.equal(y4, x4 @ w) and float(s4["flagged"]) == 0.0
+
+
+@pytest.mark.parametrize("shape", [(4, 100, 128), (4, 128, 100)],
+                         ids=["K", "N"])
+def test_gemm_plan_unaligned_k_or_n_raises_on_cuda(cuda, shape):
+    """No silent fallback on the card: an unaligned K or N raises, naming
+    backend='eager', which then runs the torch path."""
+    cfg = FTConfig(threshold=1e-3)
+    with pytest.raises(ValueError, match="tile-aligned K and N.*eager"):
+        gemm.plan(gemm.GEMMSpec(shape=shape, ft=cfg))
+    assert gemm.plan(gemm.GEMMSpec(shape=shape, ft=cfg,
+                                   backend="eager")).backend == "eager"
+
+
+@pytest.mark.parametrize("m", [1, 4, 100, 200])
+def test_padded_ft_matmul_equals_plain_on_unpadded(cuda, m):
+    """The kernel on M padded with zero rows to a multiple of 64: its
+    product's first M rows and its four strips equal the plain version's on
+    the unpadded operands, bit for bit (integer operands), with a fault on
+    row M - 1; the plan corrects it."""
+    x, w = _int_mats(m, 256, 384)
+    x, w = x.to(cuda), w.to(cuda)
+    inj = torch.tensor([[m - 1.0, 200.0, 1.0, 300.0]])
+    got = ft_matmul(torch.nn.functional.pad(x, (0, 0, 0, -m % 64)), w,
+                    bm=64, inject=inj)
+    want = ft_matmul_plain(x, w, inject=inj)
+    assert torch.equal(got.c[:m], want.c)
+    assert not got.c[m:].any()
+    for part in GEMM_PARTS[1:]:
+        assert torch.equal(getattr(got, part), getattr(want, part)), part
+    y, s = gemm.plan(gemm.spec_for(x, w, ft=FTConfig(threshold=1e-3))
+                     ).ft_matmul(x, w, inject=inj)
+    assert torch.equal(y, x @ w)
+    assert (float(s["flagged"]), float(s["corrected"])) == (1.0, 1.0)
+
+
+@pytest.mark.parametrize("shape", [(64, 3072, 8192), (256, 512, 384)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ft_matmul_float32_x_is_the_bf16_product_unrounded(cuda, shape):
+    """The plan hands the kernel X in float32 so that ``c`` stays float32
+    through the correction: the kernel widens a bf16 X as it loads it, so
+    the float32 product rounded to bf16 is the bf16 launch's ``c`` bit for
+    bit, and the strips are the same."""
+    m, k, n = shape
+    x, w = _path_operands(cuda, m, k, n, torch.bfloat16)
+    inj = torch.tensor([[m - 1, n // 3, 1, 75.0]])
+    narrow = ft_matmul(x, w, bm=64, inject=inj)
+    wide = ft_matmul(x.float(), w, bm=64, inject=inj)
+    assert wide.c.dtype == torch.float32
+    assert torch.equal(wide.c.to(torch.bfloat16), narrow.c)
+    for part in GEMM_PARTS[1:]:
+        assert torch.equal(getattr(wide, part), getattr(narrow, part)), part
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_phi4_smoke_on_the_card_matches_the_cpu(cuda):
+    """Phi-4-mini SMOKE at float32 (unprotected: its widths are no multiples
+    of the tile): the forward and 6 decode steps on the card against the
+    port on the CPU, logits within 1e-3 x max|cpu|."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_smoke_config("phi4_mini_3p8b"),
+                              dtype="float32")
+    m = Model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    gparams = _tree_to(params, cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)), dtype=torch.int32)
+    want, _ = m.apply(params, {"tokens": toks}, block_q=8)
+    got, _ = m.apply(gparams, {"tokens": toks.to(cuda)}, block_q=8)
+    tol = 1e-3 * want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= tol
+    caches = {"cpu": m.init_cache(2, 8, dtype=torch.float32, device="cpu"),
+              "cuda": m.init_cache(2, 8, dtype=torch.float32, device=cuda)}
+    for i in range(6):
+        lc, caches["cpu"], _ = m.decode_step(params, caches["cpu"],
+                                             toks[:, i:i + 1], i)
+        lg, caches["cuda"], _ = m.decode_step(gparams, caches["cuda"],
+                                              toks[:, i:i + 1].to(cuda), i)
+        tol = 1e-3 * lc.abs().max().item()
+        assert (lg.cpu() - lc).abs().max().item() <= tol, i
+
+
+def test_protected_decode_step_launches_ft_matmul_seven_times_a_layer(cuda):
+    """Phi-4-mini's structure at tile-aligned widths, every linear
+    protected: one decode step (M = the batch, 4, padded to 64) launches
+    ``ft_matmul`` 7 x layers times (q, k, v, o, gate, up, down) and never
+    the eager path; its logits agree with the CPU's eager path, and a fault
+    at site 3 of every block is corrected in each."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.abft import gemm as abft_gemm
+    from repro_torch.models import Model
+
+    base = get_smoke_config("phi4_mini_3p8b")
+    cfg = dataclasses.replace(
+        base, dtype="float32", num_layers=3, d_model=256, num_heads=4,
+        num_kv_heads=2, head_dim=64, d_ff=512, ft=dataclasses.replace(
+            base.ft, protect_linears=True, threshold=1e-3))
+    m = Model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    gparams = _tree_to(params, cuda)
+    toks = torch.tensor([[5], [77], [300], [511]], dtype=torch.int32)
+    want, _, _ = m.decode_step(params, m.init_cache(4, 8, device="cpu"),
+                               toks, 0)
+    eager = abft_gemm.ft_matmul
+    calls = []
+    abft_gemm.ft_matmul = lambda *a, **k: calls.append(1) or eager(*a, **k)
+    try:
+        for inject in (None, torch.tensor([[3.0, 2.0, 9.0, 1.0, 60.0]],
+                                          device=cuda)):
+            before = ft_matmul.launches
+            got, _, aux = m.decode_step(
+                gparams, m.init_cache(4, 8, device=cuda), toks.to(cuda), 0,
+                inject=inject)
+            assert ft_matmul.launches - before == 7 * cfg.num_layers
+            faults = 0 if inject is None else cfg.num_layers
+            assert float(aux["ft_flagged"]) == faults
+            assert float(aux["ft_corrected"]) == faults
+            tol = 1e-3 * want.abs().max().item()
+            assert (got.cpu() - want).abs().max().item() <= tol
+    finally:
+        abft_gemm.ft_matmul = eager
+    assert not calls
 
 
 # the checked-GEMM path's products at Phi-4-mini 3.8B's MLP widths, (M, K, N)
