@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-(all at once) and drives the port's three paths:
+(all at once) and drives the port's paths:
 
 * FFT: the local rank-1 fft / ifft / ft_fft path through
   ``plan(FFTSpec(...))`` at the sizes of ``turbofft_bench.CONFIG``'s corners
@@ -54,7 +54,26 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   ``torch.profiler`` (kernels, host ms, the device's idle share), holds
   ``ft_matmul`` against its plain version at a decode step's padded MLP
   shape and times it beside ``torch.matmul`` and its byte bound, and runs
-  ``python -m repro_torch.launch.serve --mode lm`` at Gemma-3 1B's widths.
+  ``python -m repro_torch.launch.serve --mode lm`` at Gemma-3 1B's widths;
+* the recurrent LM path (phase 8, ``ssm_drive``, then ``ssm_measure``):
+  RecurrentGemma-2B (26 layers, RG-LRU and local attention, d_model 2560,
+  vocab 256000) and then xLSTM-350M (24 layers, mLSTM and sLSTM, d_model
+  1024), each at its published widths with random f32 weights from a
+  seeded CUDA generator and bf16 activations, the first freed before the
+  second is built: a protected 4 x 512 prefill against the unprotected
+  one, 8 decode steps against the forward at float32 activations
+  (``SSM_RECURRENCE_TOL``), the float32 protected forward's divergence
+  from the unprotected one by positions beside a witness's (the
+  unprotected forward with every weight one ulp up, ``ulp_witness``),
+  greedy decode unprotected, protected and
+  protected under the CLI's schedule (RecurrentGemma at batch 4 and 64,
+  xLSTM at 4): one ``ft_matmul`` launch a protected site a step (164 and
+  144), no eager ABFT call, the ledger 2 x layers with the clean run's
+  tokens; then the prefill by CUDA events, one primed trace of a
+  protected decode step, ``ft_matmul`` against its plain version at the
+  path's own products (``SSM_FTMM_SHAPES``: the MLP's, and the sLSTM
+  FFN's on 64-wide tiles), and ``--mode lm --arch xlstm-350m --preset
+  full --ft`` as a subprocess.
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -1201,23 +1220,135 @@ def _leaves(tree):
         yield tree
 
 
+def protect(cfg):
+    """``cfg`` with every linear protected at LM_FT_THRESHOLD."""
+    return dataclasses.replace(cfg, ft=dataclasses.replace(
+        cfg.ft, protect_linears=True, threshold=LM_FT_THRESHOLD))
+
+
+def lm_prefill(tag, models, params, tokens, sites, gated=True):
+    """One protected ``Model.apply`` of ``tokens`` (``sites`` ft_matmul
+    launches, no flag, finite float32 logits) against the unprotected one
+    on the last 16 positions, held to LM_LOGIT_TOL * max when ``gated``
+    and recorded either way. Returns the results dict."""
+    import torch
+    from repro_torch.kernels.ft_matmul import ft_matmul
+
+    b, t = tokens.shape
+    before = ft_matmul.launches
+    logits, aux = models["protected"].apply(params, {"tokens": tokens})
+    launches = ft_matmul.launches - before
+    check(launches == sites, f"{tag} protected prefill: {launches} "
+                             f"ft_matmul launches, not {sites}")
+    check(tuple(logits.shape) == (b, t, models["protected"].cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"{tag} protected prefill logits {tuple(logits.shape)} "
+          f"{logits.dtype}")
+    check(float(aux["ft_flagged"]) == 0, f"{tag} protected prefill: flagged")
+    tail_p = logits[:, -16:].clone()
+    del logits
+    plain, _ = models["unprotected"].apply(params, {"tokens": tokens})
+    tail_u = plain[:, -16:].clone()
+    del plain
+    scale = tail_u.abs().max().item()
+    err = (tail_p - tail_u).abs().max().item()
+    agree = (tail_p.argmax(-1) == tail_u.argmax(-1)).float().mean().item()
+    check(not gated or err <= LM_LOGIT_TOL * scale,
+          f"{tag} protected vs unprotected prefill logits: {err} > "
+          f"{LM_LOGIT_TOL} * {scale}")
+    log(f"{tag} prefill {b} x {t}: {launches} ft_matmul launches, max "
+        f"score {float(aux['ft_max_score']):.3e}; protected vs unprotected "
+        f"logits err {err:.4e} ("
+        + (f"tol {LM_LOGIT_TOL * scale:.4e}, " if gated else "not gated, ")
+        + f"max {scale:.4e}), argmax agreement {agree:.3f}")
+    return {"shape": [b, t], "ft_matmul_launches": launches,
+            "max_score": float(aux["ft_max_score"]), "logit_err": err,
+            "logit_max": scale,
+            "logit_tol": LM_LOGIT_TOL * scale if gated else None,
+            "argmax_agreement": agree}
+
+
+def lm_decode(tag, models, params, prompts, sites, layers_n):
+    """Greedy ``launch.serve.decode`` of ``prompts`` (prompt LM_PROMPT, gen
+    LM_GEN) unprotected, protected and protected under the CLI's schedule:
+    ``sites`` ft_matmul launches a protected step, the ledger 2 x
+    ``layers_n`` exact, the SEU run's tokens the clean protected run's.
+    Returns the runs' rows."""
+    import torch
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.launch.serve import decode, demo_schedule
+
+    batch = prompts.shape[0]
+    vocab = models["protected"].cfg.vocab_size
+    steps = LM_PROMPT + LM_GEN - 1
+    runs, toks = {}, {}
+    for label, model, sched in (
+            ("unprotected", models["unprotected"], None),
+            ("protected", models["protected"], None),
+            ("protected+SEU", models["protected"],
+             demo_schedule(batch, LM_PROMPT))):
+        decode(model, params, prompts[:, :2], 2)       # warm-up
+        torch.cuda.synchronize()
+        before = ft_matmul.launches
+        t0 = time.perf_counter()
+        out = decode(model, params, prompts, LM_GEN, schedule=sched)
+        toks[label], stats = out if sched is not None else (out, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ft_matmul.launches - before
+        tk = toks[label]
+        check(tuple(tk.shape) == (batch, LM_GEN)
+              and int(tk.min()) >= 0 and int(tk.max()) < vocab,
+              f"{tag} decode {label} batch {batch}: {tuple(tk.shape)}")
+        want = 0 if label == "unprotected" else sites * steps
+        check(launches == want, f"{tag} decode {label} batch {batch}: "
+                                f"{launches} ft_matmul launches, not {want}")
+        row = {"batch": batch, "run": label, "wall_s": wall,
+               "ms_per_step": wall / steps * 1e3,
+               "tokens_per_s": batch * LM_GEN / wall,
+               "ft_matmul_launches": launches,
+               "launches_per_step": launches / steps}
+        if stats is not None:
+            ledger = {"injected": sched.num_faults * layers_n,
+                      "detected": float(stats.detected),
+                      "corrected": float(stats.corrected),
+                      "max_score": float(stats.max_score)}
+            check(ledger["injected"] == ledger["detected"]
+                  == ledger["corrected"] == 2 * layers_n,
+                  f"{tag} decode SEU ledger batch {batch}: {ledger}")
+            check(torch.equal(tk, toks["protected"]),
+                  f"{tag} decode batch {batch}: the SEU run's tokens are "
+                  f"not the clean protected run's")
+            row["ledger"] = ledger
+        runs[label] = row
+        log(f"{tag} decode batch {batch} {label}: {wall:.3f} s, "
+            f"{row['ms_per_step']:.2f} ms a step, "
+            f"{row['tokens_per_s']:.1f} tokens/s, "
+            f"{row['launches_per_step']:.0f} ft_matmul launches a step"
+            + (f"; ledger {json.dumps(row['ledger'])}"
+               if "ledger" in row else ""))
+    agree = (toks["protected"] == toks["unprotected"]).float().mean()
+    runs["token_agreement"] = agree.item()
+    runs["ft_overhead_per_step"] = (runs["protected"]["ms_per_step"]
+                                    / runs["unprotected"]["ms_per_step"] - 1)
+    log(f"{tag} decode batch {batch}: protected step "
+        f"{runs['ft_overhead_per_step']:+.1%} over unprotected; greedy "
+        f"tokens agree at {agree.item():.3f}")
+    return runs
+
+
 def lm_drive(dev):
     """Drive the LM path once (counts are the caller's to reset and read):
     Phi-4-mini's prefill and decode runs, then Gemma-3 1B's. Returns
     (results dict, Phi-4-mini's model pair and params, prefill tokens, the
     batch-4 prompts) for the measurements that follow."""
-    import dataclasses
-
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.ft_matmul import ft_matmul
     from repro_torch.launch.serve import decode, demo_schedule
     from repro_torch.models import Model, count_params
-
-    def protect(cfg):
-        return dataclasses.replace(cfg, ft=dataclasses.replace(
-            cfg.ft, protect_linears=True, threshold=LM_FT_THRESHOLD))
 
     res = {}
     torch.cuda.synchronize()
@@ -1247,37 +1378,8 @@ def lm_drive(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     tokens = torch.randint(0, vocab, (b, t), generator=gen, device=dev,
                            dtype=torch.int32)
-    before = ft_matmul.launches
-    logits, aux = models["protected"].apply(params, {"tokens": tokens})
-    prefill_launches = ft_matmul.launches - before
-    check(prefill_launches == LM_SITES * layers_n,
-          f"protected prefill: {prefill_launches} ft_matmul launches")
-    check(tuple(logits.shape) == (b, t, vocab)
-          and logits.dtype == torch.float32
-          and bool(torch.isfinite(logits).all()),
-          f"protected prefill logits {tuple(logits.shape)} {logits.dtype}")
-    check(float(aux["ft_flagged"]) == 0, "protected prefill: flagged")
-    tail_p = logits[:, -16:].clone()
-    del logits
-    plain, _ = models["unprotected"].apply(params, {"tokens": tokens})
-    tail_u = plain[:, -16:].clone()
-    del plain
-    scale = tail_u.abs().max().item()
-    err = (tail_p - tail_u).abs().max().item()
-    agree = (tail_p.argmax(-1) == tail_u.argmax(-1)).float().mean().item()
-    check(err <= LM_LOGIT_TOL * scale,
-          f"protected vs unprotected prefill logits: {err} > "
-          f"{LM_LOGIT_TOL} * {scale}")
-    res["prefill"] = {"shape": [b, t], "ft_matmul_launches": prefill_launches,
-                      "max_score": float(aux["ft_max_score"]),
-                      "logit_err": err, "logit_max": scale,
-                      "logit_tol": LM_LOGIT_TOL * scale,
-                      "argmax_agreement": agree}
-    log(f"LM prefill {b} x {t}: {prefill_launches} ft_matmul launches, "
-        f"max score {float(aux['ft_max_score']):.3e}; protected vs "
-        f"unprotected logits err {err:.4e} (tol {LM_LOGIT_TOL * scale:.4e},"
-        f" max {scale:.4e}), argmax agreement {agree:.3f}")
-    del tail_p, tail_u
+    res["prefill"] = lm_prefill("LM", models, params, tokens,
+                                LM_SITES * layers_n)
 
     # greedy decode: each batch unprotected, protected, protected + SEUs
     rng = np.random.default_rng(SEED)
@@ -1289,63 +1391,8 @@ def lm_drive(dev):
             rng.integers(0, vocab, (batch, LM_PROMPT)), dtype=torch.int32,
             device=dev)
         prompts4 = prompts if prompts4 is None else prompts4
-        runs, toks = {}, {}
-        for label, model, sched in (
-                ("unprotected", models["unprotected"], None),
-                ("protected", models["protected"], None),
-                ("protected+SEU", models["protected"],
-                 demo_schedule(batch, LM_PROMPT))):
-            decode(model, params, prompts[:, :2], 2)       # warm-up
-            torch.cuda.synchronize()
-            before = ft_matmul.launches
-            t0 = time.perf_counter()
-            out = decode(model, params, prompts, LM_GEN, schedule=sched)
-            toks[label], stats = out if sched is not None else (out, None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = ft_matmul.launches - before
-            tk = toks[label]
-            check(tuple(tk.shape) == (batch, LM_GEN)
-                  and int(tk.min()) >= 0 and int(tk.max()) < vocab,
-                  f"decode {label} batch {batch}: {tuple(tk.shape)}")
-            want = 0 if label == "unprotected" else \
-                LM_SITES * layers_n * steps
-            check(launches == want, f"decode {label} batch {batch}: "
-                                    f"{launches} ft_matmul launches, not "
-                                    f"{want}")
-            row = {"batch": batch, "run": label, "wall_s": wall,
-                   "ms_per_step": wall / steps * 1e3,
-                   "tokens_per_s": batch * LM_GEN / wall,
-                   "ft_matmul_launches": launches,
-                   "launches_per_step": launches / steps}
-            if stats is not None:
-                ledger = {"injected": sched.num_faults * layers_n,
-                          "detected": float(stats.detected),
-                          "corrected": float(stats.corrected),
-                          "max_score": float(stats.max_score)}
-                check(ledger["injected"] == ledger["detected"]
-                      == ledger["corrected"] == 2 * layers_n,
-                      f"decode SEU ledger batch {batch}: {ledger}")
-                check(torch.equal(tk, toks["protected"]),
-                      f"decode batch {batch}: the SEU run's tokens are not "
-                      f"the clean protected run's")
-                row["ledger"] = ledger
-            runs[label] = row
-            log(f"LM decode batch {batch} {label}: {wall:.3f} s, "
-                f"{row['ms_per_step']:.2f} ms a step, "
-                f"{row['tokens_per_s']:.1f} tokens/s, "
-                f"{row['launches_per_step']:.0f} ft_matmul launches a step"
-                + (f"; ledger {json.dumps(row['ledger'])}"
-                   if "ledger" in row else ""))
-        agree = (toks["protected"] == toks["unprotected"]).float().mean()
-        runs["token_agreement"] = agree.item()
-        runs["ft_overhead_per_step"] = (runs["protected"]["ms_per_step"]
-                                        / runs["unprotected"]["ms_per_step"]
-                                        - 1)
-        log(f"LM decode batch {batch}: protected step "
-            f"{runs['ft_overhead_per_step']:+.1%} over unprotected; greedy "
-            f"tokens agree at {agree.item():.3f}")
-        res["decode"].append(runs)
+        res["decode"].append(lm_decode("LM", models, params, prompts,
+                                       LM_SITES * layers_n, layers_n))
     res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
     check(res["peak_memory_bytes"] < LM_MEMORY_LIMIT,
           f"LM path peak memory {res['peak_memory_bytes']} bytes")
@@ -1392,6 +1439,74 @@ def lm_drive(dev):
     return res, models, params, tokens, prompts4
 
 
+def ftmm_at(dev, shape, cuda_ms, what, iters=50):
+    """``ft_matmul`` against its plain version at a product (M, K, N) of an
+    LM path, as the plan runs it: the tiles ``spec_for`` fits to K and N,
+    M padded with zero rows to a multiple of 64 where it is no multiple of
+    the tile's 128. With a bf16 X every part is held to the plain version
+    (``c`` to BF16_STEP, the strips to GEMM_TOL, each times max|plain|),
+    the float32 X the plan hands the kernel must give the same product and
+    strips, and the padded product's first M rows the unpadded product.
+    Timed against the plain version, ``torch.matmul`` and the plan's call;
+    returns the row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.gemm import plan, spec_for
+    from repro_torch.core.plan import FTConfig
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_plain
+
+    m, k, n = shape
+    x, w = gemm_operands(dev, m, k, n, "bfloat16")
+    p = plan(spec_for(x, w, ft=FTConfig(threshold=LM_FT_THRESHOLD)))
+    check(p.backend == "fused", f"{what} {shape}: plan {p.backend}")
+    bm, bk, bn = p.spec.tiles
+    bm = bm if m % bm == 0 else 64
+    xp = F.pad(x, (0, 0, 0, -m % bm))
+    tiles = dict(bm=bm, bn=bn, bk=bk)
+    got, want = ft_matmul(xp, w, **tiles), ft_matmul_plain(xp, w)
+    errs = {}
+    for part in ("c", "out2", "pred2", "out3", "pred3"):
+        g, r = getattr(got, part).float(), getattr(want, part).float()
+        step_tol = BF16_STEP if part == "c" else GEMM_TOL
+        errs[part] = (g - r).abs().max().item()
+        check(errs[part] <= step_tol * r.abs().max().item(),
+              f"ft_matmul vs plain at the {what} {shape} tiles {tiles} "
+              f"{part}: {errs[part]}")
+    unpadded = ft_matmul_plain(x, w).c.float()
+    check(not bool(got.c[m:].any())
+          and (got.c[:m].float() - unpadded).abs().max().item()
+          <= BF16_STEP * unpadded.abs().max().item(),
+          f"ft_matmul at the {what} {shape}: the padded product's first "
+          f"rows are not the unpadded product")
+    # the plan hands the kernel a float32 X (its c stays float32 through
+    # the correction): the same product, rounded once afterwards
+    xpf = xp.float()
+    wide = ft_matmul(xpf, w, **tiles)
+    check(torch.equal(wide.c.to(torch.bfloat16), got.c)
+          and all(torch.equal(getattr(wide, part), getattr(got, part))
+                  for part in ("out2", "pred2", "out3", "pred3")),
+          f"ft_matmul at the {what} {shape}: a float32 X does not give the "
+          f"bf16 X's product")
+    xf = x.float()
+    nbytes = (x.numel() * 2 + w.numel() * 4 + m * n * 2 + 4 * n * 4)
+    flops = 2 * m * k * n + 3 * m * k + 4 * k * n + 3 * m * n
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return {
+        "shape": [m, k, n], "padded_m": int(xp.shape[0]), "tiles": tiles,
+        "x": "bfloat16", "w": "float32",
+        "ms": cuda_ms(lambda: ft_matmul(xp, w, **tiles), iters=iters),
+        "float32_x_ms": cuda_ms(lambda: ft_matmul(xpf, w, **tiles),
+                                iters=iters),
+        "plain_ms": cuda_ms(lambda: ft_matmul_plain(xp, w), iters=iters),
+        "library_ms": cuda_ms(lambda: torch.matmul(xf, w), iters=iters),
+        "library_bf16_ms": cuda_ms(lambda: torch.matmul(
+            x, w.to(torch.bfloat16)), iters=iters),
+        "plan_ft_matmul_ms": cuda_ms(lambda: p.ft_matmul(x, w), iters=iters),
+        "bound_ms": max(tb, tf),
+        "bound_by": "bytes" if tb >= tf else "operations",
+        "max_abs_err": errs}
+
+
 def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
                trace_call):
     """Times of the LM path and its kernel at the decode shape: the
@@ -1400,12 +1515,7 @@ def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
     ``ft_matmul``
     against its plain version at a decode step's padded MLP shape, and the
     CLI's ``--mode lm`` on the card. Returns a dict."""
-    import torch
-    import torch.nn.functional as F
     from repro_torch.configs.base import RunConfig
-    from repro_torch.core.gemm import GEMMSpec, plan
-    from repro_torch.core.plan import FTConfig
-    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_plain
     from repro_torch.train import make_serve_step
 
     res = {}
@@ -1452,61 +1562,15 @@ def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
                 f"{k} x{n} {ms:.3f} ms" for k, (n, ms) in top))
 
     # ft_matmul at a decode step's MLP up product: M = 4 padded to 64
-    m, k, n = DECODE_SHAPE
-    x, w = gemm_operands(dev, m, k, n, "bfloat16")
-    xp = F.pad(x, (0, 0, 0, -m % 64))
-    got, want = ft_matmul(xp, w, bm=64), ft_matmul_plain(xp, w)
-    errs = {}
-    for part in ("c", "out2", "pred2", "out3", "pred3"):
-        g, r = getattr(got, part).float(), getattr(want, part).float()
-        step_tol = BF16_STEP if part == "c" else GEMM_TOL
-        errs[part] = (g - r).abs().max().item()
-        check(errs[part] <= step_tol * r.abs().max().item(),
-              f"ft_matmul vs plain at the decode shape {part}: "
-              f"{errs[part]}")
-    unpadded = ft_matmul_plain(x, w).c.float()
-    check(not bool(got.c[m:].any())
-          and (got.c[:m].float() - unpadded).abs().max().item()
-          <= BF16_STEP * unpadded.abs().max().item(),
-          "ft_matmul at the decode shape: the padded product's first rows "
-          "are not the unpadded product")
-    # the plan hands the kernel a float32 X (its c stays float32 through
-    # the correction): the same product, rounded once afterwards
-    wide = ft_matmul(xp.float(), w, bm=64)
-    check(torch.equal(wide.c.to(torch.bfloat16), got.c)
-          and all(torch.equal(getattr(wide, part), getattr(got, part))
-                  for part in ("out2", "pred2", "out3", "pred3")),
-          "ft_matmul: a float32 X does not give the bf16 X's product")
-    xf, xpf = x.float(), xp.float()
-    p = plan(GEMMSpec((m, k, n), dtype="bfloat16",
-                      ft=FTConfig(threshold=LM_FT_THRESHOLD),
-                      device=str(dev)))
-    check(p.backend == "fused", f"decode-shape plan: {p.backend}")
-    nbytes = (x.numel() * 2 + w.numel() * 4 + m * n * 2 + 4 * n * 4)
-    flops = 2 * m * k * n + 3 * m * k + 4 * k * n + 3 * m * n
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-    res["decode_shape"] = {
-        "shape": [m, k, n], "padded_m": int(xp.shape[0]), "x": "bfloat16",
-        "w": "float32",
-        "ms": cuda_ms(lambda: ft_matmul(xp, w, bm=64), iters=50),
-        "float32_x_ms": cuda_ms(lambda: ft_matmul(xpf, w, bm=64),
-                                iters=50),
-        "plain_ms": cuda_ms(lambda: ft_matmul_plain(xp, w), iters=50),
-        "library_ms": cuda_ms(lambda: torch.matmul(xf, w), iters=50),
-        "library_bf16_ms": cuda_ms(lambda: torch.matmul(
-            x, w.to(torch.bfloat16)), iters=50),
-        "plan_ft_matmul_ms": cuda_ms(lambda: p.ft_matmul(x, w), iters=50),
-        "bound_ms": max(tb, tf),
-        "bound_by": "bytes" if tb >= tf else "operations",
-        "max_abs_err": errs}
-    ds = res["decode_shape"]
+    res["decode_shape"] = ds = ftmm_at(dev, DECODE_SHAPE, cuda_ms,
+                                       "LM decode shape")
     log(f"ft_matmul at the decode shape {DECODE_SHAPE} (M padded to "
         f"{ds['padded_m']}) bf16 x f32: {ds['ms']:.4f} ms (float32 X, as "
         f"the plan runs it: {ds['float32_x_ms']:.4f} ms), plain "
         f"{ds['plain_ms']:.4f} ms, torch.matmul f32 {ds['library_ms']:.4f} "
         f"ms (bf16 weights {ds['library_bf16_ms']:.4f} ms), plan.ft_matmul "
         f"{ds['plan_ft_matmul_ms']:.4f} ms; bound {ds['bound_ms']:.4f} ms "
-        f"({ds['bound_by']}); err {json.dumps(errs)}")
+        f"({ds['bound_by']}); err {json.dumps(ds['max_abs_err'])}")
 
     # the CLI on the card: --mode lm at Gemma-3 1B's published widths
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -1525,6 +1589,318 @@ def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
                   "seconds": time.perf_counter() - t0}
     log(f"launch.serve {' '.join(LM_CLI)}: {line}; {hit[0]} "
         f"({res['cli']['seconds']:.1f} s with the process start)")
+    return res
+
+
+# ---- phase 8: the recurrent LM path. RecurrentGemma-2B (RG-LRU and local
+# attention) and xLSTM-350M (mLSTM and sLSTM) at their published widths (f32
+# params, bf16 activations, random weights from a seeded CUDA generator):
+# a protected 4 x 512 prefill against the unprotected one, 8 decode steps
+# against the forward at float32 activations (the doubling scan against
+# the sequential recurrence at real decays), then greedy decode,
+# unprotected, protected and protected under the CLI's FaultSchedule,
+# RecurrentGemma at batch 4 and 64, xLSTM at batch 4; xLSTM's CLI on the
+# card. One config at a time, the first freed before the second is built
+SSM_ARCHS = ("recurrentgemma_2b", "xlstm_350m")
+# (layers, d_model, d_ff, vocab, heads): the published widths
+SSM_WIDTHS = {"recurrentgemma_2b": (26, 2560, 7680, 256000, 10),
+              "xlstm_350m": (24, 1024, 0, 50304, 4)}
+SSM_BATCHES = {"recurrentgemma_2b": (4, 64), "xlstm_350m": (4,)}
+# protected products a block, by mixer: RG-LRU 3 + the MLP's 3, local
+# attention 4 + 3, mLSTM 5, sLSTM 4 + its SwiGLU's 3
+SSM_SITES = {"rglru": 6, "local": 7, "mlstm": 5, "slstm": 7}
+# the protected prefill is held to the unprotected one (LM_LOGIT_TOL, as in
+# phase 7) on RecurrentGemma; xLSTM's difference is recorded: with random
+# weights its recurrence is chaotic (at float32 the one-ulp witness below
+# departs from the unprotected forward as far as the protected one does),
+# and a bf16 weight rounding of 2^-9 departs further, so no tolerance on
+# its last positions holds it
+SSM_PREFILL_GATED = ("recurrentgemma_2b",)
+SSM_RECURRENCE_STEPS = 8
+# decode against the forward, and the protected forward against the
+# unprotected one, at float32 activations over the first 8 steps: the
+# reference's test_prefill_decode_equivalence bound, 2e-3 * max|forward|
+SSM_RECURRENCE_TOL = 2e-3
+# positions [lo, hi) over which the float32 protected forward's divergence
+# from the unprotected one is held, in each window, to SSM_RECURRENCE_TOL *
+# max or SSM_WITNESS_FACTOR times the divergence of the witness, the
+# unprotected forward with every weight one ulp up (``ulp_witness``):
+# xLSTM's random-weight recurrence is chaotic, and the witness departs as
+# far as the protected forward does (to all of max|logits| after 64
+# positions on an NVIDIA H100), so its tail is the model's, not the path's
+SSM_WINDOWS = ((0, 8), (8, 64), (64, 256), (256, 512))
+SSM_WITNESS_FACTOR = 4
+SSM_CLI = ("--mode", "lm", "--arch", "xlstm-350m", "--preset", "full",
+           "--ft")
+# ft_matmul against its plain version at the products (M, K, N) each
+# config's path gives it that phase 7 does not: the MLP's (RecurrentGemma)
+# and the sLSTM FFN's (xLSTM, 1344 = 64 x 21: 64-wide tiles), at a batch-4
+# decode step (M padded to 64) and at the 4 x 512 prefill
+SSM_FTMM_SHAPES = {
+    "recurrentgemma_2b": ((4, 2560, 7680), (4, 7680, 2560),
+                          (2048, 2560, 7680)),
+    "xlstm_350m": ((4, 1024, 1344), (4, 1344, 1024), (2048, 1024, 1344),
+                   (2048, 1344, 1024))}
+
+
+def _window_errs(a, b):
+    """max|a - b| and max|b| over each SSM_WINDOWS span of positions."""
+    return [{"positions": [lo, hi],
+             "err": (a[:, lo:hi] - b[:, lo:hi]).abs().max().item(),
+             "max": b[:, lo:hi].abs().max().item()}
+            for lo, hi in SSM_WINDOWS]
+
+
+def ulp_witness(model, params, tokens):
+    """``model.apply``'s logits of ``tokens`` with every parameter moved one
+    ulp up (``nextafter`` toward +inf, in place): a perturbation at the
+    rounding level of the one between the protected and the unprotected
+    products, for which the model itself, and not the protected path,
+    answers. The parameters are moved back after, and held bit for bit."""
+    import torch
+    leaves = [t for t in _leaves(params) if t.dtype == torch.float32]
+
+    def sums():
+        # an int32 sum wraps, in any order, and copies nothing (an int64
+        # one would copy each leaf at twice its size)
+        return [int(t.view(torch.int32).sum(dtype=torch.int32))
+                for t in leaves]
+
+    before = sums()
+    with torch.no_grad():
+        for t in leaves:
+            t.nextafter_(t.new_full((), math.inf))
+        try:
+            logits = model.apply(params, {"tokens": tokens})[0]
+        finally:
+            for t in leaves:
+                t.nextafter_(t.new_full((), -math.inf))
+    check(before == sums(),
+          "ulp_witness: the parameters did not come back bit for bit")
+    return logits
+
+
+def ssm_drive(dev, arch):
+    """Drive the recurrent LM path of ``arch`` once (counts are the
+    caller's to reset and read): the prefill, the recurrence check and the
+    decode runs. Returns (results dict, the model pair, params, prefill
+    tokens, the batch-4 prompts) for the measurements that follow."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, count_params
+    from repro_torch.models.transformer import effective_kinds
+
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = get_config(arch)
+    check((base.num_layers, base.d_model, base.d_ff, base.vocab_size,
+           base.num_heads) == SSM_WIDTHS[arch], f"{arch}: {base}")
+    layers_n, vocab = base.num_layers, base.vocab_size
+    kinds = effective_kinds(base)
+    sites = sum(SSM_SITES[k.split("|")[0]] for k in kinds)
+    res["kinds"] = {k: kinds.count(k) for k in sorted(set(kinds))}
+    res["sites_per_step"] = sites
+    models = {"unprotected": Model(base), "protected": Model(protect(base))}
+    t0 = time.perf_counter()
+    params = models["unprotected"].init(
+        torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    res["params"] = count_params(base)
+    res["param_bytes"] = param_bytes
+    res["init_s"] = time.perf_counter() - t0
+    check(res["params"] == sum(t.numel() for t in _leaves(params)),
+          f"{arch}: count_params disagrees with the initialised tree")
+    log(f"SSM {base.name}: {res['params']} params, {param_bytes / 1e9:.2f} "
+        f"GB ({base.param_dtype}), activations {base.dtype}, layers "
+        f"{json.dumps(res['kinds'])}, {sites} protected products a step; "
+        f"initialised on the card in {res['init_s']:.1f} s")
+
+    # one protected prefill at 4 x 512 tokens, against the unprotected one
+    b, t = LM_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, vocab, (b, t), generator=gen, device=dev,
+                           dtype=torch.int32)
+    tag = f"SSM {base.name}"
+    res["prefill"] = lm_prefill(tag, models, params, tokens, sites,
+                                gated=arch in SSM_PREFILL_GATED)
+
+    # float32 activations, where both paths take the float32 weights: the
+    # recurrence on the card (decode steps against the forward, the doubling
+    # scan against the sequential recurrence at real decays), and the
+    # protected forward against the unprotected one, held over the first
+    # steps and traced over SSM_WINDOWS beside the witness: the unprotected
+    # forward with every weight one ulp off
+    f32 = {label: Model(dataclasses.replace(m.cfg, dtype="float32"))
+           for label, m in models.items()}
+    full = {"unprotected": f32["unprotected"].apply(
+        params, {"tokens": tokens})[0]}
+    witness = ulp_witness(f32["unprotected"], params, tokens)
+    profile = {"witness": _window_errs(witness, full["unprotected"])}
+    del witness
+    full["protected"] = f32["protected"].apply(params, {"tokens": tokens})[0]
+    profile["protected"] = _window_errs(full["protected"],
+                                        full["unprotected"])
+    steps8 = SSM_RECURRENCE_STEPS
+    head = full["unprotected"][:, :steps8]
+    cache = f32["unprotected"].init_cache(batch=b, max_len=steps8,
+                                          dtype=torch.float32, device=dev)
+    dec = torch.cat([f32["unprotected"].decode_step(
+        params, cache, tokens[:, i:i + 1], i)[0] for i in range(steps8)],
+        dim=1)
+    scale = head.abs().max().item()
+    err = (dec - head).abs().max().item()
+    ft_err = (full["protected"][:, :steps8] - head).abs().max().item()
+    check(bool(torch.isfinite(dec).all())
+          and err <= SSM_RECURRENCE_TOL * scale
+          and ft_err <= SSM_RECURRENCE_TOL * scale,
+          f"{arch} at float32 over {steps8} steps: decode vs forward {err}, "
+          f"protected vs unprotected {ft_err}, tol {SSM_RECURRENCE_TOL} * "
+          f"{scale}")
+    tail = {label: x[:, -16:] for label, x in full.items()}
+    tail_err = (tail["protected"] - tail["unprotected"]).abs().max().item()
+    tail_agree = (tail["protected"].argmax(-1)
+                  == tail["unprotected"].argmax(-1)).float().mean().item()
+    # the protected forward may depart from the unprotected one as the
+    # model departs under a one-ulp perturbation, and no faster
+    for w, v in zip(profile["protected"], profile["witness"]):
+        check(w["err"] <= max(SSM_RECURRENCE_TOL * w["max"],
+                              SSM_WITNESS_FACTOR * v["err"]),
+              f"{arch} at float32 over positions {w['positions']}: "
+              f"protected vs unprotected {w['err']} > max("
+              f"{SSM_RECURRENCE_TOL} * {w['max']}, {SSM_WITNESS_FACTOR} * "
+              f"the one-ulp witness's {v['err']})")
+    res["recurrence"] = {"shape": [b, steps8], "err": err, "max": scale,
+                         "tol": SSM_RECURRENCE_TOL * scale,
+                         "protected_err": ft_err,
+                         "protected_tail_err": tail_err,
+                         "protected_tail_max":
+                             tail["unprotected"].abs().max().item(),
+                         "protected_tail_argmax_agreement": tail_agree,
+                         "profile": profile}
+    log(f"SSM {base.name} at float32: {steps8} decode steps vs the forward "
+        f"err {err:.4e}, protected vs unprotected forward err {ft_err:.4e} "
+        f"(tol {SSM_RECURRENCE_TOL * scale:.4e}); over the last 16 of "
+        f"{t} positions protected vs unprotected err {tail_err:.4e} (max "
+        f"{res['recurrence']['protected_tail_max']:.4e}), argmax agreement "
+        f"{tail_agree:.3f}")
+    log(f"SSM {base.name} at float32, err / max against the unprotected "
+        f"forward by positions: " + "; ".join(
+            f"[{w['positions'][0]}, {w['positions'][1]}) protected "
+            f"{w['err'] / w['max']:.3e}, one-ulp witness "
+            f"{v['err'] / v['max']:.3e}"
+            for w, v in zip(profile["protected"], profile["witness"])))
+    del full, head, tail, dec, cache, f32
+
+    # greedy decode: each batch unprotected, protected, protected + SEUs
+    rng = np.random.default_rng(SEED)
+    res["decode"] = []
+    prompts4 = None
+    for batch in SSM_BATCHES[arch]:
+        prompts = torch.as_tensor(
+            rng.integers(0, vocab, (batch, LM_PROMPT)), dtype=torch.int32,
+            device=dev)
+        prompts4 = prompts if prompts4 is None else prompts4
+        res["decode"].append(lm_decode(tag, models, params, prompts, sites,
+                                       layers_n))
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    log(f"SSM {base.name} path peak device memory "
+        f"{res['peak_memory_bytes'] / 1e9:.2f} GB (params "
+        f"{param_bytes / 1e9:.2f} GB)")
+    return res, models, params, tokens, prompts4
+
+
+def ssm_measure(dev, arch, sites, models, params, tokens, prompts4, cuda_ms,
+                host_ms, trace_call):
+    """Times of ``arch``'s recurrent LM path (``sites`` protected products
+    a decode step): the prefill through
+    ``make_prefill_step`` by CUDA events, and one protected and one
+    unprotected decode step at batch 4 under a primed torch.profiler
+    (kernels, host ms, device ms, idle share), ``ft_matmul`` against its
+    plain version at SSM_FTMM_SHAPES; for xLSTM also the CLI's ``--mode lm
+    --preset full --ft`` on the card. Returns a dict."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    res = {}
+    res["prefill_ms"] = {}
+    for label, m in models.items():
+        step = make_prefill_step(m, RunConfig(model=m.cfg))
+        res["prefill_ms"][label] = cuda_ms(
+            lambda step=step: step(params, {"tokens": tokens}), iters=1,
+            warmup=1)
+    log(f"SSM {arch} prefill {tuple(tokens.shape)} by events: protected "
+        f"{res['prefill_ms']['protected']:.2f} ms, unprotected "
+        f"{res['prefill_ms']['unprotected']:.2f} ms")
+
+    # one decode step at batch 4 under torch.profiler, protected (one
+    # ft_matmul_tile kernel a site) and unprotected
+    tok = prompts4[:, :1]
+    res["decode_trace"] = {}
+    for label, model in models.items():
+        step = make_serve_step(model, RunConfig(model=model.cfg))
+        cache = model.init_cache(batch=prompts4.shape[0],
+                                 max_len=LM_PROMPT + LM_GEN, device=dev)
+        fn = lambda: step(params, cache, tok, 0)        # noqa: E731
+        want = sites if label == "protected" else 0
+        kern, window, idle = trace_call(
+            fn, lambda names: sum("ft_matmul_tile" in k for k in names)
+            == want)
+        host = host_ms(fn, iters=3)
+        groups = {}
+        for name, ms in kern:
+            key = re.sub(r"^void ", "", name)[:60]
+            n, tot = groups.get(key, (0, 0.0))
+            groups[key] = (n + 1, tot + ms)
+        top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:10]
+        row = {"batch": int(prompts4.shape[0]), "kernels": len(kern),
+               "ft_matmul_tile": sum("ft_matmul_tile" in k for k, _ in kern),
+               "device_ms": sum(ms for _, ms in kern), "window_ms": window,
+               "idle_share": idle, "host_ms": host,
+               "top": [[k, n, ms] for k, (n, ms) in top]}
+        res["decode_trace"][label] = row
+        log(f"SSM {arch} decode step trace (batch {row['batch']}, {label}):"
+            f" {row['kernels']} kernels, {row['ft_matmul_tile']} "
+            f"ft_matmul_tile, {row['device_ms']:.3f} ms on the device in a "
+            f"{window:.3f} ms window (idle {idle:.1%}); host {host:.3f} ms "
+            f"a step; by name: " + "; ".join(
+                f"{k} x{n} {ms:.3f} ms" for k, (n, ms) in top))
+
+    res["ftmm_shapes"] = []
+    for shape in SSM_FTMM_SHAPES[arch]:
+        row = ftmm_at(dev, shape, cuda_ms, f"{arch} product", iters=20)
+        res["ftmm_shapes"].append(row)
+        log(f"SSM {arch} ft_matmul at {tuple(shape)} (M padded to "
+            f"{row['padded_m']}, tiles {json.dumps(row['tiles'])}) bf16 x "
+            f"f32: {row['ms']:.4f} ms (float32 X {row['float32_x_ms']:.4f} "
+            f"ms), plain {row['plain_ms']:.4f} ms, torch.matmul f32 "
+            f"{row['library_ms']:.4f} ms, plan.ft_matmul "
+            f"{row['plan_ft_matmul_ms']:.4f} ms; bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); err "
+            f"{json.dumps(row['max_abs_err'])}")
+
+    if arch == "xlstm_350m":
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *SSM_CLI],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        out = proc.stdout + proc.stderr
+        hit = re.search(r"ft: injected=(\d+) detected=(\d+) "
+                        r"corrected=(\d+)", out)
+        want = str(2 * models["protected"].cfg.num_layers)
+        check(proc.returncode == 0 and hit and hit[2] == hit[3] == want,
+              f"launch.serve {' '.join(SSM_CLI)}: exit {proc.returncode}\n"
+              f"{out[-3000:]}")
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith("generated"))
+        res["cli"] = {"argv": list(SSM_CLI), "line": line, "ft": hit[0],
+                      "seconds": time.perf_counter() - t0}
+        log(f"launch.serve {' '.join(SSM_CLI)}: {line}; {hit[0]} "
+            f"({res['cli']['seconds']:.1f} s with the process start)")
     return res
 
 
@@ -2139,6 +2515,45 @@ def main() -> int:
     log(f"phase 7 took {lm['seconds']:.1f} s; the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
 
+    # ---- phase 8: the recurrent LM path, counts from its drives only (each
+    # config's counts set to 0 just before its drive, read just after, and
+    # summed); every protected product must launch ft_matmul
+    t8 = time.perf_counter()
+    log(f"phase 8 starts {t8 - t_start:.1f} s into the run")
+    ssm = {}
+    ssm_launches = {"block_fft": 0, "abft_fft": 0, "ft_matmul": 0}
+    eager_calls.clear()
+    abft_gemm.ft_matmul = counted_eager
+    try:
+        for arch in SSM_ARCHS:
+            block_fft.launches = 0
+            abft_fft.launches = 0
+            ft_matmul.launches = 0
+            res, models, params, tokens, prompts4 = ssm_drive(dev, arch)
+            torch.cuda.synchronize()
+            res["launches"] = {"block_fft": block_fft.launches,
+                               "abft_fft": abft_fft.launches,
+                               "ft_matmul": ft_matmul.launches}
+            for key, n in res["launches"].items():
+                ssm_launches[key] += n
+            res.update(ssm_measure(dev, arch, res["sites_per_step"], models,
+                                   params, tokens, prompts4, cuda_ms,
+                                   host_ms, trace_call))
+            del models, params, tokens, prompts4
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            ssm[arch] = res
+    finally:
+        abft_gemm.ft_matmul = eager_ft_matmul
+    log(f"SSM path launches, whole run: {json.dumps(ssm_launches)}; eager "
+        f"ABFT calls {len(eager_calls)}")
+    check(ssm_launches["ft_matmul"] > 0 and not eager_calls,
+          f"SSM path: {ssm_launches}, {len(eager_calls)} eager ABFT calls")
+    ssm["launches"] = ssm_launches
+    ssm["seconds"] = time.perf_counter() - t8
+    log(f"phase 8 took {ssm['seconds']:.1f} s; the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+
     kernels = [
         {"name": "block_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_fft.cu",
@@ -2182,16 +2597,29 @@ def main() -> int:
          "replaces": "src/repro/kernels/ft_matmul.py:149",
          "launches": gemm_launches["ft_matmul"],
          "launches_by_path": {"gemm": gemm_launches["ft_matmul"],
-                              "lm": lm_launches["ft_matmul"]},
+                              "lm": lm_launches["ft_matmul"],
+                              "ssm": ssm_launches["ft_matmul"]},
          "launches_per_call": {"plan.ft_matmul": 1,
                                "protected MLP block": mlp_per_call,
                                "protected prefill":
                                    lm["prefill"]["ft_matmul_launches"],
                                "protected decode step":
                                    lm["decode"][0]["protected"][
-                                       "launches_per_step"]},
+                                       "launches_per_step"],
+                               **{f"{arch} protected decode step":
+                                  ssm[arch]["decode"][0]["protected"][
+                                      "launches_per_step"]
+                                  for arch in SSM_ARCHS}},
          "max_abs_err": max(gemm_parts.values()),
          "max_abs_err_parts": gemm_parts, "max_err_over_tol": gemm_ratio,
+         "max_abs_err_by_path": {
+             "gemm": max(gemm_parts.values()),
+             "lm": max(lm["decode_shape"]["max_abs_err"].values()),
+             "ssm": max(e for arch in SSM_ARCHS
+                        for row in ssm[arch]["ftmm_shapes"]
+                        for e in row["max_abs_err"].values())},
+         "ssm_shapes": [dict(row, arch=arch) for arch in SSM_ARCHS
+                        for row in ssm[arch]["ftmm_shapes"]],
          "shape": main_row["shape"], "ms": main_row["ms"],
          "device_ms": main_row["device_ms"],
          "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
@@ -2202,7 +2630,7 @@ def main() -> int:
                                and r["tile"] == [128, 128]),
          "instances": ftmm_instances, "shapes": gemm_rows,
          "mlp_block": mlp_ms, "seu": {"plan": gemm_seu, "mlp": mlp_seu},
-         "lm": lm},
+         "lm": lm, "ssm": ssm},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

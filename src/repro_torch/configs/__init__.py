@@ -1,7 +1,8 @@
 """Config registry: one module per architecture ported so far.
 ``get_config(name)`` returns the full ModelConfig; ``get_smoke_config(name)``
 returns the reduced same-family config used by CPU tests. ``ARCHS`` holds
-the dense decoder family, whose layers are ported; the reference's other
+the dense decoder family and the recurrent models (RecurrentGemma's RG-LRU
+hybrid, xLSTM), whose layers are ported; the reference's other
 architectures raise, naming what ports them (``NOT_YET_PORTED``).
 """
 from __future__ import annotations
@@ -16,13 +17,13 @@ ARCHS = [
     "phi3_medium_14b",
     "phi4_mini_3p8b",
     "gemma3_1b",
+    "xlstm_350m",
+    "recurrentgemma_2b",
 ]
 
 _ITEM_9 = "ROADMAP queue 1 item 9"
 # the reference's other architectures -> what ports them
 NOT_YET_PORTED = {
-    "recurrentgemma_2b": f"ssm.py (RG-LRU), {_ITEM_9}",
-    "xlstm_350m": f"ssm.py (mLSTM, sLSTM), {_ITEM_9}",
     "deepseek_v3_671b": f"moe.py and MLA attention, {_ITEM_9}",
     "llama4_maverick": f"moe.py, {_ITEM_9}",
     "whisper_base": f"the encoder-decoder model, {_ITEM_9}",

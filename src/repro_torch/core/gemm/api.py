@@ -17,7 +17,8 @@ plan/execute front door for checked GEMMs, mirroring ``core.fft.api``:
   :func:`decode_columns`, so the two backends agree by construction.
   ``"auto"`` resolves to ``"fused"`` on a card and to ``"eager"`` on the
   CPU, as the reference's takes the Pallas kernel only on the TPU. The
-  fused path needs K and N aligned to the tiles; M need not be: it is
+  fused path needs K and N aligned to the tiles (:func:`spec_for` fits
+  them: 64-wide where 128 does not divide); M need not be: it is
   padded with zero rows to a multiple of the kernel's smallest tile row
   count (decode steps have M = the batch). A card plan with an unaligned K
   or N raises rather than fall back; ``backend="eager"`` asks for the torch
@@ -227,17 +228,31 @@ def _ft_matmul_fused(x, w, inj, *, bm, bn, bk, threshold, with_correction):
     return y.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype), stats
 
 
+def _fit_tiles(k: int, n: int) -> tuple[int, int, int]:
+    """The fused kernel's ``(bm, bk, bn)`` for a product of K and N: the
+    largest ``bk`` of 128, 64, 32 that divides K and the largest ``bn`` of
+    :data:`~repro_torch.kernels.ft_matmul.KERNEL_TILES` that divides N, 128
+    where none does (so that the plan raises on it as before). A product
+    aligned to 128 keeps (128, 128, 128); the sLSTM FFN's 1344 = 64 x 21
+    gets 64."""
+    bk = next((t for t in (128, 64, 32) if k % t == 0), 128)
+    bn = next((t for t in sorted(ft_kernel.KERNEL_TILES, reverse=True)
+               if n % t == 0), 128)
+    return (128, bk, bn)
+
+
 def spec_for(x: torch.Tensor, w: torch.Tensor, *, ft: FTConfig | None = None,
              backend: str = "auto",
-             tiles: tuple[int, int, int] = (128, 128, 128),
+             tiles: tuple[int, int, int] | None = None,
              device=None) -> GEMMSpec:
     """Build the :class:`GEMMSpec` describing ``x @ w`` (flattening batched
     activation leading axes into M), on ``x``'s device unless ``device``
+    says otherwise, with the tiles of :func:`_fit_tiles` unless ``tiles``
     says otherwise."""
-    m = int(math.prod(x.shape[:-1]))
-    return GEMMSpec(shape=(m, int(x.shape[-1]), int(w.shape[-1])),
-                    dtype=planbase.dtype_name(x.dtype), ft=ft,
-                    backend=backend, tiles=tiles,
+    m, k, n = int(math.prod(x.shape[:-1])), int(x.shape[-1]), int(w.shape[-1])
+    return GEMMSpec(shape=(m, k, n), dtype=planbase.dtype_name(x.dtype),
+                    ft=ft, backend=backend,
+                    tiles=_fit_tiles(k, n) if tiles is None else tiles,
                     device=str(x.device if device is None else device))
 
 

@@ -245,10 +245,10 @@ def make_mlp_params(gen, d, d_ff, act: str, dtype=torch.float32,
     }
 
 
-def swiglu(params, x, *, ft=None):
+def swiglu(params, x, *, ft=None, silu=F.silu):
     g = dense({"w": params["wi_gate"]}, x, ft=ft)
     u = dense({"w": params["wi_up"]}, x, ft=ft)
-    h = F.silu(g) * u
+    h = silu(g) * u
     return dense({"w": params["wo"]}, h, ft=ft)
 
 
@@ -258,6 +258,6 @@ def gelu_mlp(params, x, *, ft=None):
     return dense({"w": params["wo"]}, h, ft=ft)
 
 
-def mlp(params, x, act: str, *, ft=None):
-    return swiglu(params, x, ft=ft) if act == "swiglu" else gelu_mlp(
-        params, x, ft=ft)
+def mlp(params, x, act: str, *, ft=None, silu=F.silu):
+    return swiglu(params, x, ft=ft, silu=silu) if act == "swiglu" \
+        else gelu_mlp(params, x, ft=ft)

@@ -1,12 +1,13 @@
 """Model assembly: embeddings -> (prefix | repeated super-blocks | tail) ->
 final norm -> lm head. Port of ``repro.models.model`` for the dense decoder
-family.
+family and the recurrent models (RecurrentGemma, xLSTM).
 
 Functional, as the reference: ``Model.init`` builds the param tree (on the
 ``meta`` device it allocates nothing: :func:`count_params`),
 ``Model.apply`` runs the full-sequence forward (training shapes and
 prefill), ``Model.decode_step`` advances one token against the cache tree
-from ``Model.init_cache``, whose tensors it writes in place.
+from ``Model.init_cache`` (KV caches and recurrent states, stacked along
+the repeated super-blocks), whose tensors it writes in place.
 
 Left out: the encoder-decoder model (Whisper) and the modality frontend
 stubs raise, naming their ROADMAP item; ``remat`` belongs to the training
@@ -188,8 +189,9 @@ class Model:
                     cache_pos=None, inject=None):
         """The blocks in order: prefix, the repeated super-blocks (slot j
         of repeat i is layer ``i * len(super_block) + j``, the reference's
-        scan), tail. Every cache is written in place, so the cache tree
-        given is the new one."""
+        scan), tail. Every cache and recurrent state is written in place
+        (the blocks' returned trees are those tensors, or views of them),
+        so the cache tree given is the new one."""
         cfg = self.cfg
         g = layer_groups(cfg)
         aux = _zeros_aux(x.device)

@@ -1,17 +1,19 @@
 """Block assembly and the layer grouping. Port of
-``repro.models.transformer`` for the dense decoder family.
+``repro.models.transformer`` for the dense decoder family and the
+recurrent mixers.
 
-A *block* = pre-norm mixer (attention family) + pre-norm MLP. Layers are
+A *block* = pre-norm mixer (attention family / recurrent family) +
+pre-norm MLP (none for xLSTM's blocks, which hold their own). Layers are
 grouped into (prefix, repeated super-blocks, tail) as in the reference,
 whose ``jax.lax.scan`` runs the super-blocks as one loop; here a Python
 loop walks the leading ``n_super`` axis of ``stack["scan"][f"slot{j}"]``.
 The param and cache trees keep that stacked axis, so the reference's
 params carry across unchanged (``models.convert.params_from_numpy``).
 
-The kinds ported are ``attn``/``local``/``global``/``bidir`` mixers with
-an ``mlp`` FFN. MLA, the recurrent mixers (``rglru``, ``mlstm``,
-``slstm``) and ``moe`` FFNs raise ``NotImplementedError``, naming the
-ROADMAP item that ports them.
+The kinds ported are the ``attn``/``local``/``global``/``bidir`` and
+``rglru`` mixers with an ``mlp`` FFN, and ``mlstm``/``slstm`` with none
+(``models.ssm``). MLA and ``moe`` FFNs raise ``NotImplementedError``,
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import attention, layers
+from . import attention, layers, ssm
 from .layers import FTContext
 
 __all__ = ["effective_kinds", "layer_groups", "make_block_params",
@@ -28,14 +30,12 @@ __all__ = ["effective_kinds", "layer_groups", "make_block_params",
            "check_kind"]
 
 
+ATTN_KINDS = ("attn", "local", "global", "bidir")
 RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 _ITEM_9 = "ROADMAP queue 1 item 9"
 _NOT_PORTED = {
     "mla": f"MLA attention (with moe.py and DeepSeek-V3, {_ITEM_9})",
-    "rglru": f"the RG-LRU mixer (ssm.py with RecurrentGemma-2B, {_ITEM_9})",
-    "mlstm": f"the mLSTM mixer (ssm.py with xLSTM-350M, {_ITEM_9})",
-    "slstm": f"the sLSTM mixer (ssm.py with xLSTM-350M, {_ITEM_9})",
     "moe": f"the MoE FFN (moe.py with DeepSeek-V3 and Llama-4, {_ITEM_9})",
 }
 
@@ -49,9 +49,9 @@ def check_kind(kind: str) -> None:
         if part in _NOT_PORTED:
             raise NotImplementedError(f"block kind {kind!r} needs "
                                       f"{_NOT_PORTED[part]}, not ported yet")
-    if base not in ("attn", "local", "global", "bidir"):
+    if base not in ATTN_KINDS + RECURRENT_KINDS:
         raise ValueError(base)
-    if ffn != "mlp":
+    if ffn not in ("mlp", "none"):
         raise ValueError(ffn)
 
 
@@ -128,16 +128,24 @@ def layer_groups(cfg) -> LayerGroups:
 def make_block_params(gen, cfg, kind: str, dtype=torch.float32,
                       device="cuda") -> dict:
     check_kind(kind)
+    base, ffn = kind.split("|")
     p: dict = {"norm1": layers.make_norm_params(cfg.d_model, cfg.norm,
                                                 device=device)}
-    p["attn"] = attention.make_attn_params(
-        gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-        qkv_bias=cfg.qkv_bias, dtype=dtype, device=device)
-    p["norm2"] = layers.make_norm_params(cfg.d_model, cfg.norm,
-                                         device=device)
-    p["mlp"] = layers.make_mlp_params(gen, cfg.d_model,
-                                      cfg.dense_d_ff or cfg.d_ff, cfg.act,
-                                      dtype, device=device)
+    if base in ATTN_KINDS:
+        p["attn"] = attention.make_attn_params(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            qkv_bias=cfg.qkv_bias, dtype=dtype, device=device)
+    else:
+        make = {"rglru": ssm.make_rglru_params,
+                "mlstm": ssm.make_mlstm_params,
+                "slstm": ssm.make_slstm_params}[base]
+        p["mixer"] = make(gen, cfg, dtype, device=device)
+    if ffn == "mlp":
+        p["norm2"] = layers.make_norm_params(cfg.d_model, cfg.norm,
+                                             device=device)
+        p["mlp"] = layers.make_mlp_params(gen, cfg.d_model,
+                                          cfg.dense_d_ff or cfg.d_ff,
+                                          cfg.act, dtype, device=device)
     return p
 
 
@@ -147,27 +155,43 @@ def block_apply(params, x, *, cfg, kind: str, positions=None, cache=None,
 
     ``inject`` is an optional fault descriptor ``(F, 5)`` ``[site, row,
     col, enable, eps]`` armed against this block's protected matmuls (site
-    = matmul index within the block, call order: q, k, v, o, then the
-    MLP's) — see :class:`FTContext`. Each block builds its own context, so
-    one descriptor faults its site in every block, as in the reference.
+    = matmul index within the block, call order: the mixer's, then the
+    MLP's; q, k, v, o for attention, ``models.ssm`` for the recurrent
+    mixers) — see :class:`FTContext`. Each block builds its own context,
+    so one descriptor faults its site in every block, as in the reference.
+    A recurrent mixer writes its new state into ``cache`` in place.
     """
     check_kind(kind)
-    base = kind.split("|")[0]
+    base, ffn = kind.split("|")
     ft = (FTContext(ftp, inject=inject)
           if (ftp is not None and ftp.protect_linears) else None)
     z = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"moe_aux": z}
 
     h = layers.norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
-    theta = cfg.rope_theta_global if base == "global" else cfg.rope_theta
-    mix, new_cache = attention.attention(
-        params["attn"], h, cfg=cfg,
-        kind={"attn": "causal", "global": "causal"}.get(base, base),
-        positions=positions, cache=cache, cache_pos=cache_pos,
-        theta=theta, block_q=block_q, ft=ft)
+    if base in ATTN_KINDS:
+        theta = cfg.rope_theta_global if base == "global" else cfg.rope_theta
+        mix, new_cache = attention.attention(
+            params["attn"], h, cfg=cfg,
+            kind={"attn": "causal", "global": "causal"}.get(base, base),
+            positions=positions, cache=cache, cache_pos=cache_pos,
+            theta=theta, block_q=block_q, ft=ft)
+    elif base == "rglru":
+        mix, new_cache = ssm.rglru_block(params["mixer"], h, state=cache,
+                                         ft=ft)
+    elif base == "mlstm":
+        mix, new_cache = ssm.mlstm_block(params["mixer"], h, cfg=cfg,
+                                         state=cache, ft=ft)
+    else:
+        mix, new_cache = ssm.slstm_block(params["mixer"], h, cfg=cfg,
+                                         state=cache, ft=ft)
     x = x + mix
-    h = layers.norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
-    x = x + layers.mlp(params["mlp"], h, cfg.act, ft=ft)
+    if ffn == "mlp":
+        h = layers.norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
+        # a model with recurrent mixers takes their op-by-op silu
+        silu = ssm.silu if set(RECURRENT_KINDS) & set(cfg.block_pattern) \
+            else torch.nn.functional.silu
+        x = x + layers.mlp(params["mlp"], h, cfg.act, ft=ft, silu=silu)
 
     if ft is not None:
         aux.update({k: v.to(x.device) for k, v in ft.summary().items()})
@@ -178,9 +202,15 @@ def block_apply(params, x, *, cfg, kind: str, positions=None, cache=None,
 
 def init_block_state(cfg, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cuda"):
-    """Decode-time cache for one block."""
+    """Decode-time cache (attention) or recurrent state for one block."""
     check_kind(kind)
     base, _ = kind.split("|")
+    if base == "rglru":
+        return ssm.init_rglru_state(cfg, batch, dtype, device=device)
+    if base == "mlstm":
+        return ssm.init_mlstm_state(cfg, batch, dtype, device=device)
+    if base == "slstm":
+        return ssm.init_slstm_state(cfg, batch, dtype, device=device)
     if base == "local":
         max_len = min(max_len, cfg.window_size)
     return attention.init_kv_cache(cfg, batch, max_len, dtype, device=device)

@@ -343,6 +343,44 @@ def test_fused_plan_requires_tile_alignment():
                                        device=CPU)).backend == "eager"
 
 
+@pytest.mark.parametrize("shape,tiles", [
+    ((64, 1024, 1344), (128, 128, 64)),     # the sLSTM FFN's gate and up
+    ((64, 1344, 1024), (128, 64, 128)),     # and its down product
+    ((4, 3072, 8192), (128, 128, 128)),     # aligned: unchanged
+    ((8, 96, 192), (128, 32, 64)),
+], ids=["gate", "down", "aligned", "k96"])
+def test_spec_for_fits_the_tiles_to_k_and_n(rng, shape, tiles):
+    """``spec_for`` takes the largest bk of 128, 64, 32 that divides K and
+    the largest bn of the kernel's tiles that divides N, so the fused plan
+    takes xLSTM-350M's 1344-wide FFN products; its plain version there
+    gives the eager path's y and stats bit for bit (integer operands), with
+    a fault corrected."""
+    m, k, n = shape
+    x, w = _int_mats(rng, m, k, n)
+    spec = gemm.spec_for(_t(x), _t(w), ft=FT, backend="fused")
+    assert spec.tiles == tiles
+    inj = torch.tensor([m - 1.0, n - 3.0, 1.0, 300.0])
+    y, s = gemm.plan(spec).ft_matmul(_t(x), _t(w), inject=inj)
+    ye, se = _port_plan(_t(x), _t(w), "eager").ft_matmul(_t(x), _t(w),
+                                                         inject=inj)
+    _bits_equal(y, ye)
+    _stats_equal(s, se)
+    assert (float(s["flagged"]), float(s["corrected"])) == (1.0, 1.0)
+    np.testing.assert_array_equal(_np(y), x @ w)
+
+
+def test_spec_for_leaves_what_no_tile_divides_to_raise():
+    """A K or N that no kernel tile divides keeps 128 and the fused plan
+    raises, as before; ``tiles`` given by the caller are kept."""
+    for k, n in ((100, 128), (128, 100), (48, 1344)):
+        x, w = torch.zeros(4, k), torch.zeros(k, n)
+        spec = gemm.spec_for(x, w, ft=FT, backend="fused")
+        with pytest.raises(ValueError, match="tile-aligned K and N"):
+            gemm.plan(spec)
+    x, w = torch.zeros(4, 1344), torch.zeros(1344, 1344)
+    assert gemm.spec_for(x, w, tiles=(64, 64, 64)).tiles == (64, 64, 64)
+
+
 @pytest.mark.parametrize("m", [1, 4, 100])
 def test_padded_fused_matches_eager_bitwise(rng, m):
     """An M that is no multiple of the tile runs the fused path on zero

@@ -743,6 +743,129 @@ def test_protected_decode_step_launches_ft_matmul_seven_times_a_layer(cuda):
     assert not calls
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_350m"])
+def test_recurrent_smoke_on_the_card_matches_the_cpu(cuda, arch):
+    """The recurrent models' SMOKE configs at float32, unprotected: the
+    forward (the RG-LRU's doubling scan, the LSTMs' loops) and 6 decode
+    steps on the card against the port on the CPU, logits within 1e-3 x
+    max|cpu|, and the carried states after them."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    m = Model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    gparams = _tree_to(params, cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)), dtype=torch.int32)
+    want, _ = m.apply(params, {"tokens": toks}, block_q=8)
+    got, _ = m.apply(gparams, {"tokens": toks.to(cuda)}, block_q=8)
+    tol = 1e-3 * want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= tol
+    caches = {"cpu": m.init_cache(2, 8, dtype=torch.float32, device="cpu"),
+              "cuda": m.init_cache(2, 8, dtype=torch.float32, device=cuda)}
+    for i in range(6):
+        lc, caches["cpu"], _ = m.decode_step(params, caches["cpu"],
+                                             toks[:, i:i + 1], i)
+        lg, caches["cuda"], _ = m.decode_step(gparams, caches["cuda"],
+                                              toks[:, i:i + 1].to(cuda), i)
+        tol = 1e-3 * lc.abs().max().item()
+        assert (lg.cpu() - lc).abs().max().item() <= tol, i
+    state = caches["cpu"]["scan"]["slot0"]
+    for key, t in state.items():
+        g = caches["cuda"]["scan"]["slot0"][key].cpu().float()
+        tol = 1e-3 * max(t.abs().max().item(), 1e-30)
+        assert (g - t.float()).abs().max().item() <= tol, key
+
+
+# the recurrent models' protected products a block, by mixer: RG-LRU 3 + the
+# MLP's 3, local attention 4 + 3, mLSTM 5, sLSTM 4 + its SwiGLU's 3
+RECURRENT_SITES = {"rglru": 6, "local": 7, "mlstm": 5, "slstm": 7}
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_350m"])
+def test_protected_recurrent_decode_step_launches_ft_matmul_every_site(
+        cuda, arch):
+    """Every linear protected, widths the kernel tiles (RecurrentGemma at
+    d_model 128 with 64-wide heads; xLSTM's SMOKE widths as they are, its
+    64-wide FFN on 64-wide tiles): one decode step launches ``ft_matmul``
+    once a protected site of every layer and never the eager path; its
+    logits agree with the CPU's eager path, and a fault at site 1 of every
+    block is corrected in each."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.abft import gemm as abft_gemm
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import effective_kinds
+
+    base = get_smoke_config(arch)
+    widths = dict(d_model=128, lru_width=128, num_heads=2, num_kv_heads=1,
+                  head_dim=64, d_ff=256) if arch == "recurrentgemma_2b" \
+        else {}
+    cfg = dataclasses.replace(base, dtype="float32", **widths,
+                              ft=dataclasses.replace(
+                                  base.ft, protect_linears=True,
+                                  threshold=1e-3))
+    sites = sum(RECURRENT_SITES[k.split("|")[0]]
+                for k in effective_kinds(cfg))
+    m = Model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    gparams = _tree_to(params, cuda)
+    toks = torch.tensor([[5], [77], [300], [511]], dtype=torch.int32)
+    want, _, _ = m.decode_step(params, m.init_cache(4, 8, device="cpu"),
+                               toks, 0)
+    eager = abft_gemm.ft_matmul
+    calls = []
+    abft_gemm.ft_matmul = lambda *a, **k: calls.append(1) or eager(*a, **k)
+    try:
+        for inject in (None, torch.tensor([[1.0, 2.0, 9.0, 1.0, 60.0]],
+                                          device=cuda)):
+            before = ft_matmul.launches
+            got, _, aux = m.decode_step(
+                gparams, m.init_cache(4, 8, device=cuda), toks.to(cuda), 0,
+                inject=inject)
+            assert ft_matmul.launches - before == sites
+            faults = 0 if inject is None else cfg.num_layers
+            assert float(aux["ft_flagged"]) == faults
+            assert float(aux["ft_corrected"]) == faults
+            tol = 1e-3 * want.abs().max().item()
+            assert (got.cpu() - want).abs().max().item() <= tol
+    finally:
+        abft_gemm.ft_matmul = eager
+    assert not calls
+
+
+@pytest.mark.parametrize("shape", [(4, 1024, 1344), (4, 1344, 1024)],
+                         ids=["gate", "down"])
+def test_slstm_ffn_product_launches_ft_matmul_on_64_wide_tiles(cuda, shape):
+    """xLSTM-350M's sLSTM FFN (1344 = 64 x 21) through the plan that
+    ``FTContext`` builds: 64-wide tiles, one ``ft_matmul`` launch, the
+    plain version's product and a fault corrected."""
+    from repro_torch.core.plan import FTConfig
+
+    m, k, n = shape
+    x, w = _path_operands(cuda, m, k, n, torch.float32)
+    p = gemm.plan(gemm.spec_for(x, w, ft=FTConfig(threshold=1e-3)))
+    assert p.backend == "fused" and 64 in p.spec.tiles[1:]
+    inj = torch.tensor([[m - 1, n - 5, 1, 75.0]])
+    before = ft_matmul.launches
+    y, s = p.ft_matmul(x, w, inject=inj)
+    assert ft_matmul.launches == before + 1
+    assert (float(s["flagged"]), float(s["corrected"])) == (1.0, 1.0)
+    want = ft_matmul_plain(x, w).c
+    assert (y - want).abs().max().item() <= \
+        GEMM_TOL * want.abs().max().item()
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 60))
+    got, plain = ft_matmul(xp, w, bm=64, bn=64, bk=64), ft_matmul_plain(xp, w)
+    for part in GEMM_PARTS:
+        g, r = getattr(got, part), getattr(plain, part)
+        assert (g - r).abs().max().item() <= \
+            GEMM_TOL * r.abs().max().item(), part
+
+
 # the checked-GEMM path's products at Phi-4-mini 3.8B's MLP widths, (M, K, N)
 GEMM_SHAPES = [(2048, 3072, 8192), (2048, 8192, 3072)]
 GEMM_TOL, BF16_STEP = 1e-4, 2.0 ** -7

@@ -348,13 +348,14 @@ def test_phi4_mini_config_matches_reference(which):
 
 def test_config_registry():
     assert configs.ARCHS == ["qwen15_110b", "phi3_medium_14b",
-                             "phi4_mini_3p8b", "gemma3_1b"] \
+                             "phi4_mini_3p8b", "gemma3_1b", "xlstm_350m",
+                             "recurrentgemma_2b"] \
         == configs.all_arch_names()
     from repro_torch.configs import phi4_mini_3p8b
     assert configs.get_config("phi4_mini_3p8b") is phi4_mini_3p8b.CONFIG
     assert phi4_mini_3p8b.CONFIG.d_model == 3072
     assert phi4_mini_3p8b.CONFIG.d_ff == 8192
-    # the dense family's configs are the reference's, field for field
+    # the ported configs are the reference's, field for field
     for arch in configs.ARCHS:
         for get in ("get_config", "get_smoke_config"):
             a = dataclasses.asdict(getattr(configs, get)(arch))
@@ -365,6 +366,6 @@ def test_config_registry():
     assert set(configs.NOT_YET_PORTED) | set(configs.ARCHS) == \
         set(ref_configs.ARCHS)
     with pytest.raises(ValueError, match="not yet ported"):
-        configs.get_config("recurrentgemma_2b")
+        configs.get_config("deepseek-v3-671b")
     with pytest.raises(ValueError, match="unknown architecture"):
         configs.get_config("no_such_model")

@@ -1,19 +1,31 @@
-"""The port's dense decoder model stack (``repro_torch.models.attention``,
+"""The port's model stack (``repro_torch.models.attention``, ``ssm``,
 ``transformer``, ``model``) against the reference ``repro.models`` on the
 same numpy inputs, with the reference's own initialised params carried
-across by ``params_from_numpy``: each ported config at its SMOKE size,
+across by ``params_from_numpy``: each ported config at its SMOKE size (the
+dense decoder family and the recurrent models, RecurrentGemma and xLSTM),
 full-sequence forward, cached decode, a Gemma-3 ring buffer that wraps,
 the protected forward, parameter counts, the layer grouping, and what is
-not ported yet raising. CPU only; the protected products take the eager
-path (and the fused path's plain version where the widths are tile-aligned).
+not ported yet raising. The recurrent mixers alone are
+``tests/test_torch_ssm.py``'s. CPU only; the protected products take the
+eager path (and the fused path's plain version where the widths are
+tile-aligned).
 
 Tolerances, each relative to max|reference|: float32 logits 1e-4 (float32
-sums over up to 5 layers in another order; the reference's own CPU tests
+sums over up to 6 layers in another order; the reference's own CPU tests
 hold its decode to its forward at 2e-3); bfloat16 activations 2e-2 (each
 layer rounds a dozen intermediates to bfloat16, 2^-8 relative, and the
 port's and XLA's sums can land on either side of a rounding boundary);
 decode against forward 2e-3, the reference's
 ``test_prefill_decode_equivalence``.
+
+The bfloat16 forward is held against the reference's forward with its
+layers unrolled (``force_unroll``), which runs each operation on its own
+and rounds each result to bfloat16, as the port does. Its ``lax.scan``
+compiles the repeated super-block, and XLA's fusions there keep some
+intermediates in float32: that forward and the unrolled one differ by
+2.5% of max|logits| on RecurrentGemma SMOKE, whose random-weight recurrent
+layers amplify a one-step rounding difference more than the dense
+family's layers (0.9% on Phi-4-mini SMOKE, 1.1% on xLSTM SMOKE).
 """
 from __future__ import annotations
 
@@ -86,6 +98,19 @@ def _both_params(arch):
             jax.tree.map(jnp.asarray, tree))
 
 
+def _unrolled(rc, tree):
+    """The reference's stacked param tree as the all-prefix tree of its
+    unrolled layer grouping (``force_unroll``), layers in order."""
+    g = ref_transformer.layer_groups(rc)
+    stack = tree["stack"]
+    layers = [stack["prefix"][str(i)] for i in range(len(g.prefix))]
+    layers += [jax.tree.map(lambda a, i=i: a[i], stack["scan"][f"slot{j}"])
+               for i in range(g.n_super) for j in range(len(g.super_block))]
+    layers += [stack["tail"][str(i)] for i in range(len(g.tail))]
+    return dict(tree, stack={"prefix": {str(i): p
+                                        for i, p in enumerate(layers)}})
+
+
 def _tokens(cfg, b, t, seed=3):
     toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, t))
     return (torch.as_tensor(toks, dtype=torch.int32),
@@ -122,7 +147,9 @@ def test_apply_bf16_activations_match_reference(arch):
     pp, rp = _both_params(arch)
     tp, tr = _tokens(pc, 2, 16)
     got, _ = Model(pc).apply(pp, {"tokens": tp}, block_q=8)
-    want, _ = RefModel(rc).apply(rp, {"tokens": tr}, block_q=8)
+    unrolled = _unrolled(rc, rp)
+    with ref_transformer.force_unroll():
+        want, _ = RefModel(rc).apply(unrolled, {"tokens": tr}, block_q=8)
     assert got.dtype == torch.float32
     _close(got, want, TOL["bfloat16"])
 
@@ -311,6 +338,19 @@ def test_count_params_matches_reference_without_allocating(arch):
     assert model_flops_per_token(cfg, n) == 6.0 * n
 
 
+# the reference's ``test_param_counts_in_published_range``, for what is ported
+PUBLISHED = {"qwen15_110b": (100e9, 120e9), "phi3_medium_14b": (12e9, 16e9),
+             "phi4_mini_3p8b": (3.0e9, 4.6e9), "gemma3_1b": (0.7e9, 1.3e9),
+             "xlstm_350m": (0.25e9, 0.50e9),
+             "recurrentgemma_2b": (2.0e9, 3.2e9)}
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_param_counts_in_published_range(arch):
+    lo, hi = PUBLISHED[arch]
+    assert lo <= count_params(configs.get_config(arch)) <= hi
+
+
 @pytest.mark.parametrize("which", ["full", "smoke"])
 @pytest.mark.parametrize("arch", ref_configs.ARCHS)
 def test_layer_groups_match_reference(arch, which):
@@ -351,8 +391,7 @@ def test_unported_configs_and_models_raise(arch):
         Model(_port_cfg(ref_configs.get_config(arch)))
 
 
-@pytest.mark.parametrize("kind", ["mla|mlp", "attn|moe", "rglru|mlp",
-                                  "mlstm|none", "slstm|none"])
+@pytest.mark.parametrize("kind", ["mla|mlp", "attn|moe"])
 def test_unported_kinds_raise(kind):
     cfg = configs.get_smoke_config("phi4_mini_3p8b")
     with pytest.raises(NotImplementedError, match="item 9"):

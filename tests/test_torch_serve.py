@@ -501,7 +501,8 @@ def test_serving_imports_no_jax_and_no_reference():
         "assert 'repro_torch.serve.runtime' in names\n"
         "assert 'repro_torch.launch.serve' in names\n"
         "for mod in ('models.attention', 'models.transformer', "
-        "'models.model', 'train.loop', 'configs.gemma3_1b'):\n"
+        "'models.model', 'models.ssm', 'train.loop', 'configs.gemma3_1b', "
+        "'configs.recurrentgemma_2b', 'configs.xlstm_350m'):\n"
         "    assert 'repro_torch.' + mod in names, mod\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

@@ -1,7 +1,9 @@
 """The port's LM serving path (``repro_torch.launch.serve.decode``, the
 serve and prefill step factories, ``--mode lm``) against the reference
 ``repro.launch.serve`` on the CPU, with the reference's own initialised
-params carried across by ``params_from_numpy`` and the same prompts.
+params carried across by ``params_from_numpy`` and the same prompts: the
+dense decoder family and the recurrent models (their states carried
+through every step).
 
 Greedy tokens are compared for equality: at float32 the two paths' logits
 agree to about 1e-6 relative (``tests/test_torch_models.py``), far inside
@@ -60,7 +62,8 @@ def _setup(arch, dtype="float32", protect=False):
              jnp.asarray(prompts, jnp.int32)))
 
 
-@pytest.mark.parametrize("arch", ["phi4_mini_3p8b", "gemma3_1b"])
+@pytest.mark.parametrize("arch", ["phi4_mini_3p8b", "gemma3_1b",
+                                  "xlstm_350m", "recurrentgemma_2b"])
 def test_decode_tokens_match_reference(arch):
     (pm, pp), (rm, rp), (tp, tr) = _setup(arch)
     got = launch.decode(pm, pp, tp, GEN)
@@ -73,7 +76,20 @@ def test_decode_fault_ledger_matches_reference():
     """The CLI's schedule (site 0 mid-prefill, site 1 mid-generation): the
     detected and corrected counts are entries x layers in both packages,
     and the tokens are the clean protected run's."""
-    arch = "phi4_mini_3p8b"
+    _check_fault_ledger("phi4_mini_3p8b")
+
+
+@pytest.mark.parametrize("arch", ["xlstm_350m", "recurrentgemma_2b"])
+def test_recurrent_decode_fault_ledger_matches_reference(arch):
+    """The same on the recurrent models: sites 0 and 1 are each block's
+    first two protected products (``w_in_gate``, ``w_in_rec`` of an
+    RG-LRU block, q and k of a local-attention block; ``w_up``, ``wq`` of
+    an mLSTM block, ``w_i``, ``w_f`` of an sLSTM block), and the corrected
+    products leave the carried states those of the clean run."""
+    _check_fault_ledger(arch)
+
+
+def _check_fault_ledger(arch):
     (pm, pp), (rm, rp), (tp, tr) = _setup(arch, protect=True)
     sched = launch.demo_schedule(B, P)
     ref_sched = RefFaultSchedule(entries=sched.entries)
@@ -120,7 +136,47 @@ def test_cli_lm_mode_matches_reference(ft, capsys, monkeypatch):
     the default run has no such step, while a run at batch 2, prompt 4,
     gen 6 has one (row 1's first generated token, a gap of 0.004). The
     float32 comparisons above hold every token."""
-    argv = ["--ft"] if ft else []
+    got, want = _cli_both(["--ft"] if ft else [], capsys, monkeypatch)
+    assert got == want
+    assert got[0] == "generated (4, 32)"
+    if ft:
+        assert re.search(r"detected=14 corrected=14", got[1]), got[1]
+
+
+@pytest.mark.parametrize("ft", [False, True], ids=["clean", "ft"])
+def test_cli_lm_mode_recurrentgemma_matches_reference(ft, capsys,
+                                                      monkeypatch):
+    """``--mode lm --arch recurrentgemma-2b --preset tiny`` (RecurrentGemma
+    SMOKE: RG-LRU and local-attention blocks; batch 4, prompt 16, gen 32)
+    prints the reference CLI's tokens and, with ``--ft``, its ledger (2
+    entries x 6 layers), with both packages' SMOKE config at float32
+    activations.
+
+    At bfloat16 this random-weight model amplifies a one-step rounding
+    difference past a top-two logit gap: the reference's jitted step (XLA
+    fuses bfloat16 operations and keeps some intermediates in float32) and
+    its own operation-by-operation step give different tokens (row 0,
+    the 13th), and torch's and XLA's CPU bf16 products sum in different
+    orders (row 2, the 8th, against the operation-by-operation run). The
+    bf16 forward is held to a tolerance instead
+    (``tests/test_torch_models.py``)."""
+    for mod, get in ((ref_launch, ref_configs.get_smoke_config),
+                     (launch, configs.get_smoke_config)):
+        monkeypatch.setattr(mod, "get_smoke_config",
+                            lambda arch, get=get: dataclasses.replace(
+                                get(arch), dtype="float32"))
+    got, want = _cli_both(["--arch", "recurrentgemma-2b", "--preset",
+                           "tiny", *(["--ft"] if ft else [])], capsys,
+                          monkeypatch)
+    assert got == want
+    assert got[0] == "generated (4, 32)"
+    if ft:
+        assert re.search(r"detected=12 corrected=12", got[1]), got[1]
+
+
+def _cli_both(argv, capsys, monkeypatch):
+    """Run the reference CLI and then the port's on the reference's params
+    with ``argv``: (the port's lines, the reference's)."""
     held = {}
     ref_init = RefModel.init
 
@@ -137,9 +193,4 @@ def test_cli_lm_mode_matches_reference(ft, capsys, monkeypatch):
         Model, "init", lambda self, gen, device="cuda": params_from_numpy(
             jax.tree.map(np.asarray, held["params"]), device=device))
     launch.main(["--device", "cpu", *argv])
-    got = _cli_lines(capsys.readouterr().out)
-    want = _cli_lines(out.getvalue())
-    assert got == want
-    assert got[0] == "generated (4, 32)"
-    if ft:
-        assert re.search(r"detected=14 corrected=14", got[1]), got[1]
+    return _cli_lines(capsys.readouterr().out), _cli_lines(out.getvalue())
