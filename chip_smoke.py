@@ -73,7 +73,29 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   protected decode step, ``ft_matmul`` against its plain version at the
   path's own products (``SSM_FTMM_SHAPES``: the MLP's, and the sLSTM
   FFN's on 64-wide tiles), and ``--mode lm --arch xlstm-350m --preset
-  full --ft`` as a subprocess.
+  full --ft`` as a subprocess;
+* the MoE path (phase 9, ``moe_drive``, then ``moe_measure``): DeepSeek-V3
+  (MLA, 256 routed experts top-8 and a shared expert, d_model 7168, vocab
+  129280) cut to 2 of its 61 layers (one dense-FFN block, one MoE block:
+  55.8 GB of f32 params) and then Llama-4 Maverick (GQA, top-1 experts
+  and a shared expert, d_model 5120, vocab 202048) cut to 2 of 48 layers
+  and 64 of its 128 experts, each at its published widths with random
+  weights from a seeded CUDA generator, bf16 activations, the first freed
+  before the second is built (``MOE_REDUCED``): a protected 4 x 512
+  prefill against the unprotected one at bf16 and at float32
+  activations, every differing expert choice a near-tie
+  (``MOE_NEAR_TIE``: 2^-5 at bf16, 1e-3 at float32) and the logits within
+  ``MOE_LOGIT_TOL`` at the positions whose routing and capacity keep
+  agree; 8 decode steps against the forward at float32
+  (MLA's absorbed path against its naive one); greedy decode at batch 4,
+  unprotected, protected and under the CLI's schedule: 7 ``ft_matmul``
+  launches a layer a step, 3 eager batched expert products a MoE layer a
+  step and no eager 2-D call, the ledger 2 x layers with the clean run's
+  tokens, peak memory under 72 GB; then the prefill by events, primed
+  traces of a protected and an unprotected step, the expert products
+  against their byte bound, ``ft_matmul`` against its plain version at
+  the path's products (``MOE_FTMM_SHAPES``), and ``--mode lm --arch
+  deepseek-v3-671b --preset tiny --ft`` as a subprocess.
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -1269,12 +1291,15 @@ def lm_prefill(tag, models, params, tokens, sites, gated=True):
             "argmax_agreement": agree}
 
 
-def lm_decode(tag, models, params, prompts, sites, layers_n):
+def lm_decode(tag, models, params, prompts, sites, layers_n, batched=None,
+              batched_per_step=0):
     """Greedy ``launch.serve.decode`` of ``prompts`` (prompt LM_PROMPT, gen
     LM_GEN) unprotected, protected and protected under the CLI's schedule:
     ``sites`` ft_matmul launches a protected step, the ledger 2 x
     ``layers_n`` exact, the SEU run's tokens the clean protected run's.
-    Returns the runs' rows."""
+    With ``batched`` (a counter of the eager batched expert products,
+    ``{"calls": n}``), a protected step also makes ``batched_per_step`` of
+    them and an unprotected one none. Returns the runs' rows."""
     import torch
     from repro_torch.kernels.ft_matmul import ft_matmul
     from repro_torch.launch.serve import decode, demo_schedule
@@ -1291,6 +1316,7 @@ def lm_decode(tag, models, params, prompts, sites, layers_n):
         decode(model, params, prompts[:, :2], 2)       # warm-up
         torch.cuda.synchronize()
         before = ft_matmul.launches
+        calls_before = batched["calls"] if batched is not None else 0
         t0 = time.perf_counter()
         out = decode(model, params, prompts, LM_GEN, schedule=sched)
         toks[label], stats = out if sched is not None else (out, None)
@@ -1309,6 +1335,12 @@ def lm_decode(tag, models, params, prompts, sites, layers_n):
                "tokens_per_s": batch * LM_GEN / wall,
                "ft_matmul_launches": launches,
                "launches_per_step": launches / steps}
+        if batched is not None:
+            calls = batched["calls"] - calls_before
+            want = 0 if label == "unprotected" else batched_per_step * steps
+            check(calls == want, f"{tag} decode {label} batch {batch}: "
+                                 f"{calls} eager expert products, not {want}")
+            row["expert_products_per_step"] = calls / steps
         if stats is not None:
             ledger = {"injected": sched.num_faults * layers_n,
                       "detected": float(stats.detected),
@@ -1326,6 +1358,9 @@ def lm_decode(tag, models, params, prompts, sites, layers_n):
             f"{row['ms_per_step']:.2f} ms a step, "
             f"{row['tokens_per_s']:.1f} tokens/s, "
             f"{row['launches_per_step']:.0f} ft_matmul launches a step"
+            + (f", {row['expert_products_per_step']:.0f} eager expert "
+               f"products a step" if "expert_products_per_step" in row
+               else "")
             + (f"; ledger {json.dumps(row['ledger'])}"
                if "ledger" in row else ""))
     agree = (toks["protected"] == toks["unprotected"]).float().mean()
@@ -1507,16 +1542,122 @@ def ftmm_at(dev, shape, cuda_ms, what, iters=50):
         "max_abs_err": errs}
 
 
+def prefill_ms(tag, models, params, tokens, cuda_ms):
+    """Each of ``models``' prefill of ``tokens`` through
+    ``make_prefill_step``, by CUDA events after a warm-up. Returns
+    ``{label: ms}``."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import make_prefill_step
+
+    out = {}
+    for label, m in models.items():
+        step = make_prefill_step(m, RunConfig(model=m.cfg))
+        out[label] = cuda_ms(lambda step=step: step(params,
+                                                    {"tokens": tokens}),
+                             iters=1, warmup=1)
+    log(f"{tag} prefill {tuple(tokens.shape)} by events: protected "
+        f"{out['protected']:.2f} ms, unprotected {out['unprotected']:.2f} "
+        f"ms")
+    return out
+
+
+def trace_steps(tag, models, params, prompts4, sites, host_ms, trace_call,
+                host_iters=3, top_n=10):
+    """One decode step at ``prompts4``'s batch under a primed
+    torch.profiler for each of ``models`` (the protected one must show
+    ``sites`` ft_matmul_tile kernels, the unprotected one none), in their
+    order: kernels, device ms, the window and its idle share, host ms a
+    step, the kernels by name. Returns ``{label: row}``."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import make_serve_step
+
+    tok = prompts4[:, :1]
+    out = {}
+    for label, model in models.items():
+        step = make_serve_step(model, RunConfig(model=model.cfg))
+        cache = model.init_cache(batch=prompts4.shape[0],
+                                 max_len=LM_PROMPT + LM_GEN,
+                                 device=prompts4.device)
+        fn = lambda: step(params, cache, tok, 0)        # noqa: E731
+        want = sites if label == "protected" else 0
+        kern, window, idle = trace_call(
+            fn, lambda names: sum("ft_matmul_tile" in k for k in names)
+            == want)
+        host = host_ms(fn, iters=host_iters)
+        groups = {}
+        for name, ms in kern:
+            key = re.sub(r"^void ", "", name)[:60]
+            n, tot = groups.get(key, (0, 0.0))
+            groups[key] = (n + 1, tot + ms)
+        top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:top_n]
+        row = {"batch": int(prompts4.shape[0]), "kernels": len(kern),
+               "ft_matmul_tile": sum("ft_matmul_tile" in k for k, _ in kern),
+               "device_ms": sum(ms for _, ms in kern), "window_ms": window,
+               "idle_share": idle, "host_ms": host,
+               "top": [[k, n, ms] for k, (n, ms) in top]}
+        out[label] = row
+        log(f"{tag} decode step trace (batch {row['batch']}, {label}): "
+            f"{row['kernels']} kernels, {row['ft_matmul_tile']} "
+            f"ft_matmul_tile, {row['device_ms']:.3f} ms on the device in a "
+            f"{window:.3f} ms window (idle {idle:.1%}); host {host:.3f} ms "
+            f"a step; by name: " + "; ".join(
+                f"{k} x{n} {ms:.3f} ms" for k, (n, ms) in top))
+    return out
+
+
+def ftmm_rows(dev, tag, shapes, cuda_ms, iters=20, prefill_iters=20):
+    """``ftmm_at`` at each of ``shapes`` (``iters`` timed calls at a
+    decode step's M, ``prefill_iters`` at a larger one), logged. Returns
+    the rows."""
+    rows = []
+    for shape in shapes:
+        row = ftmm_at(dev, shape, cuda_ms, f"{tag} product",
+                      iters=iters if shape[0] < 64 else prefill_iters)
+        rows.append(row)
+        log(f"{tag} ft_matmul at {tuple(shape)} (M padded to "
+            f"{row['padded_m']}, tiles {json.dumps(row['tiles'])}) bf16 x "
+            f"f32: {row['ms']:.4f} ms (float32 X {row['float32_x_ms']:.4f} "
+            f"ms), plain {row['plain_ms']:.4f} ms, torch.matmul f32 "
+            f"{row['library_ms']:.4f} ms, plan.ft_matmul "
+            f"{row['plan_ft_matmul_ms']:.4f} ms; bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); err "
+            f"{json.dumps(row['max_abs_err'])}")
+    return rows
+
+
+def lm_cli(argv, detected):
+    """``python -m repro_torch.launch.serve *argv`` on the card, which must
+    exit 0 with ``detected`` faults detected and corrected. Returns its
+    ``generated`` line, ledger line and seconds (process start included).
+    """
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *argv], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    out = proc.stdout + proc.stderr
+    hit = re.search(r"ft: injected=(\d+) detected=(\d+) corrected=(\d+)",
+                    out)
+    check(proc.returncode == 0 and hit
+          and hit[2] == hit[3] == str(detected),
+          f"launch.serve {' '.join(argv)}: exit {proc.returncode}\n"
+          f"{out[-3000:]}")
+    line = next(ln for ln in out.splitlines() if ln.startswith("generated"))
+    res = {"argv": list(argv), "line": line, "ft": hit[0],
+           "seconds": time.perf_counter() - t0}
+    log(f"launch.serve {' '.join(argv)}: {line}; {hit[0]} "
+        f"({res['seconds']:.1f} s with the process start)")
+    return res
+
+
 def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
                trace_call):
     """Times of the LM path and its kernel at the decode shape: the
     prefill by CUDA events, primed torch.profiler traces of one protected
     and one unprotected decode step (kernels, host ms, device idle share),
-    ``ft_matmul``
-    against its plain version at a decode step's padded MLP shape, and the
-    CLI's ``--mode lm`` on the card. Returns a dict."""
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.train import make_serve_step
+    ``ft_matmul`` against its plain version at a decode step's padded MLP
+    shape, and the CLI's ``--mode lm`` on the card. Returns a dict."""
+    from repro_torch.configs import get_config
 
     res = {}
     res["prefill_ms"] = {
@@ -1529,37 +1670,10 @@ def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
 
     # one decode step at batch 4 under torch.profiler, protected (it must
     # show 7 ft_matmul_tile kernels a layer) and unprotected
-    layers_n = models["protected"].cfg.num_layers
-    tok = prompts4[:, :1]
-    res["decode_trace"] = {}
-    for label, model in (("protected", models["protected"]),
-                         ("unprotected", models["unprotected"])):
-        step = make_serve_step(model, RunConfig(model=model.cfg))
-        cache = model.init_cache(batch=prompts4.shape[0],
-                                 max_len=LM_PROMPT + LM_GEN, device=dev)
-        fn = lambda: step(params, cache, tok, 0)        # noqa: E731
-        want = LM_SITES * layers_n if label == "protected" else 0
-        kern, window, idle = trace_call(
-            fn, lambda names: sum("ft_matmul_tile" in k for k in names)
-            == want)
-        host = host_ms(fn, iters=5)
-        groups = {}
-        for name, ms in kern:
-            key = re.sub(r"^void ", "", name)[:60]
-            n, tot = groups.get(key, (0, 0.0))
-            groups[key] = (n + 1, tot + ms)
-        top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:12]
-        row = {"batch": int(prompts4.shape[0]), "kernels": len(kern),
-               "ft_matmul_tile": sum("ft_matmul_tile" in k for k, _ in kern),
-               "device_ms": sum(ms for _, ms in kern), "window_ms": window,
-               "idle_share": idle, "host_ms": host,
-               "top": [[k, n, ms] for k, (n, ms) in top]}
-        res["decode_trace"][label] = row
-        log(f"LM decode step trace (batch {prompts4.shape[0]}, {label}): "
-            f"{len(kern)} kernels, {row['device_ms']:.3f} ms on the device "
-            f"in a {window:.3f} ms window (idle {idle:.1%}); host "
-            f"{host:.3f} ms a step; by name: " + "; ".join(
-                f"{k} x{n} {ms:.3f} ms" for k, (n, ms) in top))
+    res["decode_trace"] = trace_steps(
+        "LM", {k: models[k] for k in ("protected", "unprotected")}, params,
+        prompts4, LM_SITES * models["protected"].cfg.num_layers, host_ms,
+        trace_call, host_iters=5, top_n=12)
 
     # ft_matmul at a decode step's MLP up product: M = 4 padded to 64
     res["decode_shape"] = ds = ftmm_at(dev, DECODE_SHAPE, cuda_ms,
@@ -1573,22 +1687,7 @@ def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
         f"({ds['bound_by']}); err {json.dumps(ds['max_abs_err'])}")
 
     # the CLI on the card: --mode lm at Gemma-3 1B's published widths
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           *LM_CLI], cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=300)
-    out = proc.stdout + proc.stderr
-    hit = re.search(r"ft: injected=(\d+) detected=(\d+) corrected=(\d+)",
-                    out)
-    check(proc.returncode == 0 and hit and hit[2] == hit[3] == "52",
-          f"launch.serve {' '.join(LM_CLI)}: exit {proc.returncode}\n"
-          f"{out[-3000:]}")
-    line = next(ln for ln in out.splitlines() if ln.startswith("generated"))
-    res["cli"] = {"argv": list(LM_CLI), "line": line, "ft": hit[0],
-                  "seconds": time.perf_counter() - t0}
-    log(f"launch.serve {' '.join(LM_CLI)}: {line}; {hit[0]} "
-        f"({res['cli']['seconds']:.1f} s with the process start)")
+    res["cli"] = lm_cli(LM_CLI, 2 * get_config(LM_SMALL_ARCH).num_layers)
     return res
 
 
@@ -1822,85 +1921,418 @@ def ssm_measure(dev, arch, sites, models, params, tokens, prompts4, cuda_ms,
     (kernels, host ms, device ms, idle share), ``ft_matmul`` against its
     plain version at SSM_FTMM_SHAPES; for xLSTM also the CLI's ``--mode lm
     --preset full --ft`` on the card. Returns a dict."""
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.train import make_prefill_step, make_serve_step
-
-    res = {}
-    res["prefill_ms"] = {}
-    for label, m in models.items():
-        step = make_prefill_step(m, RunConfig(model=m.cfg))
-        res["prefill_ms"][label] = cuda_ms(
-            lambda step=step: step(params, {"tokens": tokens}), iters=1,
-            warmup=1)
-    log(f"SSM {arch} prefill {tuple(tokens.shape)} by events: protected "
-        f"{res['prefill_ms']['protected']:.2f} ms, unprotected "
-        f"{res['prefill_ms']['unprotected']:.2f} ms")
+    res = {"prefill_ms": prefill_ms(f"SSM {arch}", models, params, tokens,
+                                    cuda_ms)}
 
     # one decode step at batch 4 under torch.profiler, protected (one
     # ft_matmul_tile kernel a site) and unprotected
-    tok = prompts4[:, :1]
-    res["decode_trace"] = {}
-    for label, model in models.items():
-        step = make_serve_step(model, RunConfig(model=model.cfg))
-        cache = model.init_cache(batch=prompts4.shape[0],
-                                 max_len=LM_PROMPT + LM_GEN, device=dev)
-        fn = lambda: step(params, cache, tok, 0)        # noqa: E731
-        want = sites if label == "protected" else 0
-        kern, window, idle = trace_call(
-            fn, lambda names: sum("ft_matmul_tile" in k for k in names)
-            == want)
-        host = host_ms(fn, iters=3)
-        groups = {}
-        for name, ms in kern:
-            key = re.sub(r"^void ", "", name)[:60]
-            n, tot = groups.get(key, (0, 0.0))
-            groups[key] = (n + 1, tot + ms)
-        top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:10]
-        row = {"batch": int(prompts4.shape[0]), "kernels": len(kern),
-               "ft_matmul_tile": sum("ft_matmul_tile" in k for k, _ in kern),
-               "device_ms": sum(ms for _, ms in kern), "window_ms": window,
-               "idle_share": idle, "host_ms": host,
-               "top": [[k, n, ms] for k, (n, ms) in top]}
-        res["decode_trace"][label] = row
-        log(f"SSM {arch} decode step trace (batch {row['batch']}, {label}):"
-            f" {row['kernels']} kernels, {row['ft_matmul_tile']} "
-            f"ft_matmul_tile, {row['device_ms']:.3f} ms on the device in a "
-            f"{window:.3f} ms window (idle {idle:.1%}); host {host:.3f} ms "
-            f"a step; by name: " + "; ".join(
-                f"{k} x{n} {ms:.3f} ms" for k, (n, ms) in top))
-
-    res["ftmm_shapes"] = []
-    for shape in SSM_FTMM_SHAPES[arch]:
-        row = ftmm_at(dev, shape, cuda_ms, f"{arch} product", iters=20)
-        res["ftmm_shapes"].append(row)
-        log(f"SSM {arch} ft_matmul at {tuple(shape)} (M padded to "
-            f"{row['padded_m']}, tiles {json.dumps(row['tiles'])}) bf16 x "
-            f"f32: {row['ms']:.4f} ms (float32 X {row['float32_x_ms']:.4f} "
-            f"ms), plain {row['plain_ms']:.4f} ms, torch.matmul f32 "
-            f"{row['library_ms']:.4f} ms, plan.ft_matmul "
-            f"{row['plan_ft_matmul_ms']:.4f} ms; bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); err "
-            f"{json.dumps(row['max_abs_err'])}")
-
+    res["decode_trace"] = trace_steps(f"SSM {arch}", models, params,
+                                      prompts4, sites, host_ms, trace_call)
+    res["ftmm_shapes"] = ftmm_rows(dev, f"SSM {arch}", SSM_FTMM_SHAPES[arch],
+                                   cuda_ms)
     if arch == "xlstm_350m":
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", *SSM_CLI],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-        out = proc.stdout + proc.stderr
-        hit = re.search(r"ft: injected=(\d+) detected=(\d+) "
-                        r"corrected=(\d+)", out)
-        want = str(2 * models["protected"].cfg.num_layers)
-        check(proc.returncode == 0 and hit and hit[2] == hit[3] == want,
-              f"launch.serve {' '.join(SSM_CLI)}: exit {proc.returncode}\n"
-              f"{out[-3000:]}")
-        line = next(ln for ln in out.splitlines()
-                    if ln.startswith("generated"))
-        res["cli"] = {"argv": list(SSM_CLI), "line": line, "ft": hit[0],
-                      "seconds": time.perf_counter() - t0}
-        log(f"launch.serve {' '.join(SSM_CLI)}: {line}; {hit[0]} "
-            f"({res['cli']['seconds']:.1f} s with the process start)")
+        res["cli"] = lm_cli(SSM_CLI, 2 * models["protected"].cfg.num_layers)
+    return res
+
+
+# ---- phase 9: the MoE path. DeepSeek-V3 (MLA, 256 routed experts top-8
+# and a shared expert) and then Llama-4 Maverick (GQA, top-1 experts and a
+# shared expert, MoE every other layer) at their published widths, cut to 2
+# layers (f32 params, bf16 activations, random weights from a seeded CUDA
+# generator): a protected 4 x 512 prefill against the unprotected one held
+# where the routing agrees, with every differing expert choice a near-tie;
+# 8 decode steps against the forward at float32 activations; greedy decode
+# at batch 4 unprotected, protected and protected under the CLI's schedule
+# (7 ft_matmul launches and, in a MoE layer, 3 eager expert products a
+# layer a step, the ledger exact); peak memory; then the times. One config
+# at a time, the first freed before the second is built
+MOE_ARCHS = ("deepseek_v3_671b", "llama4_maverick")
+# the cuts (ModelConfig fields) and what they leave out
+MOE_CUTS = {"deepseek_v3_671b": dict(num_layers=2, first_k_dense=1),
+            "llama4_maverick": dict(num_layers=2, num_experts=64)}
+MOE_REDUCED = {
+    "deepseek_v3_671b": "2 of 61 layers (first_k_dense 3 -> 1: one MLA + "
+                        "dense-FFN block, then one MLA + MoE block with all "
+                        "256 routed experts and the shared expert); f32 "
+                        "params as the port keeps them (55.8 GB)",
+    "llama4_maverick": "2 of 48 layers (the MoE block, then a dense block); "
+                       "64 of 128 routed experts (all 128 hold 64.4 GB at "
+                       "f32 in the MoE layer alone); f32 params (42.0 GB)"}
+# (d_model, heads, kv heads, d_ff, dense d_ff, vocab, experts in the config,
+# top_k, moe_d_ff, shared experts, q/kv LoRA, rope/nope/v): published widths
+MOE_WIDTHS = {
+    "deepseek_v3_671b": (7168, 128, 128, 2048, 18432, 129280, 256, 8, 2048,
+                         1, 1536, 512, 64, 128, 128),
+    "llama4_maverick": (5120, 40, 8, 8192, 0, 202048, 128, 1, 8192, 1, 0, 0,
+                        0, 0, 0)}
+MOE_SITES = 7                      # protected products a layer: 4 + 3
+MOE_EXPERT_PRODUCTS = 3            # eager batched products a MoE layer
+MOE_MEMORY_LIMIT = 72e9            # bytes of device memory, params included
+# a (token, slot) expert choice that differs between the protected and the
+# unprotected prefill must be a near-tie: the unprotected router's k-th and
+# (k+1)-th probabilities within MOE_NEAR_TIE[activations] of the k-th; the
+# logits are held to MOE_LOGIT_TOL[activations] * max where the routing
+# agrees. At float32 activations the two paths differ by their sums' order
+# (1e-3, and the 2e-3 of decode vs forward). At bf16 each path rounds its
+# products' outputs, and the unprotected one every weight (2^-9), which
+# moves DeepSeek-V3's routers by percents of the k-th probability (the
+# phase prints each layer's largest move and each flip's): the bf16 bound
+# is eight bf16 steps, 2^-5, and the float32 run holds flips to 1e-3
+MOE_NEAR_TIE = {"bfloat16": 2.0 ** -5, "float32": 1e-3}
+MOE_LOGIT_TOL = {"bfloat16": LM_LOGIT_TOL, "float32": SSM_RECURRENCE_TOL}
+MOE_CLI = ("--mode", "lm", "--arch", "deepseek-v3-671b", "--preset", "tiny",
+           "--ft")
+# ft_matmul against its plain version at the products the MoE path gives
+# it, at a batch-4 decode step (M padded to 64) and at the 4 x 512 prefill:
+# DeepSeek's MLA (wq_a, wq_b, wkv_a on 64-wide tiles, wo), dense FFN and
+# shared expert; Llama-4's projections, FFN and shared expert
+_MOE_KN = {
+    "deepseek_v3_671b": ((7168, 1536), (1536, 24576), (7168, 576),
+                         (16384, 7168), (7168, 18432), (18432, 7168),
+                         (7168, 2048), (2048, 7168)),
+    "llama4_maverick": ((5120, 5120), (5120, 1024), (5120, 8192),
+                        (8192, 5120))}
+MOE_FTMM_SHAPES = {arch: tuple((m, k, n) for m in (4, 2048)
+                               for k, n in kn)
+                   for arch, kn in _MOE_KN.items()}
+
+
+def moe_config(arch):
+    """``arch``'s published config with MOE_CUTS applied, its widths
+    checked against MOE_WIDTHS."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    widths = (full.d_model, full.num_heads, full.num_kv_heads, full.d_ff,
+              full.dense_d_ff, full.vocab_size, full.num_experts,
+              full.top_k, full.moe_d_ff, full.num_shared_experts,
+              full.q_lora_rank, full.kv_lora_rank, full.qk_rope_head_dim,
+              full.qk_nope_head_dim, full.v_head_dim)
+    check(widths == MOE_WIDTHS[arch], f"{arch}: {widths}")
+    return full, dataclasses.replace(full, **MOE_CUTS[arch])
+
+
+def _routing(routes, cfg, tokens_n):
+    """Per MoE layer of one forward (``routes``: its ``moe._route`` calls'
+    (probs, gate_idx) in order): the (T, E) masks of the routed and of the
+    kept choices (the capacity dispatch's ``moe._slots``)."""
+    import torch
+    from repro_torch.models import moe
+    e, k = cfg.num_experts, cfg.top_k
+    cap = max(math.ceil(tokens_n * k / e * cfg.capacity_factor), 8)
+    out = []
+    for probs, idx in routes:
+        routed = torch.zeros((tokens_n, e), dtype=torch.bool,
+                             device=idx.device)
+        routed.scatter_(1, idx.long(), True)
+        order, keep, _, src = moe._slots(idx, cap, e)
+        kept = torch.zeros_like(routed)
+        kept[src[keep], idx.reshape(-1)[order][keep].long()] = True
+        out.append((probs, routed, kept))
+    return out
+
+
+def moe_prefill(tag, models, params, tokens):
+    """One protected ``Model.apply`` of ``tokens`` against the unprotected
+    one, with each MoE layer's routing recorded: the differing (token,
+    slot) expert choices counted, each a near-tie (MOE_NEAR_TIE of the
+    models' activations) in the unprotected router; the float32 logits
+    held to MOE_LOGIT_TOL * max at the positions whose routing and
+    capacity keep agree in every MoE layer (a disagreement in a layer that
+    attention follows also leaves out the later positions of its
+    sequence), at least half of them. The protected run makes MOE_SITES
+    ft_matmul launches a layer and MOE_EXPERT_PRODUCTS eager expert
+    products a MoE layer, and flags nothing. Returns the results dict."""
+    import torch
+    from repro_torch.core.abft import gemm as abft_gemm
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import effective_kinds
+
+    cfg = models["protected"].cfg
+    near_tie, logit_tol = MOE_NEAR_TIE[cfg.dtype], MOE_LOGIT_TOL[cfg.dtype]
+    b, t = tokens.shape
+    kinds = effective_kinds(cfg)
+    moe_layers = [i for i, kd in enumerate(kinds) if kd.endswith("|moe")]
+    route, batched = moe._route, abft_gemm.ft_matmul_batched
+    rec, calls = [], [0]
+
+    def recorded(*args):
+        out = route(*args)
+        rec.append((out[0], out[2]))
+        return out
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return batched(*args, **kwargs)
+
+    moe._route, abft_gemm.ft_matmul_batched = recorded, counted
+    try:
+        before = ft_matmul.launches
+        logits_p, aux = models["protected"].apply(params, {"tokens": tokens})
+        launches = ft_matmul.launches - before
+        expert_calls = calls[0]
+        routes_p, rec[:] = list(rec), []
+        logits_u, _ = models["unprotected"].apply(params, {"tokens": tokens})
+        routes_u = list(rec)
+    finally:
+        moe._route, abft_gemm.ft_matmul_batched = route, batched
+    layers_n = cfg.num_layers
+    check(launches == MOE_SITES * layers_n
+          and expert_calls == MOE_EXPERT_PRODUCTS * len(moe_layers),
+          f"{tag} protected prefill: {launches} ft_matmul launches, "
+          f"{expert_calls} eager expert products")
+    check(tuple(logits_p.shape) == (b, t, cfg.vocab_size)
+          and bool(torch.isfinite(logits_p).all()),
+          f"{tag} protected prefill logits {tuple(logits_p.shape)}")
+    check(float(aux["ft_flagged"]) == 0, f"{tag} protected prefill: flagged")
+    check(len(routes_p) == len(routes_u) == len(moe_layers),
+          f"{tag}: {len(routes_p)}, {len(routes_u)} router calls")
+    k = cfg.top_k
+    clean = torch.ones((b, t), dtype=torch.bool, device=tokens.device)
+    layers_rows, gaps = [], []
+    for layer, (p, u) in zip(moe_layers, zip(
+            _routing(routes_p, cfg, b * t), _routing(routes_u, cfg, b * t))):
+        (probs_p, routed_p, kept_p), (probs_u, routed_u, kept_u) = p, u
+        flipped = (routed_p != routed_u).any(-1)
+        moved = flipped | (kept_p != kept_u).any(-1)
+        n_choices = int((routed_u & ~routed_p).sum())
+        top_u = probs_u.topk(k + 1, dim=-1).values
+        top_p = probs_p.topk(k + 1, dim=-1).values
+        gap_u = (top_u[:, k - 1] - top_u[:, k]) / top_u[:, k - 1]
+        gap_p = (top_p[:, k - 1] - top_p[:, k]) / top_p[:, k - 1]
+        flips = torch.nonzero(flipped).flatten().tolist()
+        for tok in flips:
+            gaps.append({"layer": layer, "token": tok,
+                         "gap": gap_u[tok].item(),
+                         "protected_gap": gap_p[tok].item(),
+                         "router_change": ((probs_p[tok] - probs_u[tok])
+                                           .abs().max()
+                                           / top_u[tok, k - 1]).item()})
+        # a token's changed output reaches its later positions through
+        # any layer that follows this one
+        last = layer == cfg.num_layers - 1
+        for tok in torch.nonzero(moved).flatten().tolist():
+            bi, pi = divmod(tok, t)
+            if last:
+                clean[bi, pi] = False
+            else:
+                clean[bi, pi:] = False
+        cap = max(math.ceil(b * t * k / cfg.num_experts
+                            * cfg.capacity_factor), 8)
+        layers_rows.append({
+            "layer": layer, "capacity": cap,
+            "differing_choices": n_choices, "flipped_tokens": len(flips),
+            "keep_moved_tokens": int(moved.sum()),
+            "dropped_choices": b * t * k - int(kept_u.sum()),
+            "router_change_max": ((probs_p - probs_u).abs().max(-1).values
+                                  / top_u[:, k - 1]).max().item(),
+            "gap_median": gap_u.median().item()})
+    for g in gaps:
+        check(g["gap"] < near_tie,
+              f"{tag} prefill: a routing flip at a wide gap: {g}")
+    n_clean = int(clean.sum())
+    check(n_clean >= clean.numel() // 2,
+          f"{tag} prefill: {n_clean} of {clean.numel()} positions agree")
+    sel_p, sel_u = logits_p[clean], logits_u[clean]
+    del logits_p, logits_u
+    scale = sel_u.abs().max().item()
+    err = (sel_p - sel_u).abs().max().item()
+    agree = (sel_p.argmax(-1) == sel_u.argmax(-1)).float().mean().item()
+    del sel_p, sel_u
+    check(err <= logit_tol * scale,
+          f"{tag} protected vs unprotected prefill logits at the agreeing "
+          f"positions: {err} > {logit_tol} * {scale}")
+    log(f"{tag} prefill {b} x {t} at {cfg.dtype}: {launches} ft_matmul "
+        f"launches, "
+        f"{expert_calls} eager expert products, max score "
+        f"{float(aux['ft_max_score']):.3e}; routing by MoE layer "
+        f"{json.dumps(layers_rows)}; flips {json.dumps(gaps)} (near-tie "
+        f"bound {near_tie}); logits at {n_clean} of {b * t} positions err "
+        f"{err:.4e} (tol {logit_tol * scale:.4e}), argmax agreement "
+        f"{agree:.3f}")
+    return {"shape": [b, t], "activations": cfg.dtype,
+            "near_tie": near_tie, "ft_matmul_launches": launches,
+            "expert_products": expert_calls,
+            "max_score": float(aux["ft_max_score"]), "routing": layers_rows,
+            "flips": gaps, "clean_positions": n_clean, "logit_err": err,
+            "logit_max": scale, "logit_tol": logit_tol * scale,
+            "argmax_agreement": agree}
+
+
+def moe_drive(dev, arch):
+    """Drive the MoE path of ``arch`` once (counts are the caller's to
+    reset and read): the prefill gate, decode against the forward and the
+    decode runs. Returns (results dict, the model pair, params, prefill
+    tokens, the batch-4 prompts) for the measurements that follow."""
+    import numpy as np
+    import torch
+    from repro_torch.core.abft import gemm as abft_gemm
+    from repro_torch.models import Model, count_params
+    from repro_torch.models.transformer import effective_kinds
+
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    full, base = moe_config(arch)
+    kinds = effective_kinds(base)
+    moe_layers = sum(kd.endswith("|moe") for kd in kinds)
+    res["kinds"] = list(kinds)
+    res["reduced"] = MOE_REDUCED[arch]
+    res["full_params"] = count_params(full)
+    models = {"unprotected": Model(base), "protected": Model(protect(base))}
+    t0 = time.perf_counter()
+    params = models["unprotected"].init(
+        torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    res["params"] = count_params(base)
+    res["param_bytes"] = param_bytes
+    res["init_s"] = time.perf_counter() - t0
+    check(res["params"] == sum(t.numel() for t in _leaves(params)),
+          f"{arch}: count_params disagrees with the initialised tree")
+    tag = f"MoE {base.name}"
+    log(f"{tag}: {res['params']} params of the full config's "
+        f"{res['full_params']}, {param_bytes / 1e9:.2f} GB "
+        f"({base.param_dtype}), activations {base.dtype}, layers "
+        f"{json.dumps(res['kinds'])}, {base.num_experts} experts top-"
+        f"{base.top_k}; initialised on the card in {res['init_s']:.1f} s")
+    log(f"{tag} reduced: {res['reduced']}")
+
+    # the prefill gate at bf16 activations (capacity drops occur), then at
+    # float32 activations, where the two paths differ by their sums' order
+    b, t = LM_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, base.vocab_size, (b, t), generator=gen,
+                           device=dev, dtype=torch.int32)
+    res["prefill"] = moe_prefill(tag, models, params, tokens)
+    res["prefill_float32"] = moe_prefill(
+        tag, {label: Model(dataclasses.replace(m.cfg, dtype="float32"))
+              for label, m in models.items()}, params, tokens)
+
+    # float32 activations: 8 decode steps (MLA's absorbed path) against the
+    # forward (its naive path), no capacity drop in the forward (the
+    # reference's test_prefill_decode_equivalence)
+    f32 = Model(dataclasses.replace(base, dtype="float32",
+                                    capacity_factor=8.0))
+    steps8 = SSM_RECURRENCE_STEPS
+    head = f32.apply(params, {"tokens": tokens[:, :steps8]})[0]
+    cache = f32.init_cache(batch=b, max_len=steps8, dtype=torch.float32,
+                           device=dev)
+    dec = torch.cat([f32.decode_step(params, cache, tokens[:, i:i + 1], i)[0]
+                     for i in range(steps8)], dim=1)
+    scale = head.abs().max().item()
+    err = (dec - head).abs().max().item()
+    check(bool(torch.isfinite(dec).all())
+          and err <= SSM_RECURRENCE_TOL * scale,
+          f"{tag} at float32 over {steps8} steps: decode vs forward {err}, "
+          f"tol {SSM_RECURRENCE_TOL} * {scale}")
+    res["decode_vs_forward"] = {"shape": [b, steps8], "err": err,
+                                "max": scale,
+                                "tol": SSM_RECURRENCE_TOL * scale}
+    log(f"{tag} at float32: {steps8} decode steps vs the forward err "
+        f"{err:.4e} (tol {SSM_RECURRENCE_TOL * scale:.4e})")
+    del head, cache, dec, f32
+
+    # greedy decode at batch 4: unprotected, protected, protected + SEUs,
+    # the eager expert products counted
+    batched_fn = abft_gemm.ft_matmul_batched
+    counter = {"calls": 0}
+
+    def counted(*args, **kwargs):
+        counter["calls"] += 1
+        return batched_fn(*args, **kwargs)
+
+    abft_gemm.ft_matmul_batched = counted
+    try:
+        rng = np.random.default_rng(SEED)
+        prompts4 = torch.as_tensor(
+            rng.integers(0, base.vocab_size, (4, LM_PROMPT)),
+            dtype=torch.int32, device=dev)
+        res["decode"] = [lm_decode(
+            tag, models, params, prompts4, MOE_SITES * base.num_layers,
+            base.num_layers, batched=counter,
+            batched_per_step=MOE_EXPERT_PRODUCTS * moe_layers)]
+    finally:
+        abft_gemm.ft_matmul_batched = batched_fn
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    check(res["peak_memory_bytes"] < MOE_MEMORY_LIMIT,
+          f"{tag} path peak memory {res['peak_memory_bytes']} bytes")
+    log(f"{tag} path peak device memory "
+        f"{res['peak_memory_bytes'] / 1e9:.2f} GB (params "
+        f"{param_bytes / 1e9:.2f} GB)")
+    return res, models, params, tokens, prompts4
+
+
+def expert_products(dev, cfg, params, cuda_ms):
+    """The three routed-expert products of the model's MoE layer at a
+    batch-4 decode step (C = 8 rows an expert, bf16 activations, its f32
+    weights): the protected ones (three eager batched checked products)
+    and the unprotected ones (each weight cast to bf16 for its product),
+    timed by CUDA events against the byte bound of reading the three
+    weights once at HBM_BYTES_PER_S."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.ssm import silu
+
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    p = next(layer["moe"] for layer in params["stack"]["prefix"].values()
+             if "moe" in layer)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    buf = torch.randn((e, 8, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+    def protected():
+        g, _ = moe._ft_expert_matmul(buf, p["wi_gate"], LM_FT_THRESHOLD,
+                                     True)
+        u, _ = moe._ft_expert_matmul(buf, p["wi_up"], LM_FT_THRESHOLD, True)
+        return moe._ft_expert_matmul(silu(g) * u, p["wo"], LM_FT_THRESHOLD,
+                                     True)[0]
+
+    def unprotected():
+        g = torch.bmm(buf, p["wi_gate"].to(torch.bfloat16))
+        u = torch.bmm(buf, p["wi_up"].to(torch.bfloat16))
+        return torch.bmm(silu(g) * u, p["wo"].to(torch.bfloat16))
+
+    w_bytes = 3 * e * d * f * 4
+    row = {"shape": [e, 8, d, f], "weight_bytes": w_bytes,
+           "bound_ms": w_bytes / HBM_BYTES_PER_S * 1e3,
+           "protected_ms": cuda_ms(protected, iters=5, warmup=1),
+           "unprotected_ms": cuda_ms(unprotected, iters=5, warmup=1)}
+    return row
+
+
+def moe_measure(dev, arch, models, params, tokens, prompts4, cuda_ms,
+                host_ms, trace_call):
+    """Times of ``arch``'s MoE path: the prefill by CUDA events, one
+    protected and one unprotected decode step at batch 4 under a primed
+    torch.profiler (kernels, host ms, device ms, idle share), the three
+    expert products against their byte bound, ``ft_matmul`` against its
+    plain version at MOE_FTMM_SHAPES; for DeepSeek also the CLI's ``--mode
+    lm --preset tiny --ft`` on the card. Returns a dict."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = models["protected"].cfg
+    res = {"prefill_ms": prefill_ms(f"MoE {arch}", models, params, tokens,
+                                    cuda_ms)}
+    res["decode_trace"] = trace_steps(
+        f"MoE {arch}", models, params, prompts4,
+        MOE_SITES * cfg.num_layers, host_ms, trace_call)
+
+    res["expert_products"] = ep = expert_products(dev, cfg, params,
+                                                  cuda_ms)
+    log(f"MoE {arch} expert products at a decode step {tuple(ep['shape'])} "
+        f"(E, C, d, f): protected {ep['protected_ms']:.3f} ms, unprotected "
+        f"{ep['unprotected_ms']:.3f} ms; byte bound of the "
+        f"{ep['weight_bytes'] / 1e9:.1f} GB of f32 weights read once "
+        f"{ep['bound_ms']:.3f} ms")
+
+    res["ftmm_shapes"] = ftmm_rows(dev, f"MoE {arch}",
+                                   MOE_FTMM_SHAPES[arch], cuda_ms,
+                                   prefill_iters=5)
+    if arch == "deepseek_v3_671b":
+        res["cli"] = lm_cli(MOE_CLI,
+                            2 * get_smoke_config(arch).num_layers)
     return res
 
 
@@ -2554,6 +2986,47 @@ def main() -> int:
     log(f"phase 8 took {ssm['seconds']:.1f} s; the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
 
+    # ---- phase 9: the MoE path, counts from its drives only (each config's
+    # counts set to 0 just before its drive, read just after, and summed);
+    # every protected product of a layer launches ft_matmul, the routed
+    # experts' three checked products are the eager batched ones (counted
+    # in the drive), and the eager 2-D path is never called
+    t9 = time.perf_counter()
+    log(f"phase 9 starts {t9 - t_start:.1f} s into the run")
+    torch.cuda.empty_cache()
+    moe_res = {}
+    moe_launches = {"block_fft": 0, "abft_fft": 0, "ft_matmul": 0}
+    eager_calls.clear()
+    abft_gemm.ft_matmul = counted_eager
+    try:
+        for arch in MOE_ARCHS:
+            block_fft.launches = 0
+            abft_fft.launches = 0
+            ft_matmul.launches = 0
+            res, models, params, tokens, prompts4 = moe_drive(dev, arch)
+            torch.cuda.synchronize()
+            res["launches"] = {"block_fft": block_fft.launches,
+                               "abft_fft": abft_fft.launches,
+                               "ft_matmul": ft_matmul.launches}
+            for key, n in res["launches"].items():
+                moe_launches[key] += n
+            res.update(moe_measure(dev, arch, models, params, tokens,
+                                   prompts4, cuda_ms, host_ms, trace_call))
+            del models, params, tokens, prompts4
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            moe_res[arch] = res
+    finally:
+        abft_gemm.ft_matmul = eager_ft_matmul
+    log(f"MoE path launches, whole run: {json.dumps(moe_launches)}; eager "
+        f"2-D ABFT calls {len(eager_calls)}")
+    check(moe_launches["ft_matmul"] > 0 and not eager_calls,
+          f"MoE path: {moe_launches}, {len(eager_calls)} eager ABFT calls")
+    moe_res["launches"] = moe_launches
+    moe_res["seconds"] = time.perf_counter() - t9
+    log(f"phase 9 took {moe_res['seconds']:.1f} s; the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+
     kernels = [
         {"name": "block_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_fft.cu",
@@ -2598,7 +3071,8 @@ def main() -> int:
          "launches": gemm_launches["ft_matmul"],
          "launches_by_path": {"gemm": gemm_launches["ft_matmul"],
                               "lm": lm_launches["ft_matmul"],
-                              "ssm": ssm_launches["ft_matmul"]},
+                              "ssm": ssm_launches["ft_matmul"],
+                              "moe": moe_launches["ft_matmul"]},
          "launches_per_call": {"plan.ft_matmul": 1,
                                "protected MLP block": mlp_per_call,
                                "protected prefill":
@@ -2609,7 +3083,11 @@ def main() -> int:
                                **{f"{arch} protected decode step":
                                   ssm[arch]["decode"][0]["protected"][
                                       "launches_per_step"]
-                                  for arch in SSM_ARCHS}},
+                                  for arch in SSM_ARCHS},
+                               **{f"{arch} protected decode step":
+                                  moe_res[arch]["decode"][0]["protected"][
+                                      "launches_per_step"]
+                                  for arch in MOE_ARCHS}},
          "max_abs_err": max(gemm_parts.values()),
          "max_abs_err_parts": gemm_parts, "max_err_over_tol": gemm_ratio,
          "max_abs_err_by_path": {
@@ -2617,9 +3095,14 @@ def main() -> int:
              "lm": max(lm["decode_shape"]["max_abs_err"].values()),
              "ssm": max(e for arch in SSM_ARCHS
                         for row in ssm[arch]["ftmm_shapes"]
+                        for e in row["max_abs_err"].values()),
+             "moe": max(e for arch in MOE_ARCHS
+                        for row in moe_res[arch]["ftmm_shapes"]
                         for e in row["max_abs_err"].values())},
          "ssm_shapes": [dict(row, arch=arch) for arch in SSM_ARCHS
                         for row in ssm[arch]["ftmm_shapes"]],
+         "moe_shapes": [dict(row, arch=arch) for arch in MOE_ARCHS
+                        for row in moe_res[arch]["ftmm_shapes"]],
          "shape": main_row["shape"], "ms": main_row["ms"],
          "device_ms": main_row["device_ms"],
          "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
@@ -2630,7 +3113,7 @@ def main() -> int:
                                and r["tile"] == [128, 128]),
          "instances": ftmm_instances, "shapes": gemm_rows,
          "mlp_block": mlp_ms, "seu": {"plan": gemm_seu, "mlp": mlp_seu},
-         "lm": lm, "ssm": ssm},
+         "lm": lm, "ssm": ssm, "moe": moe_res},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

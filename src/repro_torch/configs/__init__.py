@@ -1,9 +1,10 @@
 """Config registry: one module per architecture ported so far.
 ``get_config(name)`` returns the full ModelConfig; ``get_smoke_config(name)``
 returns the reduced same-family config used by CPU tests. ``ARCHS`` holds
-the dense decoder family and the recurrent models (RecurrentGemma's RG-LRU
-hybrid, xLSTM), whose layers are ported; the reference's other
-architectures raise, naming what ports them (``NOT_YET_PORTED``).
+the dense decoder family, the recurrent models (RecurrentGemma's RG-LRU
+hybrid, xLSTM) and the MoE models (DeepSeek-V3 with MLA, Llama-4
+Maverick), whose layers are ported; the reference's other architectures
+raise, naming what ports them (``NOT_YET_PORTED``).
 """
 from __future__ import annotations
 
@@ -19,13 +20,13 @@ ARCHS = [
     "gemma3_1b",
     "xlstm_350m",
     "recurrentgemma_2b",
+    "deepseek_v3_671b",
+    "llama4_maverick",
 ]
 
 _ITEM_9 = "ROADMAP queue 1 item 9"
 # the reference's other architectures -> what ports them
 NOT_YET_PORTED = {
-    "deepseek_v3_671b": f"moe.py and MLA attention, {_ITEM_9}",
-    "llama4_maverick": f"moe.py, {_ITEM_9}",
     "whisper_base": f"the encoder-decoder model, {_ITEM_9}",
     "internvl2_1b": f"the VLM patch frontend stub, {_ITEM_9}",
 }

@@ -24,7 +24,8 @@ import torch
 
 from .encoding import EPS
 
-__all__ = ["ft_matmul", "ft_dot_stats", "decode_columns", "inject_product"]
+__all__ = ["ft_matmul", "ft_matmul_batched", "ft_dot_stats",
+           "decode_columns", "inject_product"]
 
 # |d3/d2 - round(d3/d2)| above this is a non-integer location decode:
 # more than one fault landed in the column (or the checksum row itself was
@@ -49,12 +50,16 @@ def decode_columns(y, d2, d3, scale, *, t: int, threshold: float,
     non-integer or out of range — multi-SEU in one column), and ``score``
     (max per-column divergence, the detection statistic).
 
+    Batched products (:func:`ft_matmul_batched`) decode every product at
+    once: ``y`` (E, t, d_out), ``d2``/``d3`` (E, d_out), ``scale`` (E,),
+    and each stat an (E,) vector.
+
     The correction is an indexed add into ``y`` IN PLACE (the reference's
     scatter-add returns a new array): every column gets one update, at its
     decoded row where valid and 0 elsewhere, so the indices are distinct.
     """
-    colmag = d2.abs() / scale
-    score = colmag.max()
+    colmag = d2.abs() / scale[..., None]
+    score = colmag.amax(-1)
     hit = colmag > threshold
     ratio = d3 / torch.where(d2.abs() > 0, d2, torch.ones_like(d2))
     row_f = torch.round(ratio)
@@ -62,15 +67,18 @@ def decode_columns(y, d2, d3, scale, *, t: int, threshold: float,
              & (row_f >= 1) & (row_f <= t))
     if with_correction:
         row_hat = torch.where(valid, row_f - 1, torch.zeros_like(row_f))
-        cols = torch.arange(d2.shape[0], device=d2.device)
+        cols = torch.arange(d2.shape[-1], device=d2.device).expand_as(d2)
+        lead = ((torch.arange(d2.shape[0], device=d2.device)[:, None]
+                 .expand_as(d2),) if d2.dim() == 2 else ())
         upd = torch.where(valid, d2, torch.zeros_like(d2)).to(y.dtype)
-        y.index_put_((row_hat.long(), cols), upd, accumulate=True)
+        y.index_put_((*lead, row_hat.long(), cols), upd, accumulate=True)
     f32 = torch.float32
     stats = {
-        "flagged": hit.sum(dtype=f32),
-        "corrected": (valid.sum(dtype=f32) if with_correction
-                      else torch.zeros((), dtype=f32, device=d2.device)),
-        "uncorrectable": (hit & ~valid).sum(dtype=f32),
+        "flagged": hit.sum(-1, dtype=f32),
+        "corrected": (valid.sum(-1, dtype=f32) if with_correction
+                      else torch.zeros(d2.shape[:-1], dtype=f32,
+                                       device=d2.device)),
+        "uncorrectable": (hit & ~valid).sum(-1, dtype=f32),
         "score": score.to(f32),
     }
     return y, stats
@@ -149,6 +157,59 @@ def ft_matmul(x: torch.Tensor, w: torch.Tensor, *, threshold: float = 1e-3,
         f"ft_matmul activations must be (T, d_in) or batched (B, T, d_in); "
         f"got rank-{x.dim()} x.shape={tuple(x.shape)} — reshape leading axes "
         f"into one batch dim first")
+
+
+def ft_matmul_batched(x: torch.Tensor, w: torch.Tensor, *,
+                      threshold: float = 1e-3, with_correction: bool = True,
+                      inject=None):
+    """Checked ``y[e] = x[e] @ w[e]`` for every ``e`` of ``(E, C, d_in)``
+    activations against ``(E, d_in, d_out)`` weights, in batched products:
+    what ``jax.vmap(ft_matmul)`` computes (the reference's MoE experts),
+    each product with its own checksums over its ``C`` rows (the location
+    vector ``1..C``), its own ``scale`` and :func:`decode_columns`' rule.
+
+    The two input checksums ``e2ᵀX[e]`` and ``e3ᵀX[e]`` ride as two extra
+    rows of each product's float32 X, so one batched product gives ``y``
+    and the predicted strips and reads W once. ``inject`` is an optional
+    ``(E, F, 3)`` ``[row, col, eps]`` (``(E, 3)`` for one fault an expert)
+    adding eps to ``y[e, row, col]`` after the product, where the row and
+    column address an element of that expert's ``(C, d_out)`` product.
+
+    Returns ``(y, stats)``: ``y`` in ``x.dtype``, every stat an ``(E,)``
+    float32 vector (``FTContext.summary`` reduces them).
+    """
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"ft_matmul_batched takes (E, C, d_in) @ (E, d_in, "
+                         f"d_out), got {tuple(x.shape)} @ {tuple(w.shape)}")
+    e, t, _ = x.shape
+    xf = x.float()
+    wf = w.float()
+    loc = _loc_vec(t, x.device)
+    # [X; e2ᵀX; e3ᵀX] @ W: the product and both predicted strips
+    ext = torch.cat([xf, xf.sum(1, keepdim=True),
+                     torch.einsum("c,ecd->ed", loc, xf)[:, None]], dim=1)
+    full = torch.bmm(ext, wf)
+    y = full[:, :t]
+    if inject is not None:
+        inj = torch.as_tensor(inject, dtype=torch.float32).to(x.device)
+        inj = inj.reshape(e, -1, 3)
+        rows, cols, eps = inj.unbind(-1)
+        ok = ((rows == torch.floor(rows)) & (cols == torch.floor(cols))
+              & (rows >= 0) & (rows < t) & (cols >= 0) & (cols < w.shape[2]))
+        zero = torch.zeros_like(rows)
+        experts = torch.arange(e, device=x.device)[:, None].expand_as(rows)
+        y.index_put_((experts, torch.where(ok, rows, zero).long(),
+                      torch.where(ok, cols, zero).long()),
+                     torch.where(ok, eps, zero), accumulate=True)
+    o2 = y.sum(1)
+    o3 = torch.einsum("c,ecf->ef", loc, y)
+    d2 = full[:, t] - o2
+    d3 = full[:, t + 1] - o3
+    scale = torch.sqrt(torch.mean(o2 * o2, dim=-1)) + EPS
+    y, stats = decode_columns(y, d2, d3, scale, t=t, threshold=threshold,
+                              with_correction=with_correction)
+    return y.to(x.dtype), stats
 
 
 def ft_dot_stats(stats_tree) -> dict:

@@ -38,9 +38,10 @@ class FTPolicy:
     # numerical guards for training
     skip_nonfinite_updates: bool = True
     # checked-GEMM backend for protected linears (see core.gemm.GEMMSpec):
-    # "auto" resolves to the fused CUDA kernel ("fused") on a card (K and N
-    # tile-aligned, M padded) and to the torch path ("eager") on the CPU. The
-    # reference's names map as "xla" -> "eager" and "pallas" -> "fused".
+    # "auto" resolves to the fused CUDA kernel ("fused") on a card (M, and a
+    # K or N no tile divides, zero-padded) and to the torch path ("eager") on
+    # the CPU. The reference's names map as "xla" -> "eager" and "pallas" ->
+    # "fused".
     gemm_backend: str = "auto"
 
     def kernel_kwargs(self) -> dict:

@@ -17,12 +17,13 @@ plan/execute front door for checked GEMMs, mirroring ``core.fft.api``:
   :func:`decode_columns`, so the two backends agree by construction.
   ``"auto"`` resolves to ``"fused"`` on a card and to ``"eager"`` on the
   CPU, as the reference's takes the Pallas kernel only on the TPU. The
-  fused path needs K and N aligned to the tiles (:func:`spec_for` fits
-  them: 64-wide where 128 does not divide); M need not be: it is
-  padded with zero rows to a multiple of the kernel's smallest tile row
-  count (decode steps have M = the batch). A card plan with an unaligned K
-  or N raises rather than fall back; ``backend="eager"`` asks for the torch
-  path explicitly. On a CPU plan ``"fused"`` runs the kernel's plain torch
+  fused kernel takes K and N in multiples of its tiles (:func:`spec_for`
+  fits them: 64-wide where 128 does not divide); a product whose K or N
+  no tile divides is zero-padded to the tiles (a SMOKE config's 48-wide
+  projection), and M to a multiple of the kernel's smallest tile row
+  count (decode steps have M = the batch): every product of a card plan
+  runs on the kernel. ``backend="eager"`` asks for the torch path
+  explicitly. On a CPU plan ``"fused"`` runs the kernel's plain torch
   version.
 
 Injection descriptors are ``(4,)`` (or ``(F, 4)``) float rows
@@ -95,12 +96,6 @@ class GEMMSpec:
         object.__setattr__(self, "device", str(torch.device(self.device)))
 
 
-def _kn_aligned(shape, tiles) -> bool:
-    """K and N are multiples of the tiles (M is padded, so any M runs)."""
-    (_, k, n), (_, bk, bn) = shape, tiles
-    return k % bk == 0 and n % bn == 0
-
-
 @planbase.register_plan_type(GEMMSpec)
 class GEMMPlan(planbase.Plan):
     """Resolved executor bundle for one :class:`GEMMSpec`.
@@ -119,12 +114,6 @@ class GEMMPlan(planbase.Plan):
         backend = spec.backend
         if backend == "auto":
             backend = "fused" if self.device.type == "cuda" else "eager"
-        if backend == "fused" and not _kn_aligned(spec.shape, spec.tiles):
-            raise ValueError(
-                f"GEMMSpec(backend={spec.backend!r}) takes the fused kernel, "
-                f"which needs tile-aligned K and N: shape={spec.shape} vs "
-                f"tiles={spec.tiles} — pass backend='eager' for the torch "
-                f"path")
         if backend == "fused" and self.device.type == "cuda":
             bm, bk, bn = spec.tiles
             ft_kernel.check_kernel_tiles(bm, bn, bk)
@@ -204,7 +193,10 @@ def _ft_matmul_fused(x, w, inj, *, bm, bn, bk, threshold, with_correction):
     multiple of ``bm``, to a multiple of the kernel's smallest tile row
     count: zero rows add nothing to e2ᵀC, e3ᵀC, e2ᵀX or e3ᵀX, so the strips
     and their decode over the first M rows are those of the unpadded
-    product, and a fault's decoded row lies among them.
+    product, and a fault's decoded row lies among them. A K or N that is
+    no multiple of ``bk`` or ``bn`` is zero-padded likewise (zero columns
+    of X against zero rows of W add nothing; zero columns of W give zero
+    columns of C and strips, which the decode leaves out).
 
     X goes to the kernel in float32, so that the product ``c`` it stores
     stays float32 through the correction and is rounded to ``x.dtype`` once
@@ -214,30 +206,35 @@ def _ft_matmul_fused(x, w, inj, *, bm, bn, bk, threshold, with_correction):
     element."""
     x2 = x.reshape(-1, x.shape[-1]).float()
     t = x2.shape[0]
+    k, n = w.shape
     if t % bm:
         bm = min(ft_kernel.KERNEL_TILES)
-        x2 = torch.nn.functional.pad(x2, (0, 0, 0, -t % bm))
+    if t % bm or k % bk:
+        x2 = torch.nn.functional.pad(x2, (0, -k % bk, 0, -t % bm))
+    if k % bk or n % bn:
+        w = torch.nn.functional.pad(w, (0, -n % bn, 0, -k % bk))
     res = ft_kernel.ft_matmul(x2.contiguous(), w, bm=bm, bn=bn, bk=bk,
                               inject=inj)
-    d2 = res.pred2 - res.out2
-    d3 = res.pred3 - res.out3
-    scale = torch.sqrt(torch.mean(res.out2 * res.out2)) + EPS
+    out2 = res.out2[:n]
+    d2 = res.pred2[:n] - out2
+    d3 = res.pred3[:n] - res.out3[:n]
+    scale = torch.sqrt(torch.mean(out2 * out2)) + EPS
     y, stats = abft_gemm.decode_columns(
-        res.c[:t], d2, d3, scale, t=t, threshold=threshold,
+        res.c[:t, :n], d2, d3, scale, t=t, threshold=threshold,
         with_correction=with_correction)
-    return y.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype), stats
+    return y.reshape(x.shape[:-1] + (n,)).to(x.dtype), stats
 
 
 def _fit_tiles(k: int, n: int) -> tuple[int, int, int]:
     """The fused kernel's ``(bm, bk, bn)`` for a product of K and N: the
     largest ``bk`` of 128, 64, 32 that divides K and the largest ``bn`` of
-    :data:`~repro_torch.kernels.ft_matmul.KERNEL_TILES` that divides N, 128
-    where none does (so that the plan raises on it as before). A product
+    :data:`~repro_torch.kernels.ft_matmul.KERNEL_TILES` that divides N,
+    the smallest where none does (the fused path pads to it). A product
     aligned to 128 keeps (128, 128, 128); the sLSTM FFN's 1344 = 64 x 21
     gets 64."""
-    bk = next((t for t in (128, 64, 32) if k % t == 0), 128)
+    bk = next((t for t in (128, 64, 32) if k % t == 0), 32)
     bn = next((t for t in sorted(ft_kernel.KERNEL_TILES, reverse=True)
-               if n % t == 0), 128)
+               if n % t == 0), min(ft_kernel.KERNEL_TILES))
     return (128, bk, bn)
 
 

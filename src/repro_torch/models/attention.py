@@ -1,36 +1,35 @@
-"""Attention blocks: GQA (full / local-window / bidirectional / cross).
-Query-chunked score computation keeps the activation peak at
-``block_q * S`` instead of ``S^2``. Port of ``repro.models.attention``.
+"""Attention blocks: GQA (full / local-window / bidirectional / cross) and
+DeepSeek-style MLA with compressed KV. Query-chunked score computation
+keeps the activation peak at ``block_q * S`` instead of ``S^2``. Port of
+``repro.models.attention``.
 
 Layouts: x (B, T, D); q (B, T, KH, G, hd); k/v (B, S, KH, hd).
-Decode caches: {"k": (B, S, KH, hd), "v": ...}, written in place (the
-reference returns updated copies; the returned cache holds the same
-tensors, so a caller that keeps the old cache sees the new entries).
+Decode caches: {"k": (B, S, KH, hd), "v": ...}; MLA caches only the
+latent: {"ckv": (B, S, r_kv), "kr": (B, S, r_rope)}. Both are written in
+place (the reference returns updated copies; the returned cache holds the
+same tensors, so a caller that keeps the old cache sees the new entries).
 
 The score and value products are plain ``torch`` einsums, as the reference
 leaves them to ``jnp.einsum`` outside any Pallas kernel; the scores are
 float32 products of the activations (``preferred_element_type``), the
 masking and softmax the reference's letter for letter (``NEG_INF``, the
 softcap, ring slots with a negative position). The protected projections
-go through :func:`~repro_torch.models.layers.dense`.
-
-DeepSeek-style MLA waits for the MoE slice with DeepSeek-V3 (ROADMAP queue
-1 item 9): its functions raise.
+go through :func:`~repro_torch.models.layers.dense`; MLA's up-projections
+``w_uk``/``w_uv`` (the halves of ``wkv_b``) are plain einsums there, as in
+the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import layers
 from .layers import apply_rope, dense, dense_init, rope
 
 __all__ = ["make_attn_params", "attention", "make_mla_params",
            "mla_attention", "init_kv_cache", "init_mla_cache"]
 
 NEG_INF = -2.0 ** 30
-
-MLA_ITEM = ("MLA attention is not ported yet: it comes with moe.py and "
-            "DeepSeek-V3, ROADMAP queue 1 item 9")
 
 
 # ---------------------------------------------------------------------------
@@ -221,16 +220,111 @@ def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, layers_shape=(),
 
 
 # ---------------------------------------------------------------------------
-# MLA (DeepSeek-V2/V3): not ported yet
+# MLA (DeepSeek-V2/V3): low-rank compressed KV + decoupled RoPE
 # ---------------------------------------------------------------------------
 
-def make_mla_params(*args, **kwargs):
-    raise NotImplementedError(MLA_ITEM)
+def make_mla_params(gen, cfg, dtype=torch.float32, device="cuda") -> dict:
+    d = cfg.d_model
+    h = cfg.num_heads
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kw = dict(dtype=dtype, device=device)
+    p = {}
+    if rq:
+        p["wq_a"] = dense_init(gen, (d, rq), **kw)
+        p["q_norm"] = layers.make_norm_params(rq, device=device)
+        p["wq_b"] = dense_init(gen, (rq, h * (dn + dr)), **kw)
+    else:
+        p["wq"] = dense_init(gen, (d, h * (dn + dr)), **kw)
+    p["wkv_a"] = dense_init(gen, (d, rkv + dr), **kw)
+    p["kv_norm"] = layers.make_norm_params(rkv, device=device)
+    p["wkv_b"] = dense_init(gen, (rkv, h * (dn + dv)), **kw)
+    p["wo"] = dense_init(gen, (h * dv, d), **kw)
+    return p
 
 
-def mla_attention(*args, **kwargs):
-    raise NotImplementedError(MLA_ITEM)
+def mla_attention(params, x, *, cfg, positions, cache=None, cache_pos=None,
+                  block_q=1024, ft=None):
+    """MLA self-attention (causal). Returns (out, new_cache).
+
+    Prefill: reconstructs full K/V from the latent (naive path) and runs
+    :func:`_sdpa` with K = H heads of one query each.
+    Decode: the weight-absorbed path — float32 scores and the values
+    computed directly against the cached latent, O(S * (r_kv + d_rope))
+    per step; the latent is written into ``cache`` in place at
+    ``cache_pos`` (an int).
+    """
+    b, t, d = x.shape
+    h = cfg.num_heads
+    rkv = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+
+    # queries
+    if cfg.q_lora_rank:
+        qa = dense({"w": params["wq_a"]}, x, ft=ft)
+        qa = layers.rmsnorm(params["q_norm"], qa, cfg.norm_eps)
+        q = dense({"w": params["wq_b"]}, qa, ft=ft)
+    else:
+        q = dense({"w": params["wq"]}, x, ft=ft)
+    q = q.reshape(b, t, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    cos, sin = rope(positions, dr, cfg.rope_theta, x.dtype)
+    q_rope = apply_rope(q_rope, cos[None], sin[None])
+
+    # latent kv
+    kv = dense({"w": params["wkv_a"]}, x, ft=ft)
+    ckv, k_rope = kv[..., :rkv], kv[..., rkv:]
+    ckv = layers.rmsnorm(params["kv_norm"], ckv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None], cos[None], sin[None])[:, :, 0]
+
+    wkv_b = params["wkv_b"].reshape(rkv, h, dn + dv)
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
+
+    if cache is None:
+        # prefill/train: reconstruct per-head K/V (naive path)
+        k_nope = torch.einsum("btr,rhd->bthd", ckv, w_uk.to(ckv.dtype))
+        v = torch.einsum("btr,rhd->bthd", ckv, w_uv.to(ckv.dtype))
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(b, t, h, dr)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        out = _sdpa(qq.reshape(b, t, h, 1, dn + dr), k, v, positions,
+                    positions, "causal", cfg.window_size, block_q)
+        out = out.reshape(b, t, h * dv)
+        new_cache = None
+    else:
+        # decode: absorbed path against the latent cache
+        pos = int(cache_pos)
+        ckv_c = _cache_write(cache["ckv"], ckv, pos)
+        kr_c = _cache_write(cache["kr"], k_rope, pos)
+        new_cache = {"ckv": ckv_c, "kr": kr_c}
+        s = ckv_c.shape[1]
+        # absorb W_uk into q: (b,t,h,dn) x (r,h,dn) -> (b,t,h,r)
+        q_abs = torch.einsum("bthd,rhd->bthr", q_nope,
+                             w_uk.to(q_nope.dtype))
+        # float32 scores of the activations' products
+        scores = (torch.einsum("bthr,bsr->bhts", q_abs.float(),
+                               ckv_c.to(q_abs.dtype).float())
+                  + torch.einsum("bthd,bsd->bhts", q_rope.float(),
+                                 kr_c.to(q_rope.dtype).float()))
+        scores = scores / float(np.sqrt(dn + dr))
+        m = _mask(positions, torch.arange(s, device=x.device), "causal",
+                  cfg.window_size)
+        scores = torch.where(m[None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhts,bsr->bthr", probs, ckv_c.to(x.dtype))
+        out = torch.einsum("bthr,rhd->bthd", ctx, w_uv.to(x.dtype))
+        out = out.reshape(b, t, h * dv)
+
+    out = dense({"w": params["wo"]}, out, ft=ft)
+    return out, new_cache
 
 
-def init_mla_cache(*args, **kwargs):
-    raise NotImplementedError(MLA_ITEM)
+def init_mla_cache(cfg, batch, max_len, dtype=torch.bfloat16, layers_shape=(),
+                   device="cuda"):
+    lead = tuple(layers_shape) + (batch, max_len)
+    return {
+        "ckv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype,
+                           device=device),
+        "kr": torch.zeros(lead + (cfg.qk_rope_head_dim,), dtype=dtype,
+                          device=device),
+    }

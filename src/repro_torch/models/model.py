@@ -1,13 +1,15 @@
 """Model assembly: embeddings -> (prefix | repeated super-blocks | tail) ->
-final norm -> lm head. Port of ``repro.models.model`` for the dense decoder
-family and the recurrent models (RecurrentGemma, xLSTM).
+final norm -> lm head. Port of ``repro.models.model`` for the decoder-only
+models: the dense family, the recurrent models (RecurrentGemma, xLSTM) and
+the MoE models (DeepSeek-V3 with MLA, Llama-4 Maverick).
 
 Functional, as the reference: ``Model.init`` builds the param tree (on the
 ``meta`` device it allocates nothing: :func:`count_params`),
 ``Model.apply`` runs the full-sequence forward (training shapes and
 prefill), ``Model.decode_step`` advances one token against the cache tree
-from ``Model.init_cache`` (KV caches and recurrent states, stacked along
-the repeated super-blocks), whose tensors it writes in place.
+from ``Model.init_cache`` (KV caches, MLA's latent caches and recurrent
+states, stacked along the repeated super-blocks), whose tensors it writes
+in place.
 
 Left out: the encoder-decoder model (Whisper) and the modality frontend
 stubs raise, naming their ROADMAP item; ``remat`` belongs to the training

@@ -1,19 +1,19 @@
 """Block assembly and the layer grouping. Port of
-``repro.models.transformer`` for the dense decoder family and the
-recurrent mixers.
+``repro.models.transformer``.
 
-A *block* = pre-norm mixer (attention family / recurrent family) +
-pre-norm MLP (none for xLSTM's blocks, which hold their own). Layers are
-grouped into (prefix, repeated super-blocks, tail) as in the reference,
-whose ``jax.lax.scan`` runs the super-blocks as one loop; here a Python
-loop walks the leading ``n_super`` axis of ``stack["scan"][f"slot{j}"]``.
-The param and cache trees keep that stacked axis, so the reference's
-params carry across unchanged (``models.convert.params_from_numpy``).
+A *block* = pre-norm mixer (attention family / MLA / recurrent family) +
+pre-norm FFN (dense or MoE; none for xLSTM's blocks, which hold their
+own). Layers are grouped into (prefix, repeated super-blocks, tail) as in
+the reference, whose ``jax.lax.scan`` runs the super-blocks as one loop;
+here a Python loop walks the leading ``n_super`` axis of
+``stack["scan"][f"slot{j}"]``. The param and cache trees keep that
+stacked axis, so the reference's params carry across unchanged
+(``models.convert.params_from_numpy``).
 
-The kinds ported are the ``attn``/``local``/``global``/``bidir`` and
-``rglru`` mixers with an ``mlp`` FFN, and ``mlstm``/``slstm`` with none
-(``models.ssm``). MLA and ``moe`` FFNs raise ``NotImplementedError``,
-naming the ROADMAP item that ports them.
+Every block kind of the decoder stack is ported: the
+``attn``/``local``/``global``/``bidir`` and ``mla`` mixers with an ``mlp``
+or ``moe`` FFN, ``rglru`` with an ``mlp``, and ``mlstm``/``slstm`` with
+none (``models.ssm``).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import attention, layers, ssm
+from . import attention, layers, moe, ssm
 from .layers import FTContext
 
 __all__ = ["effective_kinds", "layer_groups", "make_block_params",
@@ -33,25 +33,13 @@ __all__ = ["effective_kinds", "layer_groups", "make_block_params",
 ATTN_KINDS = ("attn", "local", "global", "bidir")
 RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
-_ITEM_9 = "ROADMAP queue 1 item 9"
-_NOT_PORTED = {
-    "mla": f"MLA attention (with moe.py and DeepSeek-V3, {_ITEM_9})",
-    "moe": f"the MoE FFN (moe.py with DeepSeek-V3 and Llama-4, {_ITEM_9})",
-}
-
-
 def check_kind(kind: str) -> None:
-    """Raise ``NotImplementedError`` for a 'mixer|ffn' kind whose mixer or
-    FFN is not ported yet, naming its ROADMAP item; ``ValueError`` for one
-    that is no kind at all."""
+    """Raise ``ValueError`` for a 'mixer|ffn' kind that is no kind at
+    all."""
     base, ffn = kind.split("|")
-    for part in (base, ffn):
-        if part in _NOT_PORTED:
-            raise NotImplementedError(f"block kind {kind!r} needs "
-                                      f"{_NOT_PORTED[part]}, not ported yet")
-    if base not in ATTN_KINDS + RECURRENT_KINDS:
+    if base not in ATTN_KINDS + ("mla",) + RECURRENT_KINDS:
         raise ValueError(base)
-    if ffn not in ("mlp", "none"):
+    if ffn not in ("mlp", "moe", "none"):
         raise ValueError(ffn)
 
 
@@ -135,6 +123,8 @@ def make_block_params(gen, cfg, kind: str, dtype=torch.float32,
         p["attn"] = attention.make_attn_params(
             gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             qkv_bias=cfg.qkv_bias, dtype=dtype, device=device)
+    elif base == "mla":
+        p["attn"] = attention.make_mla_params(gen, cfg, dtype, device=device)
     else:
         make = {"rglru": ssm.make_rglru_params,
                 "mlstm": ssm.make_mlstm_params,
@@ -146,6 +136,10 @@ def make_block_params(gen, cfg, kind: str, dtype=torch.float32,
         p["mlp"] = layers.make_mlp_params(gen, cfg.d_model,
                                           cfg.dense_d_ff or cfg.d_ff,
                                           cfg.act, dtype, device=device)
+    elif ffn == "moe":
+        p["norm2"] = layers.make_norm_params(cfg.d_model, cfg.norm,
+                                             device=device)
+        p["moe"] = moe.make_moe_params(gen, cfg, dtype, device=device)
     return p
 
 
@@ -156,8 +150,10 @@ def block_apply(params, x, *, cfg, kind: str, positions=None, cache=None,
     ``inject`` is an optional fault descriptor ``(F, 5)`` ``[site, row,
     col, enable, eps]`` armed against this block's protected matmuls (site
     = matmul index within the block, call order: the mixer's, then the
-    MLP's; q, k, v, o for attention, ``models.ssm`` for the recurrent
-    mixers) — see :class:`FTContext`. Each block builds its own context,
+    FFN's; q, k, v, o for attention, ``wq_a``, ``wq_b``, ``wkv_a``, ``wo``
+    for MLA, ``models.ssm`` for the recurrent mixers; a MoE FFN's shared
+    expert takes the FFN's, its routed experts none) — see
+    :class:`FTContext`. Each block builds its own context,
     so one descriptor faults its site in every block, as in the reference.
     A recurrent mixer writes its new state into ``cache`` in place.
     """
@@ -176,6 +172,10 @@ def block_apply(params, x, *, cfg, kind: str, positions=None, cache=None,
             kind={"attn": "causal", "global": "causal"}.get(base, base),
             positions=positions, cache=cache, cache_pos=cache_pos,
             theta=theta, block_q=block_q, ft=ft)
+    elif base == "mla":
+        mix, new_cache = attention.mla_attention(
+            params["attn"], h, cfg=cfg, positions=positions, cache=cache,
+            cache_pos=cache_pos, block_q=block_q, ft=ft)
     elif base == "rglru":
         mix, new_cache = ssm.rglru_block(params["mixer"], h, state=cache,
                                          ft=ft)
@@ -188,10 +188,16 @@ def block_apply(params, x, *, cfg, kind: str, positions=None, cache=None,
     x = x + mix
     if ffn == "mlp":
         h = layers.norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
-        # a model with recurrent mixers takes their op-by-op silu
-        silu = ssm.silu if set(RECURRENT_KINDS) & set(cfg.block_pattern) \
+        # a model with recurrent mixers or experts takes the op-by-op silu
+        # (the experts' router reads the activations it rounds)
+        silu = ssm.silu if (set(RECURRENT_KINDS) & set(cfg.block_pattern)
+                            or cfg.num_experts) \
             else torch.nn.functional.silu
         x = x + layers.mlp(params["mlp"], h, cfg.act, ft=ft, silu=silu)
+    elif ffn == "moe":
+        h = layers.norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
+        y, aux["moe_aux"] = moe.moe_block(params["moe"], h, cfg, ft=ft)
+        x = x + y
 
     if ft is not None:
         aux.update({k: v.to(x.device) for k, v in ft.summary().items()})
@@ -202,7 +208,8 @@ def block_apply(params, x, *, cfg, kind: str, positions=None, cache=None,
 
 def init_block_state(cfg, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cuda"):
-    """Decode-time cache (attention) or recurrent state for one block."""
+    """Decode-time cache (attention, MLA's latent) or recurrent state for
+    one block."""
     check_kind(kind)
     base, _ = kind.split("|")
     if base == "rglru":
@@ -211,6 +218,9 @@ def init_block_state(cfg, kind: str, batch: int, max_len: int,
         return ssm.init_mlstm_state(cfg, batch, dtype, device=device)
     if base == "slstm":
         return ssm.init_slstm_state(cfg, batch, dtype, device=device)
+    if base == "mla":
+        return attention.init_mla_cache(cfg, batch, max_len, dtype,
+                                        device=device)
     if base == "local":
         max_len = min(max_len, cfg.window_size)
     return attention.init_kv_cache(cfg, batch, max_len, dtype, device=device)

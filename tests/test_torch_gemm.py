@@ -327,20 +327,29 @@ def test_one_policy_configures_both_families():
     assert fp.spec.ft is cfg and gp.spec.ft is cfg
 
 
-def test_fused_plan_requires_tile_alignment():
-    # the fused kernel needs K and N aligned to the tiles (M is padded)
-    for shape in ((128, 100, 128), (128, 128, 100)):
-        with pytest.raises(ValueError, match="tile-aligned K and N.*eager"):
-            gemm.plan(gemm.GEMMSpec(shape=shape, ft=FT, backend="fused",
-                                    device=CPU))
-    assert gemm.plan(gemm.GEMMSpec(shape=(100, 128, 128), ft=FT,
-                                   backend="fused",
-                                   device=CPU)).backend == "fused"
-    # on the CPU auto is always eager (the kernel needs a card), aligned
-    # or not
-    for shape in ((100, 128, 128), (128, 100, 128), (128, 128, 128)):
-        assert gemm.plan(gemm.GEMMSpec(shape=shape, ft=FT,
-                                       device=CPU)).backend == "eager"
+@pytest.mark.parametrize("shape", [(100, 100, 128), (128, 128, 100),
+                                   (32, 128, 48), (4, 72, 40)],
+                         ids=["K", "N", "N48", "MKN"])
+def test_fused_plan_requires_tile_alignment(rng, shape):
+    """The kernel takes K and N in multiples of its tiles: the fused plan
+    zero-pads a K or N that no tile divides (and M), so a product of any
+    shape runs on the kernel. Its plain version gives the eager path's y
+    and stats bit for bit on integer operands, a fault in the last row
+    and column corrected; on the CPU auto stays eager, aligned or not."""
+    m, k, n = shape
+    x, w = _int_mats(rng, m, k, n)
+    p = gemm.plan(gemm.spec_for(_t(x), _t(w), ft=FT, backend="fused"))
+    assert p.backend == "fused"
+    inj = torch.tensor([m - 1.0, n - 1.0, 1.0, 300.0])
+    y, s = p.ft_matmul(_t(x), _t(w), inject=inj)
+    ye, se = _port_plan(_t(x), _t(w), "eager").ft_matmul(_t(x), _t(w),
+                                                         inject=inj)
+    _bits_equal(y, ye)
+    _stats_equal(s, se)
+    assert (float(s["flagged"]), float(s["corrected"])) == (1.0, 1.0)
+    np.testing.assert_array_equal(_np(y), x @ w)
+    assert gemm.plan(gemm.GEMMSpec(shape=shape, ft=FT,
+                                   device=CPU)).backend == "eager"
 
 
 @pytest.mark.parametrize("shape,tiles", [
@@ -370,13 +379,16 @@ def test_spec_for_fits_the_tiles_to_k_and_n(rng, shape, tiles):
 
 
 def test_spec_for_leaves_what_no_tile_divides_to_raise():
-    """A K or N that no kernel tile divides keeps 128 and the fused plan
-    raises, as before; ``tiles`` given by the caller are kept."""
-    for k, n in ((100, 128), (128, 100), (48, 1344)):
+    """A K or N that no kernel tile divides gets the smallest tile (bk 32,
+    bn 64), to which the fused path pads it; the plan builds. ``tiles``
+    given by the caller are kept."""
+    for k, n, tiles in ((100, 128, (128, 32, 128)),
+                        (128, 100, (128, 128, 64)),
+                        (48, 1344, (128, 32, 64))):
         x, w = torch.zeros(4, k), torch.zeros(k, n)
         spec = gemm.spec_for(x, w, ft=FT, backend="fused")
-        with pytest.raises(ValueError, match="tile-aligned K and N"):
-            gemm.plan(spec)
+        assert spec.tiles == tiles
+        assert gemm.plan(spec).backend == "fused"
     x, w = torch.zeros(4, 1344), torch.zeros(1344, 1344)
     assert gemm.spec_for(x, w, tiles=(64, 64, 64)).tiles == (64, 64, 64)
 

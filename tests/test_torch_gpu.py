@@ -613,13 +613,25 @@ def test_gemm_plan_auto_takes_the_kernel_on_cuda(cuda):
 @pytest.mark.parametrize("shape", [(4, 100, 128), (4, 128, 100)],
                          ids=["K", "N"])
 def test_gemm_plan_unaligned_k_or_n_raises_on_cuda(cuda, shape):
-    """No silent fallback on the card: an unaligned K or N raises, naming
-    backend='eager', which then runs the torch path."""
+    """No fallback on the card: an unaligned K or N is zero-padded to the
+    tiles and runs on the kernel (one launch), its product and stats those
+    of the eager path on the same card, a fault corrected; backend='eager'
+    still asks for the torch path."""
     cfg = FTConfig(threshold=1e-3)
-    with pytest.raises(ValueError, match="tile-aligned K and N.*eager"):
-        gemm.plan(gemm.GEMMSpec(shape=shape, ft=cfg))
-    assert gemm.plan(gemm.GEMMSpec(shape=shape, ft=cfg,
-                                   backend="eager")).backend == "eager"
+    m, k, n = shape
+    x, w = _path_operands(cuda, m, k, n, torch.float32)
+    p = gemm.plan(gemm.spec_for(x, w, ft=cfg))
+    assert p.backend == "fused"
+    inj = torch.tensor([[m - 1, n - 1, 1, 75.0]])
+    before = ft_matmul.launches
+    y, st = p.ft_matmul(x, w, inject=inj)
+    assert ft_matmul.launches == before + 1
+    eager = gemm.plan(gemm.spec_for(x, w, ft=cfg, backend="eager"))
+    assert eager.backend == "eager"
+    ye, se = eager.ft_matmul(x, w, inject=inj)
+    assert (float(st["flagged"]), float(st["corrected"])) == (1.0, 1.0)
+    assert (float(se["flagged"]), float(se["corrected"])) == (1.0, 1.0)
+    assert (y - ye).abs().max().item() <= GEMM_TOL * ye.abs().max().item()
 
 
 @pytest.mark.parametrize("m", [1, 4, 100, 200])
@@ -1091,3 +1103,136 @@ def test_serve_launch_counts_are_exact_with_two_workers(cuda):
     assert per_batch == {"fft:8192:c64": (1, 0), "fft:16384:c64": (2, 0),
                          "fft:8192:c64:ft": (1, 1)}
     assert got == tuple(want), (got, want, stats)
+
+
+# ---- the MoE FFN and MLA (DeepSeek-V3, Llama-4 Maverick) ------------------
+
+MOE_ARCHS = ["deepseek_v3_671b", "llama4_maverick"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_and_mla_smoke_on_the_card_match_the_cpu(cuda, arch):
+    """The MoE models' SMOKE configs at float32, unprotected: the MoE block
+    and (DeepSeek) MLA alone, then the forward and 6 decode steps on the
+    card against the port on the CPU, within 1e-3 x max|cpu|."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model, attention, moe
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16, cfg.d_model, generator=gen)
+    mp = moe.make_moe_params(gen, cfg, device="cpu")
+    want, waux = moe.moe_block(mp, x, cfg)
+    got, gaux = moe.moe_block(_tree_to(mp, cuda), x.to(cuda), cfg)
+    tol = 1e-3 * want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= tol
+    assert abs(float(gaux) - float(waux)) <= 1e-5 * float(waux)
+    if cfg.kv_lora_rank:
+        ap = attention.make_mla_params(gen, cfg, device="cpu")
+        pos = torch.arange(16)
+        want, _ = attention.mla_attention(ap, x, cfg=cfg, positions=pos)
+        got, _ = attention.mla_attention(_tree_to(ap, cuda), x.to(cuda),
+                                         cfg=cfg, positions=pos.to(cuda))
+        tol = 1e-3 * want.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= tol
+    m = Model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    gparams = _tree_to(params, cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)), dtype=torch.int32)
+    want, _ = m.apply(params, {"tokens": toks}, block_q=8)
+    got, _ = m.apply(gparams, {"tokens": toks.to(cuda)}, block_q=8)
+    tol = 1e-3 * want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= tol
+    caches = {"cpu": m.init_cache(2, 8, dtype=torch.float32, device="cpu"),
+              "cuda": m.init_cache(2, 8, dtype=torch.float32, device=cuda)}
+    for i in range(6):
+        lc, caches["cpu"], _ = m.decode_step(params, caches["cpu"],
+                                             toks[:, i:i + 1], i)
+        lg, caches["cuda"], _ = m.decode_step(gparams, caches["cuda"],
+                                              toks[:, i:i + 1].to(cuda), i)
+        tol = 1e-3 * lc.abs().max().item()
+        assert (lg.cpu() - lc).abs().max().item() <= tol, i
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_protected_moe_decode_step_launch_counts(cuda, arch):
+    """The MoE models' SMOKE configs, every linear protected (their 40- and
+    48-wide products zero-padded to the kernel's tiles): one decode step
+    launches ``ft_matmul`` 7 times a layer (MLA's or attention's 4, then
+    the dense FFN's or the shared expert's 3) and calls the eager batched
+    product 3 times a MoE layer (the routed experts) and the eager 2-D
+    path never; its logits agree with the CPU's, and a fault at site 1 of
+    every block is corrected in each."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.abft import gemm as abft_gemm
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import effective_kinds
+
+    base = get_smoke_config(arch)
+    cfg = dataclasses.replace(base, dtype="float32", ft=dataclasses.replace(
+        base.ft, protect_linears=True, threshold=1e-3))
+    moe_layers = sum(k.endswith("|moe") for k in effective_kinds(cfg))
+    assert moe_layers > 0
+    m = Model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    gparams = _tree_to(params, cuda)
+    toks = torch.tensor([[5], [77], [300], [511]], dtype=torch.int32)
+    want, _, _ = m.decode_step(params, m.init_cache(4, 8, device="cpu"),
+                               toks, 0)
+    eager, batched = abft_gemm.ft_matmul, abft_gemm.ft_matmul_batched
+    calls = {"eager": 0, "batched": 0}
+
+    def count(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    abft_gemm.ft_matmul = count("eager", eager)
+    abft_gemm.ft_matmul_batched = count("batched", batched)
+    try:
+        for inject in (None, torch.tensor([[1.0, 2.0, 9.0, 1.0, 60.0]],
+                                          device=cuda)):
+            before = ft_matmul.launches
+            calls["batched"] = 0
+            got, _, aux = m.decode_step(
+                gparams, m.init_cache(4, 8, device=cuda), toks.to(cuda), 0,
+                inject=inject)
+            assert ft_matmul.launches - before == 7 * cfg.num_layers
+            assert calls["batched"] == 3 * moe_layers
+            faults = 0 if inject is None else cfg.num_layers
+            assert float(aux["ft_flagged"]) == faults
+            assert float(aux["ft_corrected"]) == faults
+            tol = 1e-3 * want.abs().max().item()
+            assert (got.cpu() - want).abs().max().item() <= tol
+    finally:
+        abft_gemm.ft_matmul, abft_gemm.ft_matmul_batched = eager, batched
+    assert calls["eager"] == 0
+
+
+def test_ft_matmul_batched_on_the_card_matches_the_cpu(cuda):
+    """The routed experts' checked product (E, C, d) @ (E, d, f) on the
+    card: y and the per-expert stats of the CPU's, a fault an expert
+    corrected."""
+    from repro_torch.core.abft import gemm as abft_gemm
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 8, 256, generator=gen).to(torch.bfloat16)
+    w = torch.randn(8, 256, 128, generator=gen)
+    inj = torch.stack([torch.tensor([[float(e % 8), float(3 * e), 50.0]])
+                       for e in range(8)])
+    want, ws = abft_gemm.ft_matmul_batched(x, w, inject=inj)
+    got, gs = abft_gemm.ft_matmul_batched(x.to(cuda), w.to(cuda),
+                                          inject=inj.to(cuda))
+    assert got.dtype == torch.bfloat16
+    tol = 2.0 ** -7 * want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+    for key in ("flagged", "corrected", "uncorrectable"):
+        assert gs[key].cpu().tolist() == ws[key].tolist() == (
+            [1.0] * 8 if key != "uncorrectable" else [0.0] * 8), key
+

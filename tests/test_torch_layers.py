@@ -349,7 +349,8 @@ def test_phi4_mini_config_matches_reference(which):
 def test_config_registry():
     assert configs.ARCHS == ["qwen15_110b", "phi3_medium_14b",
                              "phi4_mini_3p8b", "gemma3_1b", "xlstm_350m",
-                             "recurrentgemma_2b"] \
+                             "recurrentgemma_2b", "deepseek_v3_671b",
+                             "llama4_maverick"] \
         == configs.all_arch_names()
     from repro_torch.configs import phi4_mini_3p8b
     assert configs.get_config("phi4_mini_3p8b") is phi4_mini_3p8b.CONFIG
@@ -366,6 +367,8 @@ def test_config_registry():
     assert set(configs.NOT_YET_PORTED) | set(configs.ARCHS) == \
         set(ref_configs.ARCHS)
     with pytest.raises(ValueError, match="not yet ported"):
-        configs.get_config("deepseek-v3-671b")
+        configs.get_config("whisper-base")
+    assert configs.get_config("deepseek-v3-671b").kv_lora_rank == 512
+    assert configs.get_config("llama4-maverick-400b-a17b").moe_interval == 2
     with pytest.raises(ValueError, match="unknown architecture"):
         configs.get_config("no_such_model")

@@ -116,11 +116,11 @@ def test_cli_serve_mode_default_n_refuses_the_ft_tenant(capsys):
 
 
 def test_cli_lm_mode_names_item_9(capsys):
-    """``--mode lm`` runs the dense decoder family and the recurrent
-    models (``tests/test_torch_serve_lm.py``); an architecture whose layers
-    are not ported yet raises, naming the item."""
+    """``--mode lm`` runs the decoder-only models
+    (``tests/test_torch_serve_lm.py``); an architecture whose layers are
+    not ported yet (Whisper's encoder-decoder) raises, naming the item."""
     with pytest.raises(ValueError, match="not yet ported.*item 9"):
-        _run_port(capsys, "--mode", "lm", "--arch", "deepseek-v3-671b")
+        _run_port(capsys, "--mode", "lm", "--arch", "whisper-base")
 
 
 @pytest.mark.parametrize("flags", [("--fft-shards", "2"), ("--fft-data", "2"),

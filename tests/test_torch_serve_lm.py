@@ -2,8 +2,9 @@
 serve and prefill step factories, ``--mode lm``) against the reference
 ``repro.launch.serve`` on the CPU, with the reference's own initialised
 params carried across by ``params_from_numpy`` and the same prompts: the
-dense decoder family and the recurrent models (their states carried
-through every step).
+dense decoder family, the recurrent models (their states carried through
+every step) and the MoE models (DeepSeek-V3 with MLA's latent cache,
+Llama-4 Maverick).
 
 Greedy tokens are compared for equality: at float32 the two paths' logits
 agree to about 1e-6 relative (``tests/test_torch_models.py``), far inside
@@ -63,7 +64,8 @@ def _setup(arch, dtype="float32", protect=False):
 
 
 @pytest.mark.parametrize("arch", ["phi4_mini_3p8b", "gemma3_1b",
-                                  "xlstm_350m", "recurrentgemma_2b"])
+                                  "xlstm_350m", "recurrentgemma_2b",
+                                  "deepseek_v3_671b", "llama4_maverick"])
 def test_decode_tokens_match_reference(arch):
     (pm, pp), (rm, rp), (tp, tr) = _setup(arch)
     got = launch.decode(pm, pp, tp, GEN)
@@ -86,6 +88,16 @@ def test_recurrent_decode_fault_ledger_matches_reference(arch):
     RG-LRU block, q and k of a local-attention block; ``w_up``, ``wq`` of
     an mLSTM block, ``w_i``, ``w_f`` of an sLSTM block), and the corrected
     products leave the carried states those of the clean run."""
+    _check_fault_ledger(arch)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "llama4_maverick"])
+def test_moe_decode_fault_ledger_matches_reference(arch):
+    """The same on the MoE models: sites 0 and 1 are ``wq_a`` and ``wq_b``
+    of an MLA block (DeepSeek), q and k of an attention block (Llama-4);
+    the routed experts' checked products take no site, so the ledger is
+    2 x layers, and every corrected product leaves the routing that of
+    the clean run."""
     _check_fault_ledger(arch)
 
 
@@ -172,6 +184,30 @@ def test_cli_lm_mode_recurrentgemma_matches_reference(ft, capsys,
     assert got[0] == "generated (4, 32)"
     if ft:
         assert re.search(r"detected=12 corrected=12", got[1]), got[1]
+
+
+@pytest.mark.parametrize("ft", [False, True], ids=["clean", "ft"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b",
+                                  "llama4-maverick-400b-a17b"])
+def test_cli_lm_mode_moe_matches_reference(arch, ft, capsys, monkeypatch):
+    """``--mode lm --arch deepseek-v3-671b|llama4-maverick-400b-a17b
+    --preset tiny`` (SMOKE: MLA and 8 experts top-2 with a shared expert;
+    GQA and 4 experts top-1, MoE every other layer; batch 4, prompt 16,
+    gen 32) prints the reference CLI's tokens and, with ``--ft``, its
+    ledger (2 entries x 4 layers), both packages' SMOKE config at float32
+    activations: at bfloat16 a router's near-tie can flip between the two
+    packages' roundings (``tests/test_torch_models.py``)."""
+    for mod, get in ((ref_launch, ref_configs.get_smoke_config),
+                     (launch, configs.get_smoke_config)):
+        monkeypatch.setattr(mod, "get_smoke_config",
+                            lambda arch, get=get: dataclasses.replace(
+                                get(arch), dtype="float32"))
+    got, want = _cli_both(["--arch", arch, "--preset", "tiny",
+                           *(["--ft"] if ft else [])], capsys, monkeypatch)
+    assert got == want
+    assert got[0] == "generated (4, 32)"
+    if ft:
+        assert re.search(r"detected=8 corrected=8", got[1]), got[1]
 
 
 def _cli_both(argv, capsys, monkeypatch):
