@@ -95,7 +95,29 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   traces of a protected and an unprotected step, the expert products
   against their byte bound, ``ft_matmul`` against its plain version at
   the path's products (``MOE_FTMM_SHAPES``), and ``--mode lm --arch
-  deepseek-v3-671b --preset tiny --ft`` as a subprocess.
+  deepseek-v3-671b --preset tiny --ft`` as a subprocess;
+* training (phase 10, ``train_drive``, then ``train_measure``): Gemma-3 1B
+  at its published widths (999,812,736 params, f32, with random weights
+  from a seeded CUDA generator; bf16 activations) at ``launch.train``'s
+  defaults, batch 8 x 256 tokens (M = 2048), lr 3e-4, ``TokenPipeline(
+  seed=0)``: (a) one step's loss and gradients at float32 activations
+  protected on ``ft_matmul``, protected on the eager path and
+  unprotected, held against each other (loss 1e-5 relative, each
+  gradient leaf 1e-4 x its max); (b) 20 ``make_train_step`` steps
+  protected and 20 unprotected from the same weights: finite losses, the
+  last five below the first five, 7 x 26 = 182 ``ft_matmul`` launches a
+  protected step and no eager ABFT call, nothing flagged at the policy's
+  1e-4; (c) one SEU at one site of every block inside the loss, flagged
+  and corrected in each of the 26 blocks, the loss and gradients the
+  clean step's; (d) the protected run saved after 5 steps through
+  ``CheckpointManager``, restored into fresh tensors and run to step 10,
+  its losses within 1e-5 of the uninterrupted run's; then primed traces
+  of a protected and an unprotected step, each split into forward (with
+  its 182 ``ft_matmul_tile`` kernels), backward and optimizer (with
+  none) by when each kernel was launched, ``ft_matmul`` at the step's five product shapes against its plain
+  version and ``torch.matmul``, and ``python -m repro_torch.launch.train
+  --preset full --ft-linears`` to 10 steps and again to 12, which
+  resumes from the first run's checkpoint.
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -1234,14 +1256,6 @@ DECODE_SHAPE = (4, 3072, 8192)     # a decode step's MLP up product
 LM_CLI = ("--mode", "lm", "--arch", "gemma3-1b", "--preset", "full", "--ft")
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def protect(cfg):
     """``cfg`` with every linear protected at LM_FT_THRESHOLD."""
     return dataclasses.replace(cfg, ft=dataclasses.replace(
@@ -1380,6 +1394,7 @@ def lm_drive(dev):
     batch-4 prompts) for the measurements that follow."""
     import numpy as np
     import torch
+    from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.kernels.ft_matmul import ft_matmul
     from repro_torch.launch.serve import decode, demo_schedule
@@ -1398,11 +1413,11 @@ def lm_drive(dev):
     params = models["unprotected"].init(
         torch.Generator(device=dev).manual_seed(SEED), device=dev)
     torch.cuda.synchronize()
-    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
     res["params"] = count_params(base)
     res["param_bytes"] = param_bytes
     res["init_s"] = time.perf_counter() - t0
-    check(res["params"] == sum(t.numel() for t in _leaves(params)),
+    check(res["params"] == sum(t.numel() for t in tree.leaves(params)),
           "count_params disagrees with the initialised tree")
     log(f"LM {base.name}: {res['params']} params, {param_bytes / 1e9:.2f} GB "
         f"({base.param_dtype}), activations {base.dtype}, initialised on "
@@ -1757,7 +1772,9 @@ def ulp_witness(model, params, tokens):
     products, for which the model itself, and not the protected path,
     answers. The parameters are moved back after, and held bit for bit."""
     import torch
-    leaves = [t for t in _leaves(params) if t.dtype == torch.float32]
+    from repro_torch import tree
+
+    leaves = [t for t in tree.leaves(params) if t.dtype == torch.float32]
 
     def sums():
         # an int32 sum wraps, in any order, and copies nothing (an int64
@@ -1786,6 +1803,7 @@ def ssm_drive(dev, arch):
     tokens, the batch-4 prompts) for the measurements that follow."""
     import numpy as np
     import torch
+    from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.models import Model, count_params
     from repro_torch.models.transformer import effective_kinds
@@ -1807,11 +1825,11 @@ def ssm_drive(dev, arch):
     params = models["unprotected"].init(
         torch.Generator(device=dev).manual_seed(SEED), device=dev)
     torch.cuda.synchronize()
-    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
     res["params"] = count_params(base)
     res["param_bytes"] = param_bytes
     res["init_s"] = time.perf_counter() - t0
-    check(res["params"] == sum(t.numel() for t in _leaves(params)),
+    check(res["params"] == sum(t.numel() for t in tree.leaves(params)),
           f"{arch}: count_params disagrees with the initialised tree")
     log(f"SSM {base.name}: {res['params']} params, {param_bytes / 1e9:.2f} "
         f"GB ({base.param_dtype}), activations {base.dtype}, layers "
@@ -2166,6 +2184,7 @@ def moe_drive(dev, arch):
     tokens, the batch-4 prompts) for the measurements that follow."""
     import numpy as np
     import torch
+    from repro_torch import tree
     from repro_torch.core.abft import gemm as abft_gemm
     from repro_torch.models import Model, count_params
     from repro_torch.models.transformer import effective_kinds
@@ -2185,11 +2204,11 @@ def moe_drive(dev, arch):
     params = models["unprotected"].init(
         torch.Generator(device=dev).manual_seed(SEED), device=dev)
     torch.cuda.synchronize()
-    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
     res["params"] = count_params(base)
     res["param_bytes"] = param_bytes
     res["init_s"] = time.perf_counter() - t0
-    check(res["params"] == sum(t.numel() for t in _leaves(params)),
+    check(res["params"] == sum(t.numel() for t in tree.leaves(params)),
           f"{arch}: count_params disagrees with the initialised tree")
     tag = f"MoE {base.name}"
     log(f"{tag}: {res['params']} params of the full config's "
@@ -2336,6 +2355,537 @@ def moe_measure(dev, arch, models, params, tokens, prompts4, cuda_ms,
     return res
 
 
+# ---- phase 10: training. Gemma-3 1B at its published widths (f32 params,
+# bf16 activations, random weights from a seeded CUDA generator) at
+# launch.train's defaults: batch 8 x 256 tokens (M = 2048 in every
+# product), lr 3e-4, remat "none", TokenPipeline(seed=0). Every protected
+# linear's forward runs on ft_matmul; its backward is the product's
+# gradient (torch.matmul), as the reference's autodiff gives
+TRAIN_ARCH = "gemma3_1b"
+TRAIN_PARAMS = 999_812_736         # count_params at the published widths
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_VOCAB = 262144
+TRAIN_LR = 3e-4
+TRAIN_STEPS = 20
+TRAIN_WARMUP = 5                   # steps of a run left out of its times
+TRAIN_SITES = 7                    # protected products a block: q k v o, MLP
+# (a), (c), (d): losses relative; gradients, each leaf x its max. At
+# float32 activations the three backends differ by their sums' order
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+# (c): site 4 (the MLP's gate product) of every block, token row 5,
+# column 7, +300
+TRAIN_SEU = (4.0, 5.0, 7.0, 1.0, 300.0)
+TRAIN_SAVE_AFTER = 5               # (d): save after 5 steps, go on to 10
+TRAIN_RESTART_STEPS = 10
+# the step's five product shapes (M, K, N): q and o, k and v, o's input,
+# the MLP's up and down
+TRAIN_FTMM_SHAPES = ((2048, 1152, 1024), (2048, 1152, 256),
+                     (2048, 1024, 1152), (2048, 1152, 6912),
+                     (2048, 6912, 1152))
+TRAIN_CLI = ("--arch", "gemma3-1b", "--preset", "full", "--ft-linears",
+             "--ckpt-every", "5")
+TRAIN_CLI_STEPS = (10, 12)
+TRAIN_PARTS = ("forward", "backward", "optimizer")
+
+
+def _build_dir():
+    """The checkout's ``build/`` (git-ignored), where phase 10 writes its
+    checkpoints (12 GB each) and removes them."""
+    path = os.path.join(ROOT, "build")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _leaf_errs(got, want):
+    """Each leaf's max |got - want| over its max |want|, worst first."""
+    from repro_torch import tree
+
+    errs = []
+    for (path, g), w in zip(tree.leaves_with_path(got), tree.leaves(want)):
+        errs.append((((g - w).abs().max() / w.abs().max()).item(),
+                     "/".join(path)))
+    return sorted(errs, reverse=True)
+
+
+def train_setup(dev):
+    """Gemma-3 1B's configs (unprotected, protected at the policy's 1e-4
+    threshold), its params on the card and the run config of
+    ``launch.train.build``."""
+    import torch
+    from repro_torch.launch.train import build
+    from repro_torch.models import Model, count_params
+
+    base, run = build(TRAIN_ARCH, "full", steps=TRAIN_STEPS,
+                      batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR)
+    prot, prun = build(TRAIN_ARCH, "full", steps=TRAIN_STEPS,
+                       batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                       ft_linears=True)
+    check((base.num_layers, base.d_model, base.d_ff, base.vocab_size,
+           base.dtype, prot.ft.threshold)
+          == (26, 1152, 6912, TRAIN_VOCAB, "bfloat16", 1e-4),
+          f"{TRAIN_ARCH}: {base}")
+    check(count_params(base) == TRAIN_PARAMS,
+          f"{TRAIN_ARCH}: {count_params(base)} params")
+    t0 = time.perf_counter()
+    params = Model(base).init(torch.Generator(device=dev).manual_seed(SEED),
+                              device=dev)
+    torch.cuda.synchronize()
+    log(f"train {base.name}: {TRAIN_PARAMS} params, "
+        f"{4 * TRAIN_PARAMS / 1e9:.2f} GB f32 ({16 * TRAIN_PARAMS / 1e9:.2f} "
+        f"GB with gradients and both AdamW moments), activations "
+        f"{base.dtype}, initialised in {time.perf_counter() - t0:.1f} s")
+    return ({"unprotected": (Model(base), run),
+             "protected": (Model(prot), prun)}, params)
+
+
+def _batch(dev, step):
+    """``launch.train``'s batch of ``step``: TokenPipeline(seed=0) at
+    Gemma-3's vocabulary, on ``dev``."""
+    import torch
+    from repro_torch.data import TokenPipeline
+
+    pipe = TokenPipeline(seed=0, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         vocab_size=TRAIN_VOCAB)
+    return {k: torch.from_numpy(v).to(dev) for k, v in pipe(step).items()}
+
+
+def train_grad_gate(dev, base, params):
+    """(a): one step's loss and gradients at float32 activations three
+    ways, protected on ft_matmul, protected on the eager path, unprotected,
+    held against each other; (c): one SEU at TRAIN_SEU's site of every
+    block, corrected in each, the loss and gradients the clean step's.
+    Returns the results dict."""
+    import torch
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import layer_groups
+    from repro_torch.train.loop import _value_and_grad
+
+    f32 = dataclasses.replace(base.cfg, dtype="float32",
+                              ft=dataclasses.replace(base.cfg.ft,
+                                                     protect_linears=False))
+
+    def protect_on(backend):
+        return dataclasses.replace(f32, ft=dataclasses.replace(
+            f32.ft, protect_linears=True, gemm_backend=backend))
+
+    batch = _batch(dev, 0)
+    q = base.cfg.num_layers * TRAIN_SITES
+    res, ref = {}, None
+    for label, cfg in (("fused", protect_on("fused")),
+                       ("eager", protect_on("eager")),
+                       ("unprotected", f32)):
+        before = ft_matmul.launches
+        (total, (_, aux)), grads = _value_and_grad(
+            Model(cfg), params, batch, block_q=1024, remat="none")
+        launches = ft_matmul.launches - before
+        check(launches == (q if label == "fused" else 0),
+              f"train (a) {label}: {launches} ft_matmul launches")
+        check(float(aux["ft_flagged"]) == 0
+              and bool(torch.isfinite(total)),
+              f"train (a) {label}: loss {float(total)}, flagged "
+              f"{float(aux['ft_flagged'])}")
+        row = {"loss": float(total), "ft_matmul_launches": launches,
+               "max_score": float(aux["ft_max_score"])}
+        if ref is None:
+            ref = (total, grads)
+        else:
+            rel = abs(float(total) - float(ref[0])) / abs(float(ref[0]))
+            errs = _leaf_errs(grads, ref[1])
+            check(rel <= TRAIN_LOSS_TOL and errs[0][0] <= TRAIN_GRAD_TOL,
+                  f"train (a) {label} vs fused: loss {rel:.3e}, worst leaf "
+                  f"{errs[0]}")
+            row.update(loss_rel_err=rel, worst_leaf=list(errs[0]))
+            del grads
+        res[label] = row
+        log(f"train (a) {label} at float32 activations: loss "
+            f"{row['loss']:.7f}, {launches} ft_matmul launches, max score "
+            f"{row['max_score']:.3e}"
+            + (f"; vs fused: loss {row['loss_rel_err']:.3e} relative, "
+               f"worst gradient leaf {row['worst_leaf'][0]:.3e} of its max "
+               f"({row['worst_leaf'][1]})" if "worst_leaf" in row else ""))
+
+    # (c) one SEU at one site: every block builds its own FTContext, so the
+    # site addresses one product in each of the prefix, repeated and tail
+    # blocks of layer_groups
+    g = layer_groups(f32)
+    blocks = len(g.prefix) + g.n_super * len(g.super_block) + len(g.tail)
+    check(blocks == base.cfg.num_layers, f"layer groups {g}")
+    inject = torch.tensor([TRAIN_SEU], dtype=torch.float32, device=dev)
+    (total, (_, aux)), grads = _value_and_grad(
+        Model(protect_on("fused")), params, batch, block_q=1024,
+        remat="none", inject=inject)
+    rel = abs(float(total) - float(ref[0])) / abs(float(ref[0]))
+    errs = _leaf_errs(grads, ref[1])
+    seu = {"site": TRAIN_SEU, "blocks": blocks,
+           "groups": [len(g.prefix), g.n_super, len(g.super_block),
+                      len(g.tail)],
+           "ft_flagged": float(aux["ft_flagged"]),
+           "ft_corrected": float(aux["ft_corrected"]),
+           "max_score": float(aux["ft_max_score"]), "loss_rel_err": rel,
+           "worst_leaf": list(errs[0])}
+    check(seu["ft_flagged"] == seu["ft_corrected"] == blocks
+          and rel <= TRAIN_LOSS_TOL and errs[0][0] <= TRAIN_GRAD_TOL,
+          f"train (c) SEU step: {seu}")
+    log(f"train (c) SEU at site {int(TRAIN_SEU[0])} (row "
+        f"{int(TRAIN_SEU[1])}, column {int(TRAIN_SEU[2])}, +{TRAIN_SEU[4]}) "
+        f"of every block: {blocks} blocks addressed (prefix "
+        f"{len(g.prefix)} + {g.n_super} x {len(g.super_block)} repeated + "
+        f"tail {len(g.tail)}), flagged {seu['ft_flagged']:.0f}, corrected "
+        f"{seu['ft_corrected']:.0f}, max score {seu['max_score']:.3e}; vs "
+        f"the clean step: loss {rel:.3e} relative, worst gradient leaf "
+        f"{errs[0][0]:.3e} of its max")
+    res["seu"] = seu
+    return res
+
+
+def train_run(tag, model, run, params, opt_state, start, stop, eager_calls,
+              mgr=None):
+    """Steps ``start``..``stop - 1`` of ``make_train_step`` on ``params``
+    and ``opt_state`` (written in place), each between CUDA events; every
+    loss finite; a protected step makes exactly TRAIN_SITES x layers
+    ft_matmul launches, flags nothing and calls no eager ABFT path; an
+    unprotected one launches nothing. With ``mgr``, the state is saved
+    after TRAIN_SAVE_AFTER steps. Returns the rows."""
+    import torch
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.train import make_train_step
+
+    step_fn = make_train_step(model, run)
+    protected = model.cfg.ft.protect_linears
+    want = TRAIN_SITES * model.cfg.num_layers if protected else 0
+    rows = []
+    for step in range(start, stop):
+        batch = _batch(model_dev(params), step)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        before, calls = ft_matmul.launches, len(eager_calls)
+        e0.record()
+        params, opt_state, m = step_fn(params, opt_state, batch, step)
+        e1.record()
+        e1.synchronize()
+        row = {k: float(v) for k, v in m.items()}
+        row.update(step=step, ms=e0.elapsed_time(e1),
+                   ft_matmul_launches=ft_matmul.launches - before)
+        check(math.isfinite(row["loss"]) and row["skipped_updates"] == 0,
+              f"train {tag} step {step}: {row}")
+        check(row["ft_matmul_launches"] == want
+              and len(eager_calls) == calls,
+              f"train {tag} step {step}: {row['ft_matmul_launches']} "
+              f"ft_matmul launches (not {want}), "
+              f"{len(eager_calls) - calls} eager ABFT calls")
+        check(row["ft_flagged"] == 0,
+              f"train {tag} step {step}: a clean step flagged "
+              f"{row['ft_flagged']:.0f} at threshold "
+              f"{model.cfg.ft.threshold}")
+        rows.append(row)
+        if mgr is not None and step == TRAIN_SAVE_AFTER - 1:
+            # the write is waited for at once: on a background thread it
+            # would share the host with the timed, host-bound steps
+            mgr.save(step, (params, opt_state))
+            mgr.wait()
+    return rows
+
+
+def model_dev(params):
+    return params["embed"]["embedding"].device
+
+
+def train_drive(dev, eager_calls):
+    """Drive training once (counts are the caller's to reset and read): (a)
+    and (c) at float32 activations, then (b) TRAIN_STEPS steps protected
+    and TRAIN_STEPS unprotected from the same weights, the protected run
+    saved after TRAIN_SAVE_AFTER steps, and (d) the restart from that
+    checkpoint into fresh tensors, to step TRAIN_RESTART_STEPS. Returns
+    (results, models, the initial params) for ``train_measure``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import optim, tree
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+
+    models, params0 = train_setup(dev)
+    res = {"arch": TRAIN_ARCH, "params": TRAIN_PARAMS,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": TRAIN_LR}
+    res["grad_gate"] = train_grad_gate(dev, models["protected"][0], params0)
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt_", dir=_build_dir())
+    try:
+        mgr = CheckpointManager(ckpt_dir)
+        for label in ("protected", "unprotected"):
+            model, run = models[label]
+            params = tree.tree_map(lambda t: t.detach().clone(), params0)
+            opt_state = optim.init_state(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            rows = train_run(label, model, run, params, opt_state, 0,
+                             TRAIN_STEPS, eager_calls,
+                             mgr if label == "protected" else None)
+            losses = [r["loss"] for r in rows]
+            first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+            check(last < first, f"train {label}: the loss did not fall: "
+                                f"{losses}")
+            # the median: a host-bound step's time moves with the host's load
+            timed = [r["ms"] for r in rows[TRAIN_WARMUP:]]
+            res[label] = {
+                "losses": losses, "rows": rows,
+                "first5_mean": float(first), "last5_mean": float(last),
+                "ms_per_step": float(np.median(timed)),
+                "ms_per_step_range": [float(np.min(timed)),
+                                      float(np.max(timed))],
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+                / (float(np.median(timed)) / 1e3),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                "ft_matmul_launches_per_step":
+                    rows[-1]["ft_matmul_launches"],
+                "ft_flagged": sum(r["ft_flagged"] for r in rows)}
+            log(f"train (b) {label}: {TRAIN_STEPS} steps, loss "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 5 "
+                f"{first:.4f}, last 5 {last:.4f}); "
+                f"{res[label]['ms_per_step']:.2f} ms a step, the median of "
+                f"steps {TRAIN_WARMUP}-{TRAIN_STEPS - 1} (range "
+                f"{min(timed):.2f}-{max(timed):.2f}), "
+                f"{res[label]['tokens_per_s']:.0f} tokens/s, "
+                f"{rows[-1]['ft_matmul_launches']} ft_matmul launches a "
+                f"step, flagged {res[label]['ft_flagged']:.0f}, peak "
+                f"{res[label]['peak_memory_bytes'] / 1e9:.2f} GB")
+            del params, opt_state
+            torch.cuda.empty_cache()
+
+        # (d): restore the protected run's state after step 4 into fresh
+        # tensors and go on to the tenth step
+        t0 = time.perf_counter()
+        mgr.wait()
+        model, run = models["protected"]
+        zeros = tree.tree_map(torch.zeros_like, params0)
+        (params, opt_state), meta = restore_checkpoint(
+            ckpt_dir, (zeros, optim.init_state(zeros)))
+        del zeros
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(meta["step"] == TRAIN_SAVE_AFTER - 1
+              and int(opt_state.step) == TRAIN_SAVE_AFTER,
+              f"train (d): restored {meta}, step {int(opt_state.step)}")
+        rows = train_run("restart", model, run, params, opt_state,
+                         TRAIN_SAVE_AFTER, TRAIN_RESTART_STEPS, eager_calls)
+        del params, opt_state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    want = res["protected"]["losses"][TRAIN_SAVE_AFTER:TRAIN_RESTART_STEPS]
+    errs = [abs(r["loss"] - w) / abs(w) for r, w in zip(rows, want)]
+    res["restart"] = {"losses": [r["loss"] for r in rows],
+                      "uninterrupted": want, "rel_errs": errs,
+                      "save_wait_and_restore_s": restore_s}
+    check(max(errs) <= TRAIN_LOSS_TOL,
+          f"train (d) restart: losses {res['restart']}")
+    log(f"train (d) restart after {TRAIN_SAVE_AFTER} steps through "
+        f"CheckpointManager ({restore_s:.1f} s to finish the write and "
+        f"restore {12 * TRAIN_PARAMS / 1e9:.1f} GB): steps "
+        f"{TRAIN_SAVE_AFTER}-"
+        f"{TRAIN_RESTART_STEPS - 1} losses within {max(errs):.3e} relative "
+        f"of the uninterrupted run")
+    return res, models, params0
+
+
+def train_cli(steps):
+    """``python -m repro_torch.launch.train`` at TRAIN_CLI, first to
+    ``steps[0]`` steps, then again to ``steps[1]`` on the same checkpoint
+    directory: each exits 0 with finite losses and nothing flagged, the
+    second resumes from the first's last step. Returns the runs' rows."""
+    import shutil
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    ckpt_dir = tempfile.mkdtemp(prefix="cli_ckpt_", dir=_build_dir())
+    out = []
+    try:
+        for i, n in enumerate(steps):
+            argv = [*TRAIN_CLI, "--steps", str(n), "--ckpt-dir", ckpt_dir,
+                    "--log-every", "1"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", *argv],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=600)
+            text = proc.stdout + proc.stderr
+            lines = re.findall(r"step +(\d+) loss (\S+) ce \S+ gnorm \S+ "
+                               r"ft_flagged (\d+)", text)
+            first = 0 if i == 0 else steps[i - 1]
+            resumed = f"[restore] resumed from step {first - 1}"
+            check(proc.returncode == 0
+                  and [int(s) for s, _, _ in lines] == list(range(first, n))
+                  and all(math.isfinite(float(loss)) and f == "0"
+                          for _, loss, f in lines)
+                  and (i == 0) == (resumed not in text),
+                  f"launch.train {' '.join(argv)}: exit {proc.returncode}\n"
+                  f"{text[-3000:]}")
+            row = {"argv": argv, "seconds": time.perf_counter() - t0,
+                   "steps": [[int(s), float(loss)] for s, loss, _ in lines],
+                   "resumed": i > 0}
+            out.append(row)
+            log(f"launch.train {' '.join(argv)}: steps "
+                f"{lines[0][0]}-{lines[-1][0]}, loss {lines[0][1]} -> "
+                f"{lines[-1][1]}" + (f"; '{resumed}'" if i else "")
+                + f" ({row['seconds']:.1f} s with the process start and "
+                  f"the checkpoints)")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def train_split(evs, mark):
+    """One traced train step's kernels by part, each kernel counted once,
+    at the host time of the runtime call that launched it (the call and
+    the kernel share the tracer's correlation id): before the backward's
+    first ``autograd::engine::evaluate_function`` op the forward (with
+    the schedule's scalar kernels), up to the end of its last one the
+    backward, after it the optimizer. The primer's kernels and the call
+    ``mark``'s own device-side range are left out. Returns ``({part:
+    [kernels, device ms, ft_matmul_tile kernels]} over TRAIN_PARTS, the
+    names of the kernels no launch was found for)``."""
+    import torch
+    from repro_torch.kernels.trace_age import PRIMER
+
+    cuda_dev = torch.autograd.DeviceType.CUDA
+    t_mark = mark.time_range.start
+    host = [e for e in evs
+            if e.device_type != cuda_dev and e.time_range.start >= t_mark]
+    bwd = [e.time_range for e in host
+           if e.name.startswith("autograd::engine::evaluate_function")]
+    t0 = min((r.start for r in bwd), default=math.inf)
+    t1 = max((r.end for r in bwd), default=math.inf)
+    launch = {e.id: e.time_range.start for e in host
+              if e.name.startswith("cu")}
+    out = {part: [0, 0.0, 0] for part in TRAIN_PARTS}
+    unmatched = []
+    for k in evs:
+        if (k.device_type != cuda_dev or PRIMER in k.name
+                or k.name == mark.name):
+            continue
+        t = launch.get(k.id)
+        if t is None:
+            unmatched.append(k.name)
+            continue
+        row = out["forward" if t < t0 else "backward" if t <= t1
+                  else "optimizer"]
+        row[0] += 1
+        row[1] += k.time_range.elapsed_us() / 1e3
+        row[2] += "ft_matmul_tile" in k.name
+    return out, unmatched
+
+
+def train_measure(dev, models, params0, cuda_ms, host_ms, trace_call):
+    """Phase 10's measurements after the drive: a primed torch.profiler
+    trace of one ``make_train_step`` step protected and one unprotected,
+    its kernels split into forward, backward and optimizer
+    (``train_split``: ft_matmul only in the forward), the protected loss
+    and gradients under remat "block" and "dots" (twice the launches,
+    nothing flagged), ft_matmul against its plain version at the step's
+    five product shapes, and the CLI run twice on one checkpoint
+    directory. Returns a dict."""
+    import torch
+    from repro_torch import optim, tree
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.train import make_train_step
+    from repro_torch.train.loop import _value_and_grad
+
+    res = {"parts": {}, "trace": {}}
+    params = tree.tree_map(lambda t: t.detach().clone(), params0)
+    for label in ("protected", "unprotected"):
+        model, run = models[label]
+        opt_state = optim.init_state(params)
+        want = TRAIN_SITES * model.cfg.num_layers \
+            if label == "protected" else 0
+        step_fn = make_train_step(model, run)
+        batch = _batch(dev, 4)
+        counter = iter(range(4, 100))
+
+        def fn():
+            step_fn(params, opt_state, batch, next(counter))
+
+        kern, window, idle, (split, unmatched) = trace_call(
+            fn, lambda names: sum("ft_matmul_tile" in k for k in names)
+            == want, split=train_split)
+        device_ms = sum(kms for _, kms in kern)
+        check(not unmatched
+              and sum(n for n, _, _ in split.values()) == len(kern)
+              and split["backward"][0] > 0 and split["optimizer"][0] > 0
+              and [split[p][2] for p in TRAIN_PARTS] == [want, 0, 0],
+              f"train {label} step split: {split} of {len(kern)} kernels, "
+              f"{want} ft_matmul_tile wanted in the forward; no launch "
+              f"found for {len(unmatched)}: {sorted(set(unmatched))[:10]}")
+        res["parts"][label] = {
+            p: {"kernels": n, "device_ms": ms, "share": ms / device_ms,
+                "ft_matmul_tile": f} for p, (n, ms, f) in split.items()}
+        log(f"train step parts ({label}, device time of the traced step's "
+            f"kernels by when they were launched): " + ", ".join(
+                f"{p} {ms:.2f} ms ({ms / device_ms:.1%}, {n} kernels, {f} "
+                f"ft_matmul_tile)" for p, (n, ms, f) in split.items()))
+        groups = {}
+        for name, kms in kern:
+            key = re.sub(r"^void ", "", name)[:60]
+            n, tot = groups.get(key, (0, 0.0))
+            groups[key] = (n + 1, tot + kms)
+        top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:10]
+        row = {"kernels": len(kern),
+               "ft_matmul_tile": sum("ft_matmul_tile" in k for k, _ in kern),
+               "ft_matmul_tile_ms": sum(kms for k, kms in kern
+                                        if "ft_matmul_tile" in k),
+               "device_ms": device_ms, "window_ms": window,
+               "idle_share": idle,
+               "top": [[k, n, kms] for k, (n, kms) in top]}
+        res["trace"][label] = row
+        log(f"train step trace ({label}): {row['kernels']} kernels, "
+            f"{row['ft_matmul_tile']} ft_matmul_tile "
+            f"({row['ft_matmul_tile_ms']:.3f} ms), {row['device_ms']:.3f} "
+            f"ms on the device in a {window:.3f} ms window (idle "
+            f"{idle:.1%}); by name: " + "; ".join(
+                f"{k} x{n} {kms:.3f} ms" for k, (n, kms) in top))
+        del opt_state
+    # remat: each block's checks run again in the recompute, so a
+    # protected step launches ft_matmul twice a product; the stats are the
+    # first forward's (nothing flagged)
+    res["remat"] = {}
+    model, run = models["protected"]
+    want = 2 * TRAIN_SITES * model.cfg.num_layers
+    for remat in ("block", "dots"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        before = ft_matmul.launches
+        e0.record()
+        (total, (_, aux)), grads = _value_and_grad(
+            model, params, _batch(dev, 0), block_q=run.parallel.attn_block_q,
+            remat=remat)
+        e1.record()
+        e1.synchronize()
+        row = {"ft_matmul_launches": ft_matmul.launches - before,
+               "ft_flagged": float(aux["ft_flagged"]),
+               "ms": e0.elapsed_time(e1),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+        del grads
+        check(row["ft_matmul_launches"] == want and row["ft_flagged"] == 0
+              and math.isfinite(float(total)),
+              f"train remat {remat}: {row}, loss {float(total)}")
+        res["remat"][remat] = row
+        log(f"train remat {remat!r}: loss and gradients in "
+            f"{row['ms']:.2f} ms (the first call), "
+            f"{row['ft_matmul_launches']} ft_matmul launches (forward and "
+            f"recompute), flagged {row['ft_flagged']:.0f}, peak "
+            f"{row['peak_memory_bytes'] / 1e9:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+    res["ftmm_shapes"] = ftmm_rows(dev, "train", TRAIN_FTMM_SHAPES, cuda_ms,
+                                   prefill_iters=10)
+    res["cli"] = train_cli(TRAIN_CLI_STEPS)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2474,14 +3024,16 @@ def main() -> int:
                 f"{[k for k, _ in kern]}")
         return kern
 
-    def trace_call(fn, want, attempts=3):
+    def trace_call(fn, want, attempts=3, split=None):
         """One call of ``fn`` under torch.profiler after a warm-up:
         ``(kernels, window_ms, idle)``: its CUDA kernels as (name, device
         ms) in launch order, the window from the call's start on the host
         to its last kernel's end, and the share of that window in which no
         kernel ran. ``want(names)`` says whether a trace is whole (the
         tracer can drop an event); up to ``attempts`` calls are traced,
-        each after ``trace_age.prime``."""
+        each after ``trace_age.prime``. With ``split``, a fourth element:
+        ``split(events, mark)`` of the trace's events and the call's
+        ``record_function`` event."""
         fn()
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2513,8 +3065,9 @@ def main() -> int:
             else:
                 hi = max(hi, b_)
         busy += hi - lo
-        return ([(k, (b_ - a) / 1e3) for a, b_, k in kern], (t1 - t0) / 1e3,
-                1.0 - busy / (t1 - t0))
+        out = ([(k, (b_ - a) / 1e3) for a, b_, k in kern], (t1 - t0) / 1e3,
+               1.0 - busy / (t1 - t0))
+        return out if split is None else out + (split(evs, mark[0]),)
 
     # ---- phases 2 and 3: the FFT path, launch counts from this run only
     block_fft.launches = 0
@@ -3027,6 +3580,51 @@ def main() -> int:
     log(f"phase 9 took {moe_res['seconds']:.1f} s; the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
 
+    # ---- phase 10: training, counts from its drive only; every protected
+    # linear's forward launches ft_matmul and its backward none. Gate (a)
+    # runs one step on the eager path on purpose (its calls are counted
+    # there); every train step checks that it makes no eager ABFT call
+    t10 = time.perf_counter()
+    log(f"phase 10 starts {t10 - t_start:.1f} s into the run ({smi})")
+    torch.cuda.empty_cache()
+    eager_calls.clear()
+    abft_gemm.ft_matmul = counted_eager
+    try:
+        block_fft.launches = 0
+        abft_fft.launches = 0
+        ft_matmul.launches = 0
+        train, train_models, train_params = train_drive(dev, eager_calls)
+        torch.cuda.synchronize()
+        train_launches = {"block_fft": block_fft.launches,
+                          "abft_fft": abft_fft.launches,
+                          "ft_matmul": ft_matmul.launches}
+    finally:
+        abft_gemm.ft_matmul = eager_ft_matmul
+    want_eager = TRAIN_SITES * train_models["protected"][0].cfg.num_layers
+    log(f"train path launches, whole drive: {json.dumps(train_launches)}; "
+        f"eager ABFT calls {len(eager_calls)} (gate (a)'s eager step: "
+        f"{want_eager})")
+    check(train_launches["ft_matmul"] > 0 and len(eager_calls) == want_eager,
+          f"train path: {train_launches}, {len(eager_calls)} eager ABFT "
+          f"calls")
+    train["launches"] = train_launches
+    train.update(train_measure(dev, train_models, train_params, cuda_ms,
+                               host_ms, trace_call))
+    del train_models, train_params
+    torch.cuda.empty_cache()
+    train["device"] = smi
+    train["ft_overhead_per_step"] = (train["protected"]["ms_per_step"]
+                                     / train["unprotected"]["ms_per_step"]
+                                     - 1)
+    train["seconds"] = time.perf_counter() - t10
+    log(f"train: protected step {train['protected']['ms_per_step']:.2f} ms "
+        f"({train['protected']['tokens_per_s']:.0f} tokens/s), unprotected "
+        f"{train['unprotected']['ms_per_step']:.2f} ms "
+        f"({train['unprotected']['tokens_per_s']:.0f} tokens/s): FT overhead "
+        f"{train['ft_overhead_per_step']:+.1%} a step ({smi})")
+    log(f"phase 10 took {train['seconds']:.1f} s; the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+
     kernels = [
         {"name": "block_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_fft.cu",
@@ -3072,7 +3670,8 @@ def main() -> int:
          "launches_by_path": {"gemm": gemm_launches["ft_matmul"],
                               "lm": lm_launches["ft_matmul"],
                               "ssm": ssm_launches["ft_matmul"],
-                              "moe": moe_launches["ft_matmul"]},
+                              "moe": moe_launches["ft_matmul"],
+                              "train": train_launches["ft_matmul"]},
          "launches_per_call": {"plan.ft_matmul": 1,
                                "protected MLP block": mlp_per_call,
                                "protected prefill":
@@ -3087,7 +3686,9 @@ def main() -> int:
                                **{f"{arch} protected decode step":
                                   moe_res[arch]["decode"][0]["protected"][
                                       "launches_per_step"]
-                                  for arch in MOE_ARCHS}},
+                                  for arch in MOE_ARCHS},
+                               "protected train step": train["protected"][
+                                   "ft_matmul_launches_per_step"]},
          "max_abs_err": max(gemm_parts.values()),
          "max_abs_err_parts": gemm_parts, "max_err_over_tol": gemm_ratio,
          "max_abs_err_by_path": {
@@ -3098,7 +3699,9 @@ def main() -> int:
                         for e in row["max_abs_err"].values()),
              "moe": max(e for arch in MOE_ARCHS
                         for row in moe_res[arch]["ftmm_shapes"]
-                        for e in row["max_abs_err"].values())},
+                        for e in row["max_abs_err"].values()),
+             "train": max(e for row in train["ftmm_shapes"]
+                          for e in row["max_abs_err"].values())},
          "ssm_shapes": [dict(row, arch=arch) for arch in SSM_ARCHS
                         for row in ssm[arch]["ftmm_shapes"]],
          "moe_shapes": [dict(row, arch=arch) for arch in MOE_ARCHS
@@ -3113,7 +3716,7 @@ def main() -> int:
                                and r["tile"] == [128, 128]),
          "instances": ftmm_instances, "shapes": gemm_rows,
          "mlp_block": mlp_ms, "seu": {"plan": gemm_seu, "mlp": mlp_seu},
-         "lm": lm, "ssm": ssm, "moe": moe_res},
+         "lm": lm, "ssm": ssm, "moe": moe_res, "train": train},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

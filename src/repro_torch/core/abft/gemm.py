@@ -108,6 +108,12 @@ def _ft_matmul_2d(x, w, *, threshold, with_correction, inject=None):
     e2x = xf.sum(0)                        # e2^T X   (d_in,)
     e3x = loc @ xf                         # e3^T X   (d_in,)
     y = xf @ wf                            # float32 product
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        # under autograd the SEU and the correction below write a copy, so
+        # the product autograd (or a selective checkpoint) holds stays as
+        # computed; the gradient is the product's (the correction's terms
+        # cancel: it restores the clean product)
+        y = y.clone()
     if inject is not None:
         inj = torch.as_tensor(inject, dtype=torch.float32).to(x.device)
         inj = inj.reshape(-1, 3)           # (F, 3) rows of [row, col, eps]

@@ -153,9 +153,9 @@ class GEMMPlan(planbase.Plan):
         inj = _normalize_inject(inject, x.device)
         if self.backend == "fused":
             bm, bk, bn = self.spec.tiles
-            return _ft_matmul_fused(
-                x, w, inj, bm=bm, bn=bn, bk=bk,
-                threshold=cfg.threshold, with_correction=cfg.correct)
+            y, *stats = _FusedLinear.apply(x, w, inj, bm, bn, bk,
+                                           cfg.threshold, cfg.correct)
+            return y, dict(zip(_STATS, stats))
         # eager: fold enable into eps -> the eager path's (F, 3) rows
         inj3 = torch.stack([inj[:, 0], inj[:, 1], inj[:, 2] * inj[:, 3]],
                            dim=-1)
@@ -186,6 +186,43 @@ class GEMMPlan(planbase.Plan):
 
 # the reference's _normalize_inject: one descriptor form for both backends
 _normalize_inject = ft_kernel.inject_rows
+
+
+_STATS = ("flagged", "corrected", "uncorrectable", "score")
+
+
+class _FusedLinear(torch.autograd.Function):
+    """The fused path under autograd: the forward is
+    :func:`_ft_matmul_fused` (the kernel on the card, its plain version on
+    the CPU); the backward is the gradient of the product it checks, what
+    the reference gets by differentiating its eager path, where ``y = xf @
+    wf`` in float32 is cast to ``x.dtype``: ``grad_x = g @ wᵀ`` and
+    ``grad_w = xᵀ @ g`` in float32, ``grad_x`` cast to ``x.dtype``. No
+    gradient flows through the stats or the correction: the corrected
+    output is the clean product's. The two products are ``torch.matmul``
+    (the reference's are XLA dots outside its kernel) and are not
+    checked, as the reference checks none of its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, inj, bm, bn, bk, threshold, with_correction):
+        y, stats = _ft_matmul_fused(x, w, inj, bm=bm, bn=bn, bk=bk,
+                                    threshold=threshold,
+                                    with_correction=with_correction)
+        ctx.save_for_backward(x, w)
+        out = tuple(stats[k] for k in _STATS)
+        ctx.mark_non_differentiable(*out)
+        return (y,) + out
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g2 @ w.float().T).reshape(x.shape).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (x.reshape(-1, x.shape[-1]).float().T @ g2).to(w.dtype)
+        return gx, gw, None, None, None, None, None, None
 
 
 def _ft_matmul_fused(x, w, inj, *, bm, bn, bk, threshold, with_correction):

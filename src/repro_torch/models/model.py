@@ -11,18 +11,31 @@ from ``Model.init_cache`` (KV caches, MLA's latent caches and recurrent
 states, stacked along the repeated super-blocks), whose tensors it writes
 in place.
 
+``Model.apply(remat=...)`` recomputes each block's activations in the
+backward (``torch.utils.checkpoint``, non-reentrant): ``"block"`` or
+``"full"`` saves only the block's input, ``"dots"`` also the outputs of
+the products autograd records (the reference's
+``dots_with_no_batch_dims_saveable``; :func:`_dots_policy`). Each block
+builds its own ``FTContext``, so the recompute's ABFT stats and fault
+sites are a fresh context's, which ``checkpoint`` drops: the step's stats
+and site numbers are the first forward's. The recompute runs each
+protected product's check again, so under remat a protected block
+launches ``ft_matmul`` twice a step (the reference recomputes its Pallas
+call too, which no policy saves).
+
 Left out: the encoder-decoder model (Whisper) and the modality frontend
-stubs raise, naming their ROADMAP item; ``remat`` belongs to the training
-slice; the reference's ``constrain_hidden``/``constrain_logits`` are
-no-ops without a mesh and come with LM parallelism (ROADMAP queue 1 item
-12).
+stubs raise, naming their ROADMAP item; the reference's
+``constrain_hidden``/``constrain_logits`` are no-ops without a mesh and
+come with LM parallelism (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -60,6 +73,44 @@ def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int) -> list:
+    """The ``n`` slots of every leaf's leading (stacked) axis as ``n``
+    trees of views, from one ``unbind`` a leaf: under autograd the stacked
+    leaf's gradient is one stack of the slots' gradients, where ``n``
+    indexings would each scatter into a zero tensor of the whole stack."""
+    if isinstance(tree, dict):
+        kids = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in kids.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy of ``remat="dots"``: save the output of
+    every matrix product that autograd records (an ``mm`` whose output has
+    more than one row and column: a vector product's output is squeezed
+    in place, which a saved tensor must not be), recompute the rest. A
+    product inside an ``autograd.Function``'s forward (the fused checked
+    GEMM's plain version) runs with grad off and is recomputed, as the
+    reference recomputes its Pallas call."""
+    if (op is torch.ops.aten.mm.default and torch.is_grad_enabled()
+            and args[0].shape[0] > 1 and args[1].shape[1] > 1):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(remat):
+    """The ``context_fn`` of each block's checkpoint, or ``None`` for no
+    recompute: the reference takes any true ``remat`` but ``"none"`` as a
+    recompute, and ``"dots"`` as the selective one."""
+    if not remat or remat == "none":
+        return None
+    if remat == "dots":
+        return functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+    return torch_checkpoint.noop_context_fn
 
 
 def _stacked(make, n: int):
@@ -151,16 +202,18 @@ class Model:
 
     # --------------------------------------------------------------- forward
     def apply(self, params, batch: dict, *, block_q: int = 1024,
-              inject=None):
+              remat=False, inject=None):
         """Full-sequence forward. Returns (logits_f32, aux).
 
-        ``inject`` threads a GEMM fault descriptor into every protected
-        block (see ``transformer.block_apply``).
+        ``remat`` (``False``/``"none"``, ``"block"``/``"full"``,
+        ``"dots"``) recomputes each block in the backward (see the module
+        docstring). ``inject`` threads a GEMM fault descriptor into every
+        protected block (see ``transformer.block_apply``).
         """
         adt = _dt(self.cfg.dtype)
         x, positions = self._embed_inputs(params, batch, adt)
         x, aux = self._run_groups(params["stack"], x, positions, block_q,
-                                  inject=inject)
+                                  inject=inject, remat=remat)
         return self._head(params, x), aux
 
     def _embed(self, params, tokens, adt):
@@ -188,22 +241,29 @@ class Model:
         return torch.matmul(x.float(), w.to(x.dtype).float())
 
     def _run_groups(self, stack, x, positions, block_q, caches=None,
-                    cache_pos=None, inject=None):
+                    cache_pos=None, inject=None, remat=False):
         """The blocks in order: prefix, the repeated super-blocks (slot j
         of repeat i is layer ``i * len(super_block) + j``, the reference's
         scan), tail. Every cache and recurrent state is written in place
         (the blocks' returned trees are those tensors, or views of them),
-        so the cache tree given is the new one."""
+        so the cache tree given is the new one. ``remat`` wraps each
+        block of a full-sequence forward in a checkpoint."""
         cfg = self.cfg
         g = layer_groups(cfg)
         aux = _zeros_aux(x.device)
+        context_fn = _remat_context(remat) if caches is None else None
 
         def run(p, kind, cache):
             nonlocal x, aux
-            x, _, a = block_apply(p, x, cfg=cfg, kind=kind,
-                                  positions=positions, cache=cache,
-                                  cache_pos=cache_pos, block_q=block_q,
-                                  ftp=cfg.ft, inject=inject)
+            fn = functools.partial(
+                block_apply, cfg=cfg, kind=kind, positions=positions,
+                cache=cache, cache_pos=cache_pos, block_q=block_q,
+                ftp=cfg.ft, inject=inject)
+            if context_fn is None:
+                x, _, a = fn(p, x)
+            else:
+                x, _, a = torch_checkpoint.checkpoint(
+                    fn, p, x, use_reentrant=False, context_fn=context_fn)
             aux = _merge_aux(aux, a)
 
         def cache(group, key, i=None):
@@ -214,9 +274,11 @@ class Model:
 
         for i, kind in enumerate(g.prefix):
             run(stack["prefix"][str(i)], kind, cache("prefix", str(i)))
+        slots = {f"slot{j}": _unbind(stack["scan"][f"slot{j}"], g.n_super)
+                 for j in range(len(g.super_block))}
         for i in range(g.n_super):
             for j, kind in enumerate(g.super_block):
-                run(_index(stack["scan"][f"slot{j}"], i), kind,
+                run(slots[f"slot{j}"][i], kind,
                     cache("scan", f"slot{j}", i))
         for i, kind in enumerate(g.tail):
             run(stack["tail"][str(i)], kind, cache("tail", str(i)))

@@ -1,18 +1,174 @@
-"""Serve and prefill step factories. Port of the inference half of
-``repro.train.loop``; the training factories (``make_train_step``,
-``make_eval_step``, ``cross_entropy``) wait for the training slice
-(ROADMAP queue 1 item 9).
+"""Train, eval, serve and prefill step factories. Port of
+``repro.train.loop``.
+
+``make_train_step`` returns a ``(params, opt_state, batch, step) ->
+(params, opt_state, metrics)`` function: float32 CE loss with z-loss, the
+MoE aux loss, remat, micro-batched gradient accumulation, fault-aware
+update skipping and the ABFT telemetry of the forward in its metrics
+(the reference's names: ``loss``, ``ce``, ``lr``, ``grad_norm``,
+``skipped_updates``, ``moe_aux``, ``ft_flagged``, ``ft_corrected``,
+``ft_max_score``). Params are the port's param tree; the step sets
+``requires_grad`` on its leaves for the forward and backward only, takes
+the gradients with ``torch.autograd.grad`` and updates params and moments
+in place
+(``optim.apply_updates``), so the trees it returns are the ones it was
+given. A protected linear checks its forward product (``ft_matmul`` on
+the card) and its backward is the plain product's gradient, as the
+reference's autodiff gives (``core.gemm.api._FusedLinear``).
+
+Training covers the dense decoder family. The recurrent models
+(``models.ssm``) and the MoE models (``models.moe``, MLA) raise: their
+training is ROADMAP queue 1 item 9.5. The reference's int8 compressed
+all-reduce belongs to LM parallelism (item 12).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
+from repro_torch import optim
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import Model
+from repro_torch.models.transformer import RECURRENT_KINDS, effective_kinds
+from repro_torch.tree import leaves, unflatten
 
-__all__ = ["make_serve_step", "make_prefill_step"]
+__all__ = ["make_train_step", "make_eval_step", "make_serve_step",
+           "make_prefill_step", "cross_entropy"]
+
+_ITEM_9_5 = ("training of the recurrent and MoE models, ROADMAP queue 1 "
+             "item 9.5")
+_AUX = ("moe_aux", "ft_flagged", "ft_corrected", "ft_max_score")
+
+
+def cross_entropy(logits, labels, *, z_loss: float = 1e-4):
+    """Token-mean CE in float32 with logit z-regularization. Returns
+    ``(ce + z_loss * mean(lse^2), ce)``. The label's logit is picked with
+    a gather (the reference's iota match adds zeros to it: the same
+    value)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ce = torch.mean(lse - ll)
+    zl = z_loss * torch.mean(lse ** 2)
+    return ce + zl, ce
+
+
+def _loss_fn(model: Model, params, batch, *, block_q, remat, moe_coef=0.01,
+             inject=None):
+    logits, aux = model.apply(params, batch, block_q=block_q, remat=remat,
+                              inject=inject)
+    labels = batch["labels"]
+    logits = logits[:, -labels.shape[1]:]  # vlm: text-tail loss
+    total, ce = cross_entropy(logits, labels)
+    total = total + moe_coef * aux["moe_aux"]
+    return total, (ce, aux)
+
+
+def _value_and_grad(model: Model, params, batch, *, block_q, remat,
+                    inject=None):
+    """``((total, (ce, aux)), grads)`` of :func:`_loss_fn` at ``params``:
+    ``jax.value_and_grad(..., has_aux=True)``'s result, the gradients a
+    tree of float32 tensors shaped as ``params`` (zeros where a leaf takes
+    no part). The param leaves take ``requires_grad`` for the call only:
+    each leaves with the flag it came with, so a later forward (a decode
+    step) builds no graph."""
+    ps = leaves(params)
+    was = [p.requires_grad for p in ps]
+    try:
+        with torch.enable_grad():
+            for p in ps:
+                p.requires_grad_(True)
+            total, (ce, aux) = _loss_fn(model, params, batch,
+                                        block_q=block_q, remat=remat,
+                                        inject=inject)
+            grads = torch.autograd.grad(total, ps, allow_unused=True)
+    finally:
+        for p, flag in zip(ps, was):
+            p.requires_grad_(flag)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(ps, grads)]
+    aux = {k: v.detach() for k, v in aux.items()}
+    return ((total.detach(), (ce.detach(), aux)), unflatten(params, grads))
+
+
+def check_trainable(model: Model) -> None:
+    """Raise ``NotImplementedError`` unless every block of ``model`` is a
+    dense-family block (attention with an MLP)."""
+    kinds = effective_kinds(model.cfg)
+    for kind in kinds:
+        base, ffn = kind.split("|")
+        if base in RECURRENT_KINDS or base == "mla" or ffn == "moe":
+            raise NotImplementedError(
+                f"{model.cfg.name}: its {kind} blocks do not train in the "
+                f"port yet: {_ITEM_9_5}")
+
+
+def make_train_step(model: Model, run: RunConfig) -> Callable:
+    """The train step ``(params, opt_state, batch, step) -> (params,
+    opt_state, metrics)``. ``batch`` holds ``tokens`` and ``labels``
+    tensors on the params' device. With ``microbatch`` > 1 the batch is
+    split along its first axis and the gradients, losses and aux are
+    summed over the micro-batches, then gradients and losses divided by
+    their count, as the reference's scan does."""
+    check_trainable(model)
+    par = run.parallel
+    micro = par.microbatch
+    grad = functools.partial(_value_and_grad, model,
+                             block_q=par.attn_block_q, remat=par.remat)
+
+    def train_step(params, opt_state, batch, step):
+        dev = batch["tokens"].device
+        lr = optim.cosine_schedule(
+            step, base_lr=run.learning_rate, warmup_steps=run.warmup_steps,
+            total_steps=run.total_steps, device=dev)
+        if micro <= 1:
+            (total, (ce, aux)), grads = grad(params, batch)
+        else:
+            parts = {k: v.reshape((micro, v.shape[0] // micro)
+                                  + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
+            grads = None
+            for i in range(micro):
+                (t, (c, a)), g = grad(params,
+                                      {k: v[i] for k, v in parts.items()})
+                if grads is None:
+                    grads, total, ce, aux = g, t, c, a
+                    continue
+                for acc, gi in zip(leaves(grads), leaves(g)):
+                    acc.add_(gi)
+                total, ce = total + t, ce + c
+                aux = {k: aux[k] + a[k] for k in _AUX}
+            for g in leaves(grads):
+                g.div_(micro)
+            total, ce = total / micro, ce / micro
+        params, opt_state, info = optim.apply_updates(
+            params, grads, opt_state, lr=lr,
+            weight_decay=run.weight_decay, grad_clip=run.grad_clip,
+            skip_nonfinite=model.cfg.ft.skip_nonfinite_updates)
+        metrics = {
+            "loss": total, "ce": ce, "lr": lr,
+            "grad_norm": info["grad_norm"],
+            "skipped_updates": info["skipped"],
+            "moe_aux": aux["moe_aux"],
+            "ft_flagged": aux["ft_flagged"],
+            "ft_corrected": aux["ft_corrected"],
+            "ft_max_score": aux["ft_max_score"],
+        }
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(model: Model, run: RunConfig) -> Callable:
+    def eval_step(params, batch):
+        with torch.no_grad():
+            total, (ce, aux) = _loss_fn(model, params, batch,
+                                        block_q=run.parallel.attn_block_q,
+                                        remat=False)
+        return {"loss": total, "ce": ce}
+    return eval_step
 
 
 def make_serve_step(model: Model, run: RunConfig) -> Callable:

@@ -1236,3 +1236,101 @@ def test_ft_matmul_batched_on_the_card_matches_the_cpu(cuda):
         assert gs[key].cpu().tolist() == ws[key].tolist() == (
             [1.0] * 8 if key != "uncorrectable" else [0.0] * 8), key
 
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_fused_linear_gradients_match_the_eager_path(cuda, xdtype):
+    """The protected linear under autograd on the card: the fused path
+    (``core.gemm.api._FusedLinear``: one ``ft_matmul`` launch forward, the
+    float32 product's gradient backward, no launch) against autograd
+    through the eager path, with one SEU corrected on each. grad_x comes
+    back in x's dtype, grad_w in float32; each within 1e-5 x max (float32)
+    or one bf16 step (2^-8 x max) of the eager path's."""
+    from repro_torch.core.ft import FTPolicy
+    from repro_torch.models.layers import FTContext, dense
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x0 = torch.randn((2, 64, 256), generator=gen, device=cuda).to(xdtype)
+    w0 = torch.randn((256, 384), generator=gen, device=cuda)
+    g = torch.randn((2, 64, 384), generator=gen, device=cuda).to(xdtype)
+    out = {}
+    for backend in ("fused", "eager"):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        ctx = FTContext(FTPolicy(protect_linears=True, gemm_backend=backend),
+                        inject=torch.tensor([[0.0, 70.0, 9.0, 1.0, 50.0]],
+                                            device=cuda))
+        before = ft_matmul.launches
+        y = dense({"w": w}, x, ft=ctx)
+        forward = ft_matmul.launches - before
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert forward == (backend == "fused")
+        assert ft_matmul.launches - before == forward
+        assert float(ctx.summary()["ft_corrected"]) == 1
+        assert x.grad.dtype == xdtype and w.grad.dtype == torch.float32
+        out[backend] = (x.grad.float(), w.grad)
+    tol = 1e-5 if xdtype == torch.float32 else 2.0 ** -8
+    for got, want in zip(out["fused"], out["eager"]):
+        assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+def test_protected_train_step_launches_ft_matmul_only_forward(cuda):
+    """One train step of a tile-aligned dense model at float32, every
+    linear protected: 7 x layers ``ft_matmul`` launches, all in the
+    forward, no eager ABFT call; its loss and gradients those of the eager
+    path and of the unprotected step (loss 1e-5 relative, each gradient
+    leaf 1e-4 x its max)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.abft import gemm as abft_gemm
+    from repro_torch.models import Model
+    from repro_torch.train import loop
+
+    base = get_smoke_config("phi4_mini_3p8b")
+    cfg = dataclasses.replace(
+        base, dtype="float32", num_layers=3, d_model=256, num_heads=4,
+        num_kv_heads=2, head_dim=64, d_ff=512)
+    params = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen,
+                         device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    eager = abft_gemm.ft_matmul
+    calls = []
+    abft_gemm.ft_matmul = lambda *a, **k: calls.append(1) or eager(*a, **k)
+    res = {}
+    try:
+        for backend in ("fused", "eager", "none"):
+            c = cfg if backend == "none" else dataclasses.replace(
+                cfg, ft=dataclasses.replace(cfg.ft, protect_linears=True,
+                                            gemm_backend=backend))
+            before, n_calls = ft_matmul.launches, len(calls)
+            with torch.no_grad():
+                loop._loss_fn(Model(c), params, batch, block_q=0,
+                              remat="none")
+            forward = ft_matmul.launches - before
+            (total, (_, aux)), grads = loop._value_and_grad(
+                Model(c), params, batch, block_q=0, remat="none")
+            torch.cuda.synchronize()
+            launches = ft_matmul.launches - before - forward
+            assert (forward, launches) == ((7 * 3, 7 * 3) if backend == "fused"
+                                           else (0, 0))
+            assert (len(calls) - n_calls > 0) == (backend == "eager")
+            assert float(aux["ft_flagged"]) == 0
+            res[backend] = (float(total), grads)
+    finally:
+        abft_gemm.ft_matmul = eager
+
+    def leaves(t):
+        return [v for x in t.values() for v in leaves(x)] \
+            if isinstance(t, dict) else [t]
+
+    for other in ("eager", "none"):
+        assert abs(res["fused"][0] - res[other][0]) <= 1e-5 * abs(
+            res[other][0])
+        for got, want in zip(leaves(res["fused"][1]), leaves(res[other][1])):
+            assert (got - want).abs().max().item() <= \
+                1e-4 * want.abs().max().item()
