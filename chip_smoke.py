@@ -53,8 +53,9 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   the prefill, traces one protected and one unprotected decode step under
   ``torch.profiler`` (kernels, host ms, the device's idle share), holds
   ``ft_matmul`` against its plain version at a decode step's padded MLP
-  shape and times it beside ``torch.matmul`` and its byte bound, and runs
-  ``python -m repro_torch.launch.serve --mode lm`` at Gemma-3 1B's widths;
+  shape and times it beside ``torch.matmul`` and its byte bound (phase 11
+  runs ``python -m repro_torch.launch.serve --mode lm`` at Gemma-3 1B's
+  widths);
 * the recurrent LM path (phase 8, ``ssm_drive``, then ``ssm_measure``):
   RecurrentGemma-2B (26 layers, RG-LRU and local attention, d_model 2560,
   vocab 256000) and then xLSTM-350M (24 layers, mLSTM and sLSTM, d_model
@@ -72,8 +73,8 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   tokens; then the prefill by CUDA events, one primed trace of a
   protected decode step, ``ft_matmul`` against its plain version at the
   path's own products (``SSM_FTMM_SHAPES``: the MLP's, and the sLSTM
-  FFN's on 64-wide tiles), and ``--mode lm --arch xlstm-350m --preset
-  full --ft`` as a subprocess;
+  FFN's on 64-wide tiles) (phase 11 runs ``--mode lm --arch xlstm-350m
+  --preset full --ft``);
 * the MoE path (phase 9, ``moe_drive``, then ``moe_measure``): DeepSeek-V3
   (MLA, 256 routed experts top-8 and a shared expert, d_model 7168, vocab
   129280) cut to 2 of its 61 layers (one dense-FFN block, one MoE block:
@@ -94,8 +95,8 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   tokens, peak memory under 72 GB; then the prefill by events, primed
   traces of a protected and an unprotected step, the expert products
   against their byte bound, ``ft_matmul`` against its plain version at
-  the path's products (``MOE_FTMM_SHAPES``), and ``--mode lm --arch
-  deepseek-v3-671b --preset tiny --ft`` as a subprocess;
+  the path's products (``MOE_FTMM_SHAPES``) (phase 11 runs ``--mode lm
+  --arch deepseek-v3-671b --preset tiny --ft``);
 * training (phase 10, ``train_drive``, then ``train_measure``): Gemma-3 1B
   at its published widths (999,812,736 params, f32, with random weights
   from a seeded CUDA generator; bf16 activations) at ``launch.train``'s
@@ -116,8 +117,38 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   its 182 ``ft_matmul_tile`` kernels), backward and optimizer (with
   none) by when each kernel was launched, ``ft_matmul`` at the step's five product shapes against its plain
   version and ``torch.matmul``, and ``python -m repro_torch.launch.train
-  --preset full --ft-linears`` to 10 steps and again to 12, which
-  resumes from the first run's checkpoint.
+  --preset full --ft-linears --ckpt-every 10`` to 10 steps (one
+  checkpoint, its last step's) and again to 12, which resumes from it;
+* the encoder-decoder and the VLM (phase 11, ``encdec_drive``, then
+  ``encdec_measure``, one config at a time): Whisper-base (6 + 6 layers,
+  d_model 512, vocab 51865; 1500 frames of 80 through the audio stub) and
+  InternVL2-1B (24 layers, d_model 896, q/k/v biases, vocab 151655; 256
+  patches of 1024 through the patch stub) at their published widths and
+  full depth, random weights from a seeded CUDA generator, frames and
+  patches standard normal from numpy's SEED: (a) the prefill through
+  ``make_prefill_step`` (Whisper 4 x 448 tokens on 4 x 1500 frames,
+  InternVL2 4 x 256 tokens after 256 patches), exactly 72 and 168
+  ``ft_matmul`` launches and no eager ABFT call, the protected logits
+  within LM_LOGIT_TOL x max of the unprotected ones at bf16 and 2e-3 at
+  float32; (b) greedy decode (Whisper at batch 4 and 64, InternVL2 at 4),
+  protected and unprotected, 36 and 168 launches a protected step, every
+  Whisper cross cache still zeros afterwards (the reference's decode
+  passes no encoder output), and InternVL2's also under the CLI's SEU
+  schedule (its ledger 48 exact, its tokens the clean run's); training at
+  launch.train's batch (8 x 256 tokens) with frames or patches: the three
+  backends' float32 loss and gradients agree (phase 10's gate (a)), then
+  10 bf16 steps protected and 10 unprotected: the loss falls, 72 and 168
+  launches a protected step, nothing flagged at 1e-4; then the prefill by
+  CUDA events, a primed trace of one protected decode step, ``ft_matmul``
+  at the new products, and a primed trace of one protected train step
+  (every ``ft_matmul_tile`` in the forward); last, the LM CLIs of phases 7-9 and
+  11, ``python -m repro_torch.launch.serve --mode lm --ft`` for Gemma-3
+  1B, xLSTM-350M, Whisper-base and InternVL2-1B at their published widths
+  and DeepSeek-V3 at its SMOKE size, all started together (each a
+  host-bound process of its own): each exits 0 with its ledger exact, 2
+  faults a layer detected and corrected, and Whisper's ``injected=2
+  detected=0 corrected=0`` (its blocks take no fault descriptor, as the
+  reference's).
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -149,6 +180,7 @@ raises and exits non-zero; without a CUDA device it exits 1 and prints no
 result.
 """
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1311,7 +1343,8 @@ def lm_decode(tag, models, params, prompts, sites, layers_n, batched=None,
     LM_GEN) unprotected, protected and protected under the CLI's schedule:
     ``sites`` ft_matmul launches a protected step, the ledger 2 x
     ``layers_n`` exact, the SEU run's tokens the clean protected run's.
-    With ``batched`` (a counter of the eager batched expert products,
+    The encoder-decoder has no SEU run: its blocks take no fault
+    descriptor (ROADMAP queue 3 "In the reference itself" item 9). With ``batched`` (a counter of the eager batched expert products,
     ``{"calls": n}``), a protected step also makes ``batched_per_step`` of
     them and an unprotected one none. Returns the runs' rows."""
     import torch
@@ -1322,11 +1355,12 @@ def lm_decode(tag, models, params, prompts, sites, layers_n, batched=None,
     vocab = models["protected"].cfg.vocab_size
     steps = LM_PROMPT + LM_GEN - 1
     runs, toks = {}, {}
+    seu = not models["protected"].cfg.is_encdec
     for label, model, sched in (
             ("unprotected", models["unprotected"], None),
             ("protected", models["protected"], None),
             ("protected+SEU", models["protected"],
-             demo_schedule(batch, LM_PROMPT))):
+             demo_schedule(batch, LM_PROMPT)))[:3 if seu else 2]:
         decode(model, params, prompts[:, :2], 2)       # warm-up
         torch.cuda.synchronize()
         before = ft_matmul.launches
@@ -1557,20 +1591,19 @@ def ftmm_at(dev, shape, cuda_ms, what, iters=50):
         "max_abs_err": errs}
 
 
-def prefill_ms(tag, models, params, tokens, cuda_ms):
-    """Each of ``models``' prefill of ``tokens`` through
-    ``make_prefill_step``, by CUDA events after a warm-up. Returns
-    ``{label: ms}``."""
+def prefill_ms(tag, models, params, batch, cuda_ms):
+    """Each of ``models``' prefill of ``batch`` (its tokens, and frames or
+    patches) through ``make_prefill_step``, by CUDA events after a
+    warm-up. Returns ``{label: ms}``."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.train import make_prefill_step
 
     out = {}
     for label, m in models.items():
         step = make_prefill_step(m, RunConfig(model=m.cfg))
-        out[label] = cuda_ms(lambda step=step: step(params,
-                                                    {"tokens": tokens}),
+        out[label] = cuda_ms(lambda step=step: step(params, batch),
                              iters=1, warmup=1)
-    log(f"{tag} prefill {tuple(tokens.shape)} by events: protected "
+    log(f"{tag} prefill {tuple(batch['tokens'].shape)} by events: protected "
         f"{out['protected']:.2f} ms, unprotected {out['unprotected']:.2f} "
         f"ms")
     return out
@@ -1607,13 +1640,16 @@ def trace_steps(tag, models, params, prompts4, sites, host_ms, trace_call,
         top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:top_n]
         row = {"batch": int(prompts4.shape[0]), "kernels": len(kern),
                "ft_matmul_tile": sum("ft_matmul_tile" in k for k, _ in kern),
+               "ft_matmul_tile_ms": sum(ms for k, ms in kern
+                                        if "ft_matmul_tile" in k),
                "device_ms": sum(ms for _, ms in kern), "window_ms": window,
                "idle_share": idle, "host_ms": host,
                "top": [[k, n, ms] for k, (n, ms) in top]}
         out[label] = row
         log(f"{tag} decode step trace (batch {row['batch']}, {label}): "
             f"{row['kernels']} kernels, {row['ft_matmul_tile']} "
-            f"ft_matmul_tile, {row['device_ms']:.3f} ms on the device in a "
+            f"ft_matmul_tile ({row['ft_matmul_tile_ms']:.3f} ms), "
+            f"{row['device_ms']:.3f} ms on the device in a "
             f"{window:.3f} ms window (idle {idle:.1%}); host {host:.3f} ms "
             f"a step; by name: " + "; ".join(
                 f"{k} x{n} {ms:.3f} ms" for k, (n, ms) in top))
@@ -1640,29 +1676,49 @@ def ftmm_rows(dev, tag, shapes, cuda_ms, iters=20, prefill_iters=20):
     return rows
 
 
-def lm_cli(argv, detected):
-    """``python -m repro_torch.launch.serve *argv`` on the card, which must
-    exit 0 with ``detected`` faults detected and corrected. Returns its
-    ``generated`` line, ledger line and seconds (process start included).
-    """
+def lm_clis(runs):
+    """``python -m repro_torch.launch.serve *argv`` on the card for each
+    ``(argv, detected)`` of ``runs``, all started together: each must exit
+    0, inject the demo schedule's 2 faults and report ``detected`` faults
+    detected and corrected. Returns each run's ``generated`` line, ledger
+    line and seconds (from the start of all, process start included)."""
+    import tempfile
+
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           *argv], cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=300)
-    out = proc.stdout + proc.stderr
-    hit = re.search(r"ft: injected=(\d+) detected=(\d+) corrected=(\d+)",
-                    out)
-    check(proc.returncode == 0 and hit
-          and hit[2] == hit[3] == str(detected),
-          f"launch.serve {' '.join(argv)}: exit {proc.returncode}\n"
-          f"{out[-3000:]}")
-    line = next(ln for ln in out.splitlines() if ln.startswith("generated"))
-    res = {"argv": list(argv), "line": line, "ft": hit[0],
-           "seconds": time.perf_counter() - t0}
-    log(f"launch.serve {' '.join(argv)}: {line}; {hit[0]} "
-        f"({res['seconds']:.1f} s with the process start)")
-    return res
+    procs = []
+    try:
+        for argv, detected in runs:
+            out = tempfile.TemporaryFile(mode="w+")
+            procs.append((argv, detected, out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+                text=True)))
+        res = []
+        for argv, detected, out, proc in procs:
+            code = proc.wait(timeout=300)
+            seconds = time.perf_counter() - t0
+            out.seek(0)
+            text = out.read()
+            hit = re.search(r"ft: injected=(\d+) detected=(\d+) "
+                            r"corrected=(\d+)", text)
+            check(code == 0 and hit and hit[1] == "2"
+                  and hit[2] == hit[3] == str(detected),
+                  f"launch.serve {' '.join(argv)}: exit {code}\n"
+                  f"{text[-3000:]}")
+            line = next(ln for ln in text.splitlines()
+                        if ln.startswith("generated"))
+            res.append({"argv": list(argv), "line": line, "ft": hit[0],
+                        "seconds": seconds})
+            log(f"launch.serve {' '.join(argv)}: {line}; {hit[0]} "
+                f"({seconds:.1f} s with the process start)")
+        return res
+    finally:
+        for _, _, out, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
 
 
 def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
@@ -1671,9 +1727,7 @@ def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
     prefill by CUDA events, primed torch.profiler traces of one protected
     and one unprotected decode step (kernels, host ms, device idle share),
     ``ft_matmul`` against its plain version at a decode step's padded MLP
-    shape, and the CLI's ``--mode lm`` on the card. Returns a dict."""
-    from repro_torch.configs import get_config
-
+    shape. Returns a dict (phase 11 adds the CLI's ``--mode lm`` run)."""
     res = {}
     res["prefill_ms"] = {
         label: cuda_ms(lambda m=m: m.apply(params, {"tokens": tokens}),
@@ -1700,9 +1754,6 @@ def lm_measure(dev, models, params, tokens, prompts4, cuda_ms, host_ms,
         f"ms (bf16 weights {ds['library_bf16_ms']:.4f} ms), plan.ft_matmul "
         f"{ds['plan_ft_matmul_ms']:.4f} ms; bound {ds['bound_ms']:.4f} ms "
         f"({ds['bound_by']}); err {json.dumps(ds['max_abs_err'])}")
-
-    # the CLI on the card: --mode lm at Gemma-3 1B's published widths
-    res["cli"] = lm_cli(LM_CLI, 2 * get_config(LM_SMALL_ARCH).num_layers)
     return res
 
 
@@ -1937,9 +1988,10 @@ def ssm_measure(dev, arch, sites, models, params, tokens, prompts4, cuda_ms,
     ``make_prefill_step`` by CUDA events, and one protected and one
     unprotected decode step at batch 4 under a primed torch.profiler
     (kernels, host ms, device ms, idle share), ``ft_matmul`` against its
-    plain version at SSM_FTMM_SHAPES; for xLSTM also the CLI's ``--mode lm
-    --preset full --ft`` on the card. Returns a dict."""
-    res = {"prefill_ms": prefill_ms(f"SSM {arch}", models, params, tokens,
+    plain version at SSM_FTMM_SHAPES. Returns a dict (for xLSTM phase 11
+    adds the CLI's ``--mode lm --preset full --ft`` run)."""
+    res = {"prefill_ms": prefill_ms(f"SSM {arch}", models, params,
+                                    {"tokens": tokens},
                                     cuda_ms)}
 
     # one decode step at batch 4 under torch.profiler, protected (one
@@ -1948,8 +2000,6 @@ def ssm_measure(dev, arch, sites, models, params, tokens, prompts4, cuda_ms,
                                       prompts4, sites, host_ms, trace_call)
     res["ftmm_shapes"] = ftmm_rows(dev, f"SSM {arch}", SSM_FTMM_SHAPES[arch],
                                    cuda_ms)
-    if arch == "xlstm_350m":
-        res["cli"] = lm_cli(SSM_CLI, 2 * models["protected"].cfg.num_layers)
     return res
 
 
@@ -2327,12 +2377,11 @@ def moe_measure(dev, arch, models, params, tokens, prompts4, cuda_ms,
     protected and one unprotected decode step at batch 4 under a primed
     torch.profiler (kernels, host ms, device ms, idle share), the three
     expert products against their byte bound, ``ft_matmul`` against its
-    plain version at MOE_FTMM_SHAPES; for DeepSeek also the CLI's ``--mode
-    lm --preset tiny --ft`` on the card. Returns a dict."""
-    from repro_torch.configs import get_smoke_config
-
+    plain version at MOE_FTMM_SHAPES. Returns a dict (for DeepSeek phase
+    11 adds the CLI's ``--mode lm --preset tiny --ft`` run)."""
     cfg = models["protected"].cfg
-    res = {"prefill_ms": prefill_ms(f"MoE {arch}", models, params, tokens,
+    res = {"prefill_ms": prefill_ms(f"MoE {arch}", models, params,
+                                    {"tokens": tokens},
                                     cuda_ms)}
     res["decode_trace"] = trace_steps(
         f"MoE {arch}", models, params, prompts4,
@@ -2349,9 +2398,6 @@ def moe_measure(dev, arch, models, params, tokens, prompts4, cuda_ms,
     res["ftmm_shapes"] = ftmm_rows(dev, f"MoE {arch}",
                                    MOE_FTMM_SHAPES[arch], cuda_ms,
                                    prefill_iters=5)
-    if arch == "deepseek_v3_671b":
-        res["cli"] = lm_cli(MOE_CLI,
-                            2 * get_smoke_config(arch).num_layers)
     return res
 
 
@@ -2383,8 +2429,10 @@ TRAIN_RESTART_STEPS = 10
 TRAIN_FTMM_SHAPES = ((2048, 1152, 1024), (2048, 1152, 256),
                      (2048, 1024, 1152), (2048, 1152, 6912),
                      (2048, 6912, 1152))
+# one checkpoint in the first run (its last step's), then the resume's
+# (steps 10 and 11): three of 12 GB, where "--ckpt-every 5" wrote four
 TRAIN_CLI = ("--arch", "gemma3-1b", "--preset", "full", "--ft-linears",
-             "--ckpt-every", "5")
+             "--ckpt-every", "10")
 TRAIN_CLI_STEPS = (10, 12)
 TRAIN_PARTS = ("forward", "backward", "optimizer")
 
@@ -2450,61 +2498,81 @@ def _batch(dev, step):
     return {k: torch.from_numpy(v).to(dev) for k, v in pipe(step).items()}
 
 
-def train_grad_gate(dev, base, params):
-    """(a): one step's loss and gradients at float32 activations three
-    ways, protected on ft_matmul, protected on the eager path, unprotected,
-    held against each other; (c): one SEU at TRAIN_SEU's site of every
-    block, corrected in each, the loss and gradients the clean step's.
-    Returns the results dict."""
+def _f32_on(cfg, backend=None):
+    """``cfg`` at float32 activations, every linear protected on the GEMM
+    ``backend`` ("fused": ft_matmul; "eager"), or unprotected."""
+    return dataclasses.replace(cfg, dtype="float32", ft=dataclasses.replace(
+        cfg.ft, protect_linears=backend is not None,
+        gemm_backend=backend or cfg.ft.gemm_backend))
+
+
+def backend_agreement(tag, cfg, params, batch, sites, eager_calls):
+    """One step's loss and gradients at float32 activations three ways:
+    protected on ft_matmul (``sites`` launches), protected on the eager
+    path (``sites`` eager ABFT calls) and unprotected, the latter two held
+    against the first (the loss to TRAIN_LOSS_TOL relative, each gradient
+    leaf to TRAIN_GRAD_TOL x its max), nothing flagged. Returns (the rows,
+    the fused run's loss and gradients)."""
     import torch
     from repro_torch.kernels.ft_matmul import ft_matmul
     from repro_torch.models import Model
-    from repro_torch.models.transformer import layer_groups
     from repro_torch.train.loop import _value_and_grad
 
-    f32 = dataclasses.replace(base.cfg, dtype="float32",
-                              ft=dataclasses.replace(base.cfg.ft,
-                                                     protect_linears=False))
-
-    def protect_on(backend):
-        return dataclasses.replace(f32, ft=dataclasses.replace(
-            f32.ft, protect_linears=True, gemm_backend=backend))
-
-    batch = _batch(dev, 0)
-    q = base.cfg.num_layers * TRAIN_SITES
     res, ref = {}, None
-    for label, cfg in (("fused", protect_on("fused")),
-                       ("eager", protect_on("eager")),
-                       ("unprotected", f32)):
-        before = ft_matmul.launches
+    for label, backend in (("fused", "fused"), ("eager", "eager"),
+                           ("unprotected", None)):
+        before, calls = ft_matmul.launches, len(eager_calls)
         (total, (_, aux)), grads = _value_and_grad(
-            Model(cfg), params, batch, block_q=1024, remat="none")
+            Model(_f32_on(cfg, backend)), params, batch, block_q=1024,
+            remat="none")
         launches = ft_matmul.launches - before
-        check(launches == (q if label == "fused" else 0),
-              f"train (a) {label}: {launches} ft_matmul launches")
+        calls = len(eager_calls) - calls
+        check(launches == (sites if label == "fused" else 0)
+              and calls == (sites if label == "eager" else 0),
+              f"{tag} {label}: {launches} ft_matmul launches, {calls} "
+              f"eager ABFT calls")
         check(float(aux["ft_flagged"]) == 0
               and bool(torch.isfinite(total)),
-              f"train (a) {label}: loss {float(total)}, flagged "
+              f"{tag} {label}: loss {float(total)}, flagged "
               f"{float(aux['ft_flagged'])}")
         row = {"loss": float(total), "ft_matmul_launches": launches,
-               "max_score": float(aux["ft_max_score"])}
+               "eager_calls": calls, "max_score": float(aux["ft_max_score"])}
         if ref is None:
             ref = (total, grads)
         else:
             rel = abs(float(total) - float(ref[0])) / abs(float(ref[0]))
             errs = _leaf_errs(grads, ref[1])
             check(rel <= TRAIN_LOSS_TOL and errs[0][0] <= TRAIN_GRAD_TOL,
-                  f"train (a) {label} vs fused: loss {rel:.3e}, worst leaf "
+                  f"{tag} {label} vs fused: loss {rel:.3e}, worst leaf "
                   f"{errs[0]}")
             row.update(loss_rel_err=rel, worst_leaf=list(errs[0]))
             del grads
         res[label] = row
-        log(f"train (a) {label} at float32 activations: loss "
-            f"{row['loss']:.7f}, {launches} ft_matmul launches, max score "
-            f"{row['max_score']:.3e}"
+        log(f"{tag} {label} at float32 activations: loss "
+            f"{row['loss']:.7f}, {launches} ft_matmul launches, {calls} "
+            f"eager ABFT calls, max score {row['max_score']:.3e}"
             + (f"; vs fused: loss {row['loss_rel_err']:.3e} relative, "
                f"worst gradient leaf {row['worst_leaf'][0]:.3e} of its max "
                f"({row['worst_leaf'][1]})" if "worst_leaf" in row else ""))
+    return res, ref
+
+
+def train_grad_gate(dev, base, params, eager_calls):
+    """(a): one step's loss and gradients at float32 activations three
+    ways, protected on ft_matmul, protected on the eager path, unprotected,
+    held against each other (``backend_agreement``); (c): one SEU at
+    TRAIN_SEU's site of every block, corrected in each, the loss and
+    gradients the clean step's. Returns the results dict."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import layer_groups
+    from repro_torch.train.loop import _value_and_grad
+
+    f32 = _f32_on(base.cfg)
+    res, ref = backend_agreement("train (a)", base.cfg, params,
+                                 _batch(dev, 0),
+                                 base.cfg.num_layers * TRAIN_SITES,
+                                 eager_calls)
 
     # (c) one SEU at one site: every block builds its own FTContext, so the
     # site addresses one product in each of the prefix, repeated and tail
@@ -2514,8 +2582,8 @@ def train_grad_gate(dev, base, params):
     check(blocks == base.cfg.num_layers, f"layer groups {g}")
     inject = torch.tensor([TRAIN_SEU], dtype=torch.float32, device=dev)
     (total, (_, aux)), grads = _value_and_grad(
-        Model(protect_on("fused")), params, batch, block_q=1024,
-        remat="none", inject=inject)
+        Model(_f32_on(base.cfg, "fused")), params, _batch(dev, 0),
+        block_q=1024, remat="none", inject=inject)
     rel = abs(float(total) - float(ref[0])) / abs(float(ref[0]))
     errs = _leaf_errs(grads, ref[1])
     seu = {"site": TRAIN_SEU, "blocks": blocks,
@@ -2541,28 +2609,27 @@ def train_grad_gate(dev, base, params):
 
 
 def train_run(tag, model, run, params, opt_state, start, stop, eager_calls,
-              mgr=None):
+              batch, sites, mgr=None):
     """Steps ``start``..``stop - 1`` of ``make_train_step`` on ``params``
-    and ``opt_state`` (written in place), each between CUDA events; every
-    loss finite; a protected step makes exactly TRAIN_SITES x layers
-    ft_matmul launches, flags nothing and calls no eager ABFT path; an
-    unprotected one launches nothing. With ``mgr``, the state is saved
-    after TRAIN_SAVE_AFTER steps. Returns the rows."""
+    and ``opt_state`` (written in place), each between CUDA events, on
+    ``batch(device, step)``; every loss finite; a protected step makes
+    exactly ``sites`` ft_matmul launches, flags nothing and calls no eager
+    ABFT path; an unprotected one launches nothing. With ``mgr``, the
+    state is saved after TRAIN_SAVE_AFTER steps. Returns the rows."""
     import torch
     from repro_torch.kernels.ft_matmul import ft_matmul
     from repro_torch.train import make_train_step
 
     step_fn = make_train_step(model, run)
-    protected = model.cfg.ft.protect_linears
-    want = TRAIN_SITES * model.cfg.num_layers if protected else 0
+    want = sites if model.cfg.ft.protect_linears else 0
     rows = []
     for step in range(start, stop):
-        batch = _batch(model_dev(params), step)
+        b = batch(model_dev(params), step)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         before, calls = ft_matmul.launches, len(eager_calls)
         e0.record()
-        params, opt_state, m = step_fn(params, opt_state, batch, step)
+        params, opt_state, m = step_fn(params, opt_state, b, step)
         e1.record()
         e1.synchronize()
         row = {k: float(v) for k, v in m.items()}
@@ -2608,9 +2675,11 @@ def train_drive(dev, eager_calls):
     from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
 
     models, params0 = train_setup(dev)
+    sites = TRAIN_SITES * models["protected"][0].cfg.num_layers
     res = {"arch": TRAIN_ARCH, "params": TRAIN_PARAMS,
            "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": TRAIN_LR}
-    res["grad_gate"] = train_grad_gate(dev, models["protected"][0], params0)
+    res["grad_gate"] = train_grad_gate(dev, models["protected"][0], params0,
+                                       eager_calls)
     ckpt_dir = tempfile.mkdtemp(prefix="ckpt_", dir=_build_dir())
     try:
         mgr = CheckpointManager(ckpt_dir)
@@ -2621,7 +2690,7 @@ def train_drive(dev, eager_calls):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             rows = train_run(label, model, run, params, opt_state, 0,
-                             TRAIN_STEPS, eager_calls,
+                             TRAIN_STEPS, eager_calls, _batch, sites,
                              mgr if label == "protected" else None)
             losses = [r["loss"] for r in rows]
             first, last = np.mean(losses[:5]), np.mean(losses[-5:])
@@ -2669,7 +2738,8 @@ def train_drive(dev, eager_calls):
               and int(opt_state.step) == TRAIN_SAVE_AFTER,
               f"train (d): restored {meta}, step {int(opt_state.step)}")
         rows = train_run("restart", model, run, params, opt_state,
-                         TRAIN_SAVE_AFTER, TRAIN_RESTART_STEPS, eager_calls)
+                         TRAIN_SAVE_AFTER, TRAIN_RESTART_STEPS, eager_calls,
+                         _batch, sites)
         del params, opt_state
         torch.cuda.empty_cache()
     finally:
@@ -2777,6 +2847,60 @@ def train_split(evs, mark):
     return out, unmatched
 
 
+def trace_train_step(tag, model, run, params, batch, want, trace_call):
+    """A primed torch.profiler trace of one ``make_train_step`` step on
+    ``params`` (updated in place) and a fresh optimizer state, its kernels
+    split into forward, backward and optimizer (``train_split``): every
+    kernel counted, and all ``want`` ft_matmul_tile kernels in the
+    forward. Returns (the parts, the trace's row)."""
+    from repro_torch import optim
+    from repro_torch.train import make_train_step
+
+    opt_state = optim.init_state(params)
+    step_fn = make_train_step(model, run)
+    counter = iter(range(4, 100))
+
+    def fn():
+        step_fn(params, opt_state, batch, next(counter))
+
+    kern, window, idle, (split, unmatched) = trace_call(
+        fn, lambda names: sum("ft_matmul_tile" in k for k in names)
+        == want, split=train_split)
+    device_ms = sum(kms for _, kms in kern)
+    check(not unmatched
+          and sum(n for n, _, _ in split.values()) == len(kern)
+          and split["backward"][0] > 0 and split["optimizer"][0] > 0
+          and [split[p][2] for p in TRAIN_PARTS] == [want, 0, 0],
+          f"{tag} step split: {split} of {len(kern)} kernels, {want} "
+          f"ft_matmul_tile wanted in the forward; no launch found for "
+          f"{len(unmatched)}: {sorted(set(unmatched))[:10]}")
+    parts = {p: {"kernels": n, "device_ms": ms, "share": ms / device_ms,
+                 "ft_matmul_tile": f} for p, (n, ms, f) in split.items()}
+    log(f"{tag} step parts (device time of the traced step's kernels by "
+        f"when they were launched): " + ", ".join(
+            f"{p} {ms:.2f} ms ({ms / device_ms:.1%}, {n} kernels, {f} "
+            f"ft_matmul_tile)" for p, (n, ms, f) in split.items()))
+    groups = {}
+    for name, kms in kern:
+        key = re.sub(r"^void ", "", name)[:60]
+        n, tot = groups.get(key, (0, 0.0))
+        groups[key] = (n + 1, tot + kms)
+    top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:10]
+    row = {"kernels": len(kern),
+           "ft_matmul_tile": sum("ft_matmul_tile" in k for k, _ in kern),
+           "ft_matmul_tile_ms": sum(kms for k, kms in kern
+                                    if "ft_matmul_tile" in k),
+           "device_ms": device_ms, "window_ms": window, "idle_share": idle,
+           "top": [[k, n, kms] for k, (n, kms) in top]}
+    log(f"{tag} step trace: {row['kernels']} kernels, "
+        f"{row['ft_matmul_tile']} ft_matmul_tile "
+        f"({row['ft_matmul_tile_ms']:.3f} ms), {row['device_ms']:.3f} ms on "
+        f"the device in a {window:.3f} ms window (idle {idle:.1%}); by "
+        f"name: " + "; ".join(f"{k} x{n} {kms:.3f} ms"
+                              for k, (n, kms) in top))
+    return parts, row
+
+
 def train_measure(dev, models, params0, cuda_ms, host_ms, trace_call):
     """Phase 10's measurements after the drive: a primed torch.profiler
     trace of one ``make_train_step`` step protected and one unprotected,
@@ -2787,64 +2911,19 @@ def train_measure(dev, models, params0, cuda_ms, host_ms, trace_call):
     five product shapes, and the CLI run twice on one checkpoint
     directory. Returns a dict."""
     import torch
-    from repro_torch import optim, tree
+    from repro_torch import tree
     from repro_torch.kernels.ft_matmul import ft_matmul
-    from repro_torch.train import make_train_step
     from repro_torch.train.loop import _value_and_grad
 
     res = {"parts": {}, "trace": {}}
     params = tree.tree_map(lambda t: t.detach().clone(), params0)
     for label in ("protected", "unprotected"):
         model, run = models[label]
-        opt_state = optim.init_state(params)
         want = TRAIN_SITES * model.cfg.num_layers \
             if label == "protected" else 0
-        step_fn = make_train_step(model, run)
-        batch = _batch(dev, 4)
-        counter = iter(range(4, 100))
-
-        def fn():
-            step_fn(params, opt_state, batch, next(counter))
-
-        kern, window, idle, (split, unmatched) = trace_call(
-            fn, lambda names: sum("ft_matmul_tile" in k for k in names)
-            == want, split=train_split)
-        device_ms = sum(kms for _, kms in kern)
-        check(not unmatched
-              and sum(n for n, _, _ in split.values()) == len(kern)
-              and split["backward"][0] > 0 and split["optimizer"][0] > 0
-              and [split[p][2] for p in TRAIN_PARTS] == [want, 0, 0],
-              f"train {label} step split: {split} of {len(kern)} kernels, "
-              f"{want} ft_matmul_tile wanted in the forward; no launch "
-              f"found for {len(unmatched)}: {sorted(set(unmatched))[:10]}")
-        res["parts"][label] = {
-            p: {"kernels": n, "device_ms": ms, "share": ms / device_ms,
-                "ft_matmul_tile": f} for p, (n, ms, f) in split.items()}
-        log(f"train step parts ({label}, device time of the traced step's "
-            f"kernels by when they were launched): " + ", ".join(
-                f"{p} {ms:.2f} ms ({ms / device_ms:.1%}, {n} kernels, {f} "
-                f"ft_matmul_tile)" for p, (n, ms, f) in split.items()))
-        groups = {}
-        for name, kms in kern:
-            key = re.sub(r"^void ", "", name)[:60]
-            n, tot = groups.get(key, (0, 0.0))
-            groups[key] = (n + 1, tot + kms)
-        top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:10]
-        row = {"kernels": len(kern),
-               "ft_matmul_tile": sum("ft_matmul_tile" in k for k, _ in kern),
-               "ft_matmul_tile_ms": sum(kms for k, kms in kern
-                                        if "ft_matmul_tile" in k),
-               "device_ms": device_ms, "window_ms": window,
-               "idle_share": idle,
-               "top": [[k, n, kms] for k, (n, kms) in top]}
-        res["trace"][label] = row
-        log(f"train step trace ({label}): {row['kernels']} kernels, "
-            f"{row['ft_matmul_tile']} ft_matmul_tile "
-            f"({row['ft_matmul_tile_ms']:.3f} ms), {row['device_ms']:.3f} "
-            f"ms on the device in a {window:.3f} ms window (idle "
-            f"{idle:.1%}); by name: " + "; ".join(
-                f"{k} x{n} {kms:.3f} ms" for k, (n, kms) in top))
-        del opt_state
+        res["parts"][label], res["trace"][label] = trace_train_step(
+            f"train ({label})", model, run, params, _batch(dev, 4), want,
+            trace_call)
     # remat: each block's checks run again in the recompute, so a
     # protected step launches ft_matmul twice a product; the stats are the
     # first forward's (nothing flagged)
@@ -2883,6 +2962,343 @@ def train_measure(dev, models, params0, cuda_ms, host_ms, trace_call):
     res["ftmm_shapes"] = ftmm_rows(dev, "train", TRAIN_FTMM_SHAPES, cuda_ms,
                                    prefill_iters=10)
     res["cli"] = train_cli(TRAIN_CLI_STEPS)
+    return res
+
+
+# ---- phase 11: the encoder-decoder and the VLM. Whisper-base (6 encoder
+# and 6 decoder layers, d_model 512, vocab 51865; the audio frontend stub
+# takes 1500 frames of 80) and then InternVL2-1B (24 layers, d_model 896,
+# GQA with q/k/v biases, vocab 151655; the patch frontend stub takes 256
+# patches of 1024) at their published widths and full depth (f32 params,
+# bf16 activations, random weights from a seeded CUDA generator, frames
+# and patches standard normal from numpy's SEED): (a) the prefill through
+# make_prefill_step, protected against unprotected at bf16 and at float32;
+# (b) greedy decode, protected and unprotected (Whisper's cross caches
+# still zeros after it: the reference's decode passes no encoder output,
+# ROADMAP queue 3 "In the reference itself" item 8); training through
+# make_train_step at launch.train's batch with frames or patches: the
+# three backends at float32, then ENCDEC_TRAIN_STEPS bf16 steps each way;
+# then the times. One config at a time, the first freed before the second
+# is built; both CLIs at the end, started together
+ENCDEC_ARCHS = ("whisper_base", "internvl2_1b")
+# (layers, d_model, d_ff, vocab, heads): the published widths; Whisper's
+# layers are each of its encoder's and decoder's
+ENCDEC_WIDTHS = {"whisper_base": (6, 512, 2048, 51865, 8),
+                 "internvl2_1b": (24, 896, 4864, 151655, 14)}
+# ft_matmul launches of a protected Model.apply and of a protected decode
+# step: Whisper 6 a block (q k v o, wi wo) in its 6 encoder and 6 decoder
+# blocks, and in a decode step its decoder's alone (the cross-attention's
+# products are plain, as the frontend's and the head's); InternVL2 7 a
+# layer (q k v o, the SwiGLU's three)
+ENCDEC_SITES = {"whisper_base": (72, 36), "internvl2_1b": (168, 168)}
+# the prefill (batch, tokens): Whisper's 448 is its decoder's maximum, and
+# its encoder's products run at M = 4 x 1500 = 6000, which the GEMM plan
+# pads to 6016 (no multiple of 128: 64-row tiles); InternVL2's 256 tokens
+# follow its 256 patches, so the logits cover 512 positions
+ENCDEC_PREFILL = {"whisper_base": (4, 448), "internvl2_1b": (4, 256)}
+ENCDEC_BATCHES = {"whisper_base": (4, 64), "internvl2_1b": (4,)}
+# the float32 prefill, protected against unprotected: the two differ by
+# their sums' order
+ENCDEC_F32_TOL = 2e-3
+ENCDEC_TRAIN_STEPS = 10
+# the CLIs at the published widths, with the demo schedule: Whisper's
+# blocks take no fault descriptor (queue 3 item 9: 0 detected), each of
+# InternVL2's 24 layers takes both faults
+ENCDEC_CLI = {"whisper_base": (("--mode", "lm", "--arch", "whisper-base",
+                                "--preset", "full", "--ft"), 0),
+              "internvl2_1b": (("--mode", "lm", "--arch", "internvl2-1b",
+                                "--preset", "full", "--ft"), 48)}
+# the new products (K, N), timed at a decode step's M (4, padded to 64)
+# and at the prefill's (Whisper's encoder: 6000; InternVL2: 4 x 512)
+_ENCDEC_KN = {"whisper_base": ((512, 512), (512, 2048), (2048, 512)),
+              "internvl2_1b": ((896, 896), (896, 128), (896, 4864),
+                               (4864, 896))}
+ENCDEC_FTMM_SHAPES = {
+    arch: tuple((m, k, n) for m in (4, big) for k, n in _ENCDEC_KN[arch])
+    for arch, big in (("whisper_base", 6000), ("internvl2_1b", 2048))}
+
+
+def encdec_inputs(dev, cfg, batch, seed):
+    """The frontend stub's input of ``batch`` examples: Whisper's frames
+    (batch, 1500, 80) or InternVL2's patch embeddings (batch, 256, 1024),
+    float32 standard normal from numpy's ``seed``, as the reference's
+    ``tests/test_models_smoke._batch_for`` draws them."""
+    import numpy as np
+    import torch
+
+    if cfg.is_encdec:
+        key, n = "frames", cfg.max_source_positions
+    else:
+        key, n = "patch_embeds", cfg.num_patches
+    x = np.random.default_rng(seed).standard_normal(
+        (batch, n, cfg.frontend_dim), dtype=np.float32)
+    return {key: torch.from_numpy(x).to(dev)}
+
+
+def encdec_prefill(tag, models, params, batch, sites, eager_calls):
+    """(a): the prefill of ``batch`` through ``make_prefill_step`` (the
+    last position's float32 logits), protected (``sites`` ft_matmul
+    launches, no eager ABFT call, no flag) against unprotected, at the
+    config's bf16 activations (LM_LOGIT_TOL x max) and at float32
+    (ENCDEC_F32_TOL x max). Returns the rows by activation type."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.models import Model
+    from repro_torch.train import make_prefill_step
+
+    out = {}
+    for dtype, tol in (("bfloat16", LM_LOGIT_TOL),
+                       ("float32", ENCDEC_F32_TOL)):
+        logits, score, measured = {}, 0.0, None
+        for label, m in models.items():
+            cfg = dataclasses.replace(m.cfg, dtype=dtype)
+            step = make_prefill_step(Model(cfg), RunConfig(model=cfg))
+            before, calls = ft_matmul.launches, len(eager_calls)
+            logits[label], aux = step(params, batch)
+            launches = ft_matmul.launches - before
+            want = sites if label == "protected" else 0
+            check(launches == want and len(eager_calls) == calls
+                  and float(aux["ft_flagged"]) == 0,
+                  f"{tag} {label} prefill at {dtype}: {launches} ft_matmul "
+                  f"launches (not {want}), {len(eager_calls) - calls} eager "
+                  f"ABFT calls, flagged {float(aux['ft_flagged'])}")
+            score = max(score, float(aux["ft_max_score"]))
+            if label == "protected":
+                measured = launches
+        p, u = logits["protected"], logits["unprotected"]
+        b = batch["tokens"].shape[0]
+        vocab = models["protected"].cfg.vocab_size
+        check(tuple(p.shape) == (b, vocab) and p.dtype == torch.float32
+              and bool(torch.isfinite(p).all()),
+              f"{tag} prefill at {dtype}: logits {tuple(p.shape)} {p.dtype}")
+        scale = u.abs().max().item()
+        err = (p - u).abs().max().item()
+        agree = (p.argmax(-1) == u.argmax(-1)).float().mean().item()
+        check(err <= tol * scale, f"{tag} protected vs unprotected prefill "
+                                  f"at {dtype}: {err} > {tol} * {scale}")
+        out[dtype] = {"shape": list(batch["tokens"].shape),
+                      "ft_matmul_launches": measured, "max_score": score,
+                      "logit_err": err, "logit_max": scale,
+                      "logit_tol": tol * scale, "argmax_agreement": agree}
+        log(f"{tag} prefill {tuple(batch['tokens'].shape)} at {dtype} "
+            f"through make_prefill_step: {measured} ft_matmul launches, max "
+            f"score {score:.3e}; protected vs unprotected last-position "
+            f"logits err {err:.4e} (tol {tol * scale:.4e}, max "
+            f"{scale:.4e}), argmax agreement {agree:.3f}")
+    return out
+
+
+def encdec_decode(tag, models, params, prompts, sites):
+    """(b): ``lm_decode`` of ``prompts`` (InternVL2's also under the
+    CLI's schedule, its ledger and tokens gated), every cache the decode
+    makes kept; the encoder-decoder's cross caches must still be all zeros
+    after it. Returns lm_decode's rows."""
+    from repro_torch.models import Model
+
+    held = []
+    init_cache = Model.init_cache
+
+    def keep(self, *args, **kwargs):
+        held.append(init_cache(self, *args, **kwargs))
+        return held[-1]
+
+    Model.init_cache = keep
+    try:
+        rows = lm_decode(tag, models, params, prompts, sites,
+                         models["protected"].cfg.num_layers)
+    finally:
+        Model.init_cache = init_cache
+    if models["protected"].cfg.is_encdec:
+        cross = [c[k] for cache in held for c in
+                 (layer["cross"] for layer in cache["decoder"].values())
+                 for k in ("k", "v")]
+        check(held and not any(bool(t.any()) for t in cross),
+              f"{tag} decode: a cross cache is no longer zeros")
+        rows["zero_cross_caches"] = len(cross)
+        log(f"{tag} decode batch {prompts.shape[0]}: all {len(cross)} cross "
+            f"caches of its {len(held)} decodes are still zeros (the "
+            f"reference's decode passes no encoder output)")
+    return rows
+
+
+def encdec_train_batch(cfg, dev, step):
+    """Training's batch of ``step`` for ``cfg``: ``launch.train``'s tokens
+    (TokenPipeline(seed=0), 8 x 256) with frames or patches from numpy's
+    SEED + step, on ``dev``."""
+    import torch
+    from repro_torch.data import TokenPipeline
+
+    pipe = TokenPipeline(seed=0, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         vocab_size=cfg.vocab_size)
+    out = {k: torch.from_numpy(v).to(dev) for k, v in pipe(step).items()}
+    out.update(encdec_inputs(dev, cfg, TRAIN_BATCH, SEED + step))
+    return out
+
+
+def encdec_train(dev, arch, params0, sites, eager_calls):
+    """Training at launch.train's batch (8 x 256 tokens of
+    ``TokenPipeline(seed=0)``) with frames or patches from numpy's SEED +
+    step: one step's loss and gradients at float32 activations on the
+    three backends (``backend_agreement``), then ENCDEC_TRAIN_STEPS bf16
+    steps protected and as many unprotected from the same weights: finite
+    losses, the last five below the first five, ``sites`` ft_matmul
+    launches a protected step (``encdec_measure``'s trace puts them all in
+    the forward), and nothing flagged at the policy's threshold. Returns
+    the results."""
+    import numpy as np
+    import torch
+    from repro_torch import optim, tree
+    from repro_torch.launch.train import build
+    from repro_torch.models import Model
+
+    tag = f"{arch} train"
+    runs = {label: build(arch, "full", steps=ENCDEC_TRAIN_STEPS,
+                         batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                         ft_linears=label == "protected")
+            for label in ("protected", "unprotected")}
+    prot = runs["protected"][0]
+    check(prot.ft.threshold == 1e-4, f"{tag}: {prot.ft}")
+    batch = functools.partial(encdec_train_batch, prot)
+
+    res = {"batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": TRAIN_LR,
+           "steps": ENCDEC_TRAIN_STEPS}
+    res["grad_gate"], _ = backend_agreement(tag, prot, params0,
+                                            batch(dev, 0), sites, eager_calls)
+    for label, (cfg, run) in runs.items():
+        params = tree.tree_map(lambda t: t.detach().clone(), params0)
+        opt_state = optim.init_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rows = train_run(f"{arch} {label}", Model(cfg), run, params,
+                         opt_state, 0, ENCDEC_TRAIN_STEPS, eager_calls,
+                         batch, sites)
+        losses = [r["loss"] for r in rows]
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        check(last < first, f"{tag} {label}: the loss did not fall: "
+                            f"{losses}")
+        timed = [r["ms"] for r in rows[TRAIN_WARMUP:]]
+        ms = float(np.median(timed))
+        res[label] = {
+            "losses": losses, "first5_mean": float(first),
+            "last5_mean": float(last), "ms_per_step": ms,
+            "ms_per_step_range": [float(np.min(timed)),
+                                  float(np.max(timed))],
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "ft_matmul_launches_per_step": rows[-1]["ft_matmul_launches"],
+            "ft_flagged": sum(r["ft_flagged"] for r in rows)}
+        log(f"{tag} {label}: {ENCDEC_TRAIN_STEPS} bf16 steps, loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 5 {first:.4f}, "
+            f"last 5 {last:.4f}); {ms:.2f} ms a step, the median of steps "
+            f"{TRAIN_WARMUP}-{ENCDEC_TRAIN_STEPS - 1} (range "
+            f"{min(timed):.2f}-{max(timed):.2f}), "
+            f"{res[label]['tokens_per_s']:.0f} tokens/s, "
+            f"{rows[-1]['ft_matmul_launches']} ft_matmul launches a step, "
+            f"flagged "
+            f"{res[label]['ft_flagged']:.0f}, peak "
+            f"{res[label]['peak_memory_bytes'] / 1e9:.2f} GB")
+        del params, opt_state
+        torch.cuda.empty_cache()
+    res["ft_overhead_per_step"] = (res["protected"]["ms_per_step"]
+                                   / res["unprotected"]["ms_per_step"] - 1)
+    return res
+
+
+def encdec_drive(dev, arch, eager_calls):
+    """Drive phase 11's ``arch`` once (counts are the caller's to reset
+    and read): the prefill gates, the decode runs and training. Returns
+    (results, the model pair, params, the prefill batch, the batch-4
+    prompts) for the measurements that follow."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, count_params
+
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = get_config(arch)
+    layers_n = base.decoder_layers or base.num_layers
+    check((layers_n, base.d_model, base.d_ff, base.vocab_size,
+           base.num_heads) == ENCDEC_WIDTHS[arch]
+          and base.encoder_layers in (0, layers_n), f"{arch}: {base}")
+    sites, step_sites = ENCDEC_SITES[arch]
+    models = {"unprotected": Model(base), "protected": Model(protect(base))}
+    t0 = time.perf_counter()
+    params = models["unprotected"].init(
+        torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    param_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    res["params"] = count_params(base)
+    res["param_bytes"] = param_bytes
+    res["init_s"] = time.perf_counter() - t0
+    check(res["params"] == sum(t.numel() for t in tree.leaves(params)),
+          f"{arch}: count_params disagrees with the initialised tree")
+    tag = base.name
+    log(f"{tag}: {res['params']} params, {param_bytes / 1e9:.2f} GB "
+        f"({base.param_dtype}), activations {base.dtype}, {sites} protected "
+        f"products a forward and {step_sites} a decode step; initialised "
+        f"on the card in {res['init_s']:.1f} s")
+
+    # (a) the prefill, protected against unprotected
+    b, t = ENCDEC_PREFILL[arch]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    batch = {"tokens": torch.randint(0, base.vocab_size, (b, t),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32),
+             **encdec_inputs(dev, base, b, SEED)}
+    res["prefill"] = encdec_prefill(tag, models, params, batch, sites,
+                                    eager_calls)
+
+    # (b) greedy decode, unprotected and protected
+    rng = np.random.default_rng(SEED)
+    res["decode"] = []
+    prompts4 = None
+    for n in ENCDEC_BATCHES[arch]:
+        prompts = torch.as_tensor(
+            rng.integers(0, base.vocab_size, (n, LM_PROMPT)),
+            dtype=torch.int32, device=dev)
+        prompts4 = prompts if prompts4 is None else prompts4
+        res["decode"].append(encdec_decode(tag, models, params, prompts,
+                                           step_sites))
+    res["serve_peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+    # training: Whisper's (d), InternVL2's (c)
+    res["train"] = encdec_train(dev, arch, params, sites, eager_calls)
+    return res, models, params, batch, prompts4
+
+
+def encdec_measure(dev, arch, models, params, batch, prompts4, cuda_ms,
+                   host_ms, trace_call):
+    """Phase 11's times for ``arch``: the prefill through
+    ``make_prefill_step`` by CUDA events, protected and unprotected; one
+    protected decode step at batch 4 under a primed torch.profiler
+    (kernels, device ms, idle share, ft_matmul_tile ms); ``ft_matmul``
+    against its plain version, ``torch.matmul`` and its bound at
+    ENCDEC_FTMM_SHAPES; last, one protected train step at training's
+    batch under a primed torch.profiler (``trace_train_step``: every
+    ft_matmul launch in the forward), which updates ``params`` in place.
+    Returns a dict."""
+    from repro_torch.launch.train import build
+    from repro_torch.models import Model
+
+    tag = models["protected"].cfg.name
+    sites, step_sites = ENCDEC_SITES[arch]
+    res = {"prefill_ms": prefill_ms(tag, models, params, batch, cuda_ms)}
+    res["decode_trace"] = trace_steps(
+        tag, {"protected": models["protected"]}, params, prompts4,
+        step_sites, host_ms, trace_call)
+    res["ftmm_shapes"] = ftmm_rows(dev, tag, ENCDEC_FTMM_SHAPES[arch],
+                                   cuda_ms)
+    cfg, run = build(arch, "full", steps=ENCDEC_TRAIN_STEPS,
+                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                     ft_linears=True)
+    res["train_parts"], res["train_trace"] = trace_train_step(
+        f"{arch} train (protected)", Model(cfg), run, params,
+        encdec_train_batch(cfg, dev, 4), sites, trace_call)
     return res
 
 
@@ -3625,6 +4041,71 @@ def main() -> int:
     log(f"phase 10 took {train['seconds']:.1f} s; the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
 
+    # ---- phase 11: the encoder-decoder and the VLM, counts from each
+    # config's drive only (set to 0 just before it, read just after, and
+    # summed); every protected product launches ft_matmul, and the eager
+    # ABFT path runs only in each training gate's eager step (counted there)
+    t11 = time.perf_counter()
+    log(f"phase 11 starts {t11 - t_start:.1f} s into the run ({smi})")
+    torch.cuda.empty_cache()
+    encdec = {}
+    encdec_launches = {"block_fft": 0, "abft_fft": 0, "ft_matmul": 0}
+    eager_calls.clear()
+    abft_gemm.ft_matmul = counted_eager
+    try:
+        for arch in ENCDEC_ARCHS:
+            block_fft.launches = 0
+            abft_fft.launches = 0
+            ft_matmul.launches = 0
+            res, models, params, batch, prompts4 = encdec_drive(
+                dev, arch, eager_calls)
+            torch.cuda.synchronize()
+            res["launches"] = {"block_fft": block_fft.launches,
+                               "abft_fft": abft_fft.launches,
+                               "ft_matmul": ft_matmul.launches}
+            for key, n in res["launches"].items():
+                encdec_launches[key] += n
+            res.update(encdec_measure(dev, arch, models, params, batch,
+                                      prompts4, cuda_ms, host_ms,
+                                      trace_call))
+            del models, params, batch, prompts4
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            encdec[arch] = res
+    finally:
+        abft_gemm.ft_matmul = eager_ft_matmul
+    want_eager = sum(ENCDEC_SITES[arch][0] for arch in ENCDEC_ARCHS)
+    log(f"encoder-decoder and VLM launches, their drives: "
+        f"{json.dumps(encdec_launches)}; eager ABFT calls "
+        f"{len(eager_calls)} (the training gates' eager steps: "
+        f"{want_eager})")
+    check(encdec_launches["ft_matmul"] > 0
+          and len(eager_calls) == want_eager,
+          f"encoder-decoder and VLM paths: {encdec_launches}, "
+          f"{len(eager_calls)} eager ABFT calls")
+    encdec["launches"] = encdec_launches
+    encdec["device"] = smi
+
+    # phase 11 ends with the `--mode lm` CLIs of phases 7-9 and its own,
+    # started together: each is a host-bound process of its own, with its
+    # own ledger, 2 faults a layer (the demo schedule's two entries fire in
+    # every block), none for Whisper, whose blocks take no fault descriptor
+    from repro_torch.configs import get_config, get_smoke_config
+    t_cli = time.perf_counter()
+    clis = lm_clis([
+        (LM_CLI, 2 * get_config(LM_SMALL_ARCH).num_layers),
+        (SSM_CLI, 2 * get_config("xlstm_350m").num_layers),
+        (MOE_CLI, 2 * get_smoke_config("deepseek_v3_671b").num_layers),
+        *(ENCDEC_CLI[arch] for arch in ENCDEC_ARCHS)])
+    lm["cli"], ssm["xlstm_350m"]["cli"], moe_res["deepseek_v3_671b"][
+        "cli"] = clis[:3]
+    encdec["cli"] = clis[3:]
+    encdec["cli_seconds"] = time.perf_counter() - t_cli
+    encdec["seconds"] = time.perf_counter() - t11
+    log(f"phase 11 took {encdec['seconds']:.1f} s, its five CLIs "
+        f"{encdec['cli_seconds']:.1f} s of it; the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+
     kernels = [
         {"name": "block_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_fft.cu",
@@ -3671,7 +4152,8 @@ def main() -> int:
                               "lm": lm_launches["ft_matmul"],
                               "ssm": ssm_launches["ft_matmul"],
                               "moe": moe_launches["ft_matmul"],
-                              "train": train_launches["ft_matmul"]},
+                              "train": train_launches["ft_matmul"],
+                              "encdec": encdec_launches["ft_matmul"]},
          "launches_per_call": {"plan.ft_matmul": 1,
                                "protected MLP block": mlp_per_call,
                                "protected prefill":
@@ -3688,7 +4170,19 @@ def main() -> int:
                                       "launches_per_step"]
                                   for arch in MOE_ARCHS},
                                "protected train step": train["protected"][
-                                   "ft_matmul_launches_per_step"]},
+                                   "ft_matmul_launches_per_step"],
+                               **{f"{arch} protected prefill":
+                                  encdec[arch]["prefill"]["bfloat16"][
+                                      "ft_matmul_launches"]
+                                  for arch in ENCDEC_ARCHS},
+                               **{f"{arch} protected decode step":
+                                  encdec[arch]["decode"][0]["protected"][
+                                      "launches_per_step"]
+                                  for arch in ENCDEC_ARCHS},
+                               **{f"{arch} protected train step":
+                                  encdec[arch]["train"]["protected"][
+                                      "ft_matmul_launches_per_step"]
+                                  for arch in ENCDEC_ARCHS}},
          "max_abs_err": max(gemm_parts.values()),
          "max_abs_err_parts": gemm_parts, "max_err_over_tol": gemm_ratio,
          "max_abs_err_by_path": {
@@ -3701,11 +4195,16 @@ def main() -> int:
                         for row in moe_res[arch]["ftmm_shapes"]
                         for e in row["max_abs_err"].values()),
              "train": max(e for row in train["ftmm_shapes"]
-                          for e in row["max_abs_err"].values())},
+                          for e in row["max_abs_err"].values()),
+             "encdec": max(e for arch in ENCDEC_ARCHS
+                           for row in encdec[arch]["ftmm_shapes"]
+                           for e in row["max_abs_err"].values())},
          "ssm_shapes": [dict(row, arch=arch) for arch in SSM_ARCHS
                         for row in ssm[arch]["ftmm_shapes"]],
          "moe_shapes": [dict(row, arch=arch) for arch in MOE_ARCHS
                         for row in moe_res[arch]["ftmm_shapes"]],
+         "encdec_shapes": [dict(row, arch=arch) for arch in ENCDEC_ARCHS
+                           for row in encdec[arch]["ftmm_shapes"]],
          "shape": main_row["shape"], "ms": main_row["ms"],
          "device_ms": main_row["device_ms"],
          "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
@@ -3716,7 +4215,8 @@ def main() -> int:
                                and r["tile"] == [128, 128]),
          "instances": ftmm_instances, "shapes": gemm_rows,
          "mlp_block": mlp_ms, "seu": {"plan": gemm_seu, "mlp": mlp_seu},
-         "lm": lm, "ssm": ssm, "moe": moe_res, "train": train},
+         "lm": lm, "ssm": ssm, "moe": moe_res, "train": train,
+         "encdec": encdec},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,10 @@
-"""Config registry: one module per architecture ported so far.
+"""Config registry: one module per architecture, the reference's ten.
 ``get_config(name)`` returns the full ModelConfig; ``get_smoke_config(name)``
 returns the reduced same-family config used by CPU tests. ``ARCHS`` holds
 the dense decoder family, the recurrent models (RecurrentGemma's RG-LRU
-hybrid, xLSTM) and the MoE models (DeepSeek-V3 with MLA, Llama-4
-Maverick), whose layers are ported; the reference's other architectures
-raise, naming what ports them (``NOT_YET_PORTED``).
+hybrid, xLSTM), the MoE models (DeepSeek-V3 with MLA, Llama-4 Maverick),
+the VLM (InternVL2's patch frontend stub) and the encoder-decoder model
+(Whisper), in the reference's order.
 """
 from __future__ import annotations
 
@@ -18,18 +18,13 @@ ARCHS = [
     "phi3_medium_14b",
     "phi4_mini_3p8b",
     "gemma3_1b",
+    "internvl2_1b",
     "xlstm_350m",
-    "recurrentgemma_2b",
     "deepseek_v3_671b",
     "llama4_maverick",
+    "recurrentgemma_2b",
+    "whisper_base",
 ]
-
-_ITEM_9 = "ROADMAP queue 1 item 9"
-# the reference's other architectures -> what ports them
-NOT_YET_PORTED = {
-    "whisper_base": f"the encoder-decoder model, {_ITEM_9}",
-    "internvl2_1b": f"the VLM patch frontend stub, {_ITEM_9}",
-}
 
 # canonical ids as assigned (hyphens) -> module names
 _ALIASES = {
@@ -48,9 +43,6 @@ _ALIASES = {
 
 def _module(name: str):
     mod = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod in NOT_YET_PORTED:
-        raise ValueError(f"architecture {name!r} is not yet ported: it "
-                         f"needs {NOT_YET_PORTED[mod]}; ported: {ARCHS}")
     if mod not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}; ported: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
@@ -69,5 +61,5 @@ def all_arch_names() -> list[str]:
 
 
 __all__ = ["ModelConfig", "ParallelConfig", "RunConfig", "ShapeConfig",
-           "SHAPES", "ARCHS", "NOT_YET_PORTED", "get_config",
+           "SHAPES", "ARCHS", "get_config",
            "get_smoke_config", "all_arch_names"]

@@ -3,7 +3,10 @@ batched FFT endpoint and the multi-tenant serving worker, on one card.
 
     # greedy decode of a model (the SMOKE config at --preset tiny, the
     # published widths at --preset full); --ft protects every linear with
-    # the checked GEMM and injects a demo FaultSchedule of two SEUs
+    # the checked GEMM and injects a demo FaultSchedule of two SEUs (any
+    # --arch of the reference: whisper-base and internvl2-1b too, whose
+    # decode, as the reference's, sees no audio or patches, and Whisper's
+    # no fault: ROADMAP queue 3, "In the reference itself", items 8, 9)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --preset tiny --batch 4 --prompt-len 16 --gen 32 --ft
 

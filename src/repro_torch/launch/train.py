@@ -13,7 +13,11 @@ unless ``--device cpu`` asks for the kernels' plain versions.
 
 Weights are drawn from ``RunConfig.seed`` on the device (the reference
 draws them from JAX's PRNG, so the two CLIs start from other weights);
-the batches are the reference's, bit for bit.
+the batches are the reference's, bit for bit. They hold tokens only:
+``--arch internvl2-1b`` trains on the text path, and ``--arch
+whisper-base`` raises ``KeyError: 'frames'``, as the reference's CLI does
+(ROADMAP queue 3, "In the reference itself", item 10); train Whisper
+through ``make_train_step`` with a batch that carries ``frames``.
 """
 from __future__ import annotations
 

@@ -1,15 +1,17 @@
 """Model assembly: embeddings -> (prefix | repeated super-blocks | tail) ->
-final norm -> lm head. Port of ``repro.models.model`` for the decoder-only
-models: the dense family, the recurrent models (RecurrentGemma, xLSTM) and
-the MoE models (DeepSeek-V3 with MLA, Llama-4 Maverick).
+final norm -> lm head, and the encoder-decoder model. Port of
+``repro.models.model``: the dense family, the recurrent models
+(RecurrentGemma, xLSTM), the MoE models (DeepSeek-V3 with MLA, Llama-4
+Maverick), InternVL2's patch frontend stub and Whisper's encoder-decoder
+with its audio frontend stub.
 
 Functional, as the reference: ``Model.init`` builds the param tree (on the
 ``meta`` device it allocates nothing: :func:`count_params`),
 ``Model.apply`` runs the full-sequence forward (training shapes and
 prefill), ``Model.decode_step`` advances one token against the cache tree
 from ``Model.init_cache`` (KV caches, MLA's latent caches and recurrent
-states, stacked along the repeated super-blocks), whose tensors it writes
-in place.
+states, stacked along the repeated super-blocks; the encoder-decoder's
+self and cross caches a decoder layer), whose tensors it writes in place.
 
 ``Model.apply(remat=...)`` recomputes each block's activations in the
 backward (``torch.utils.checkpoint``, non-reentrant): ``"block"`` or
@@ -23,10 +25,20 @@ protected product's check again, so under remat a protected block
 launches ``ft_matmul`` twice a step (the reference recomputes its Pallas
 call too, which no policy saves).
 
-Left out: the encoder-decoder model (Whisper) and the modality frontend
-stubs raise, naming their ROADMAP item; the reference's
-``constrain_hidden``/``constrain_logits`` are no-ops without a mesh and
-come with LM parallelism (ROADMAP queue 1 item 12).
+The encoder-decoder copies the reference's behaviours (ROADMAP queue 3,
+"In the reference itself", items 8-10): its decode passes no encoder
+output, so the cross caches stay the zeros ``init_cache`` makes
+(reference ``model.py:322``, ``:365``; item 8); no fault descriptor
+reaches its blocks, in ``apply`` or in a decode (``:271``, ``:282``; item
+9); a batch without ``frames`` raises ``KeyError`` (``:264``), so
+``launch.train``'s token batches cannot train it (item 10). Its ``apply``
+ignores ``remat`` as well (``:140``). The frontend stubs' products and
+the cross-attention's are plain ones: the reference gives them no FT
+context.
+
+Left out: the reference's ``constrain_hidden``/``constrain_logits`` are
+no-ops without a mesh and come with LM parallelism (ROADMAP queue 1 item
+12).
 """
 from __future__ import annotations
 
@@ -39,13 +51,11 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
-from . import layers
+from . import attention, layers
 from .transformer import (block_apply, check_kind, effective_kinds,
                           init_block_state, layer_groups, make_block_params)
 
 __all__ = ["Model", "count_params", "model_flops_per_token"]
-
-_ITEM_9 = "ROADMAP queue 1 item 9"
 
 
 def _dt(name: str):
@@ -139,25 +149,13 @@ def _stacked(make, n: int):
     return out
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder model (Whisper) is not ported "
-            f"yet, {_ITEM_9}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend (the VLM stub) is not "
-            f"ported yet, {_ITEM_9}")
-    for kind in sorted(set(effective_kinds(cfg))):
-        check_kind(kind)
-
-
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
     def __post_init__(self):
-        _check_ported(self.cfg)
+        for kind in sorted(set(effective_kinds(self.cfg))):
+            check_kind(kind)
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator | None, device="cuda") -> dict:
@@ -176,8 +174,46 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = {"w": layers.dense_init(
                 gen, (cfg.d_model, cfg.vocab_size), pdt, device=device)}
-        params["stack"] = self._init_groups(gen, pdt, device)
+
+        def frontend():
+            return {"w": layers.dense_init(
+                gen, (cfg.frontend_dim, cfg.d_model), pdt, device=device)}
+
+        if cfg.frontend == "patch_stub":
+            params["frontend"] = frontend()
+        if not cfg.is_encdec:
+            params["stack"] = self._init_groups(gen, pdt, device)
+            return params
+        params["encoder"] = self._init_stack(
+            gen, ["bidir|mlp"] * cfg.encoder_layers, pdt, device)
+        params["enc_norm"] = layers.make_norm_params(cfg.d_model, cfg.norm,
+                                                     device=device)
+        params["enc_pos"] = layers.dense_init(
+            gen, (cfg.max_source_positions, cfg.d_model), pdt, device=device)
+        params["dec_pos"] = layers.dense_init(
+            gen, (cfg.max_target_positions, cfg.d_model), pdt, device=device)
+        if cfg.frontend == "audio_stub":
+            params["frontend"] = frontend()
+        params["decoder"] = self._init_stack(
+            gen, ["attn|mlp"] * cfg.decoder_layers, pdt, device, cross=True)
         return params
+
+    def _init_stack(self, gen, kinds, pdt, device, *, cross=False) -> dict:
+        """The encoder's or decoder's blocks, keyed "0", "1", ... and not
+        stacked, as the reference's; a decoder block also holds its
+        ``cross_norm`` and ``cross_attn``."""
+        cfg = self.cfg
+        stack = {}
+        for i, kind in enumerate(kinds):
+            p = make_block_params(gen, cfg, kind, pdt, device)
+            if cross:
+                p["cross_norm"] = layers.make_norm_params(
+                    cfg.d_model, cfg.norm, device=device)
+                p["cross_attn"] = attention.make_attn_params(
+                    gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.head_dim, dtype=pdt, device=device)
+            stack[str(i)] = p
+        return stack
 
     def _init_groups(self, gen, pdt, device) -> dict:
         cfg = self.cfg
@@ -208,8 +244,12 @@ class Model:
         ``remat`` (``False``/``"none"``, ``"block"``/``"full"``,
         ``"dots"``) recomputes each block in the backward (see the module
         docstring). ``inject`` threads a GEMM fault descriptor into every
-        protected block (see ``transformer.block_apply``).
+        protected block (see ``transformer.block_apply``). The
+        encoder-decoder takes neither, as the reference's
+        (``_apply_encdec``).
         """
+        if self.cfg.is_encdec:
+            return self._apply_encdec(params, batch, block_q)
         adt = _dt(self.cfg.dtype)
         x, positions = self._embed_inputs(params, batch, adt)
         x, aux = self._run_groups(params["stack"], x, positions, block_q,
@@ -224,7 +264,14 @@ class Model:
                                 device=x.device)
 
     def _embed_inputs(self, params, batch, adt):
+        """The scaled token embeddings; with ``patch_embeds`` in the batch
+        of a ``patch_stub`` model, its projected patches (not scaled, an
+        unprotected product) before them, positions over both."""
         x = self._embed(params, batch["tokens"], adt)
+        if self.cfg.frontend == "patch_stub" and "patch_embeds" in batch:
+            patches = layers.dense(params["frontend"],
+                                   batch["patch_embeds"].to(adt))
+            x = torch.cat([patches, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
         return x, positions
 
@@ -284,10 +331,71 @@ class Model:
             run(stack["tail"][str(i)], kind, cache("tail", str(i)))
         return (x, aux) if caches is None else (x, aux, caches)
 
+    # --------------------------------------------------------------- enc-dec
+    def _encode(self, params, batch, block_q):
+        """The frames through the frontend stub (an unprotected product),
+        the learned positions and the bidirectional blocks, then
+        ``enc_norm``. The blocks get the model's policy but no fault
+        descriptor (reference ``model.py:271``; ROADMAP queue 3, "In the
+        reference itself", item 9)."""
+        cfg = self.cfg
+        adt = _dt(cfg.dtype)
+        h = layers.dense(params["frontend"], batch["frames"].to(adt))
+        f = h.shape[1]
+        h = h + params["enc_pos"][:f].to(adt)[None]
+        positions = torch.arange(f, device=h.device)
+        aux = _zeros_aux(h.device)
+        for i in range(cfg.encoder_layers):
+            h, _, a = block_apply(params["encoder"][str(i)], h, cfg=cfg,
+                                  kind="bidir|mlp", positions=positions,
+                                  block_q=block_q, ftp=cfg.ft)
+            aux = _merge_aux(aux, a)
+        return layers.norm(params["enc_norm"], h, cfg.norm, cfg.norm_eps), aux
+
+    def _decoder_block(self, p, x, enc_out, positions, cache, cache_pos,
+                       block_q):
+        """Self-attention and MLP (protected under the model's policy, no
+        fault descriptor: reference ``model.py:282``), then cross-attention
+        on ``enc_out`` or, in a decode, the cross cache; its projections
+        are plain products, as the reference gives them no FT context."""
+        cfg = self.cfg
+        x, _, a = block_apply(
+            {k: v for k, v in p.items() if not k.startswith("cross")}, x,
+            cfg=cfg, kind="attn|mlp", positions=positions,
+            cache=None if cache is None else cache["self"],
+            cache_pos=cache_pos, block_q=block_q, ftp=cfg.ft)
+        h = layers.norm(p["cross_norm"], x, cfg.norm, cfg.norm_eps)
+        mix, _ = attention.attention(
+            p["cross_attn"], h, cfg=cfg, kind="cross", positions=positions,
+            cache=None if cache is None else cache["cross"],
+            kv_source=enc_out, use_rope=False, block_q=block_q)
+        return x + mix, a
+
+    def _apply_encdec(self, params, batch, block_q):
+        cfg = self.cfg
+        adt = _dt(cfg.dtype)
+        enc_out, aux = self._encode(params, batch, block_q)
+        x = layers.embed(params["embed"], batch["tokens"], adt)
+        x = x + params["dec_pos"][:x.shape[1]].to(adt)[None]
+        positions = torch.arange(x.shape[1], device=x.device)
+        for i in range(cfg.decoder_layers):
+            x, a = self._decoder_block(params["decoder"][str(i)], x, enc_out,
+                                       positions, None, None, block_q)
+            aux = _merge_aux(aux, a)
+        return self._head(params, x), aux
+
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device="cuda"):
         cfg = self.cfg
+        if cfg.is_encdec:
+            return {"decoder": {
+                str(i): {"self": init_block_state(cfg, "attn|mlp", batch,
+                                                  max_len, dtype, device),
+                         "cross": attention.init_kv_cache(
+                             cfg, batch, cfg.max_source_positions, dtype,
+                             device=device)}
+                for i in range(cfg.decoder_layers)}}
         g = layer_groups(cfg)
         caches: dict = {}
         if g.prefix:
@@ -316,8 +424,14 @@ class Model:
         cache's tensors are written in place.
 
         ``inject`` threads a GEMM fault descriptor into every protected
-        block (serving arms it per step from a FaultSchedule).
+        block (serving arms it per step from a FaultSchedule). The
+        encoder-decoder ignores it, and passes its decoder blocks no
+        encoder output, so they attend to the cross caches as
+        ``init_cache`` made them, zeros (reference ``model.py:356-369``;
+        ROADMAP queue 3, "In the reference itself", items 8 and 9).
         """
+        if self.cfg.is_encdec:
+            return self._decode_encdec(params, cache, tokens, pos, block_q)
         adt = _dt(self.cfg.dtype)
         x = self._embed(params, tokens, adt)
         positions = pos + torch.arange(tokens.shape[1], device=x.device)
@@ -325,6 +439,23 @@ class Model:
             params["stack"], x, positions, block_q, caches=cache,
             cache_pos=pos, inject=inject)
         return self._head(params, x), new_caches, aux
+
+    def _decode_encdec(self, params, cache, tokens, pos, block_q):
+        cfg = self.cfg
+        adt = _dt(cfg.dtype)
+        t = tokens.shape[1]
+        x = layers.embed(params["embed"], tokens, adt)
+        # dynamic_slice_in_dim's clamped start
+        start = min(max(pos, 0), params["dec_pos"].shape[0] - t)
+        x = x + params["dec_pos"][start:start + t].to(adt)[None]
+        positions = pos + torch.arange(t, device=x.device)
+        aux = _zeros_aux(x.device)
+        for i in range(cfg.decoder_layers):
+            x, a = self._decoder_block(params["decoder"][str(i)], x, None,
+                                       positions, cache["decoder"][str(i)],
+                                       pos, block_q)
+            aux = _merge_aux(aux, a)
+        return self._head(params, x), cache, aux
 
 
 # ---------------------------------------------------------------------------

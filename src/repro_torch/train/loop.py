@@ -16,10 +16,12 @@ given. A protected linear checks its forward product (``ft_matmul`` on
 the card) and its backward is the plain product's gradient, as the
 reference's autodiff gives (``core.gemm.api._FusedLinear``).
 
-Training covers the dense decoder family. The recurrent models
-(``models.ssm``) and the MoE models (``models.moe``, MLA) raise: their
-training is ROADMAP queue 1 item 9.5. The reference's int8 compressed
-all-reduce belongs to LM parallelism (item 12).
+Training covers the dense decoder family, the VLM (InternVL2: a batch may
+carry ``patch_embeds``, and the loss takes the text tail of the logits)
+and the encoder-decoder (Whisper: a batch carries ``frames``). The
+recurrent models (``models.ssm``) and the MoE models (``models.moe``,
+MLA) raise: their training is ROADMAP queue 1 item 9.5. The reference's
+int8 compressed all-reduce belongs to LM parallelism (item 12).
 """
 from __future__ import annotations
 
@@ -95,7 +97,8 @@ def _value_and_grad(model: Model, params, batch, *, block_q, remat,
 
 def check_trainable(model: Model) -> None:
     """Raise ``NotImplementedError`` unless every block of ``model`` is a
-    dense-family block (attention with an MLP)."""
+    dense-family block (attention with an MLP), as the VLM's and the
+    encoder-decoder's are."""
     kinds = effective_kinds(model.cfg)
     for kind in kinds:
         base, ffn = kind.split("|")
@@ -108,7 +111,8 @@ def check_trainable(model: Model) -> None:
 def make_train_step(model: Model, run: RunConfig) -> Callable:
     """The train step ``(params, opt_state, batch, step) -> (params,
     opt_state, metrics)``. ``batch`` holds ``tokens`` and ``labels``
-    tensors on the params' device. With ``microbatch`` > 1 the batch is
+    tensors on the params' device (and ``frames`` or ``patch_embeds``
+    for the encoder-decoder or the VLM). With ``microbatch`` > 1 the batch is
     split along its first axis and the gradients, losses and aux are
     summed over the micro-batches, then gradients and losses divided by
     their count, as the reference's scan does."""

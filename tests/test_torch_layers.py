@@ -347,11 +347,7 @@ def test_phi4_mini_config_matches_reference(which):
 
 
 def test_config_registry():
-    assert configs.ARCHS == ["qwen15_110b", "phi3_medium_14b",
-                             "phi4_mini_3p8b", "gemma3_1b", "xlstm_350m",
-                             "recurrentgemma_2b", "deepseek_v3_671b",
-                             "llama4_maverick"] \
-        == configs.all_arch_names()
+    assert configs.ARCHS == ref_configs.ARCHS == configs.all_arch_names()
     from repro_torch.configs import phi4_mini_3p8b
     assert configs.get_config("phi4_mini_3p8b") is phi4_mini_3p8b.CONFIG
     assert phi4_mini_3p8b.CONFIG.d_model == 3072
@@ -363,11 +359,8 @@ def test_config_registry():
             b = dataclasses.asdict(getattr(ref_configs, get)(arch))
             assert a.pop("ft") == b.pop("ft") and a == b, (arch, get)
     assert configs.get_config("gemma3-1b").tie_embeddings
-    # the reference's other architectures wait for their layers
-    assert set(configs.NOT_YET_PORTED) | set(configs.ARCHS) == \
-        set(ref_configs.ARCHS)
-    with pytest.raises(ValueError, match="not yet ported"):
-        configs.get_config("whisper-base")
+    assert configs.get_config("whisper-base").is_encdec
+    assert configs.get_config("internvl2-1b").frontend == "patch_stub"
     assert configs.get_config("deepseek-v3-671b").kv_lora_rank == 512
     assert configs.get_config("llama4-maverick-400b-a17b").moe_interval == 2
     with pytest.raises(ValueError, match="unknown architecture"):

@@ -5,9 +5,11 @@ across by ``params_from_numpy``: each ported config at its SMOKE size (the
 dense decoder family, the recurrent models, RecurrentGemma and xLSTM, and
 the MoE models, DeepSeek-V3 with MLA and Llama-4 Maverick),
 full-sequence forward, cached decode, a Gemma-3 ring buffer that wraps,
-the protected forward, parameter counts, the layer grouping, and what is
-not ported yet raising. The recurrent mixers alone are
-``tests/test_torch_ssm.py``'s. CPU only; the protected products take the
+the protected forward, parameter counts, the layer grouping, and the
+encoder-decoder's and the VLM's configs. The recurrent mixers alone are
+``tests/test_torch_ssm.py``'s; Whisper's encoder-decoder and InternVL2's
+patch frontend are ``tests/test_torch_encdec.py``'s and
+``tests/test_torch_vlm.py``'s. CPU only; the protected products take the
 eager path (and the fused path's plain version where the widths are
 tile-aligned).
 
@@ -57,8 +59,10 @@ from repro_torch.models import transformer
 from repro_torch.models import model_flops_per_token, params_from_numpy
 
 CPU = "cpu"
-PORTED = list(configs.ARCHS)
-UNPORTED = sorted(configs.NOT_YET_PORTED)
+# the decoder-only language models; the encoder-decoder and the VLM have
+# files of their own
+ENCDEC_VLM = ["whisper_base", "internvl2_1b"]
+PORTED = [a for a in configs.ARCHS if a not in ENCDEC_VLM]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DECODE_TOL = 2e-3
 # the MoE models at bfloat16, at the positions whose routing agrees: their
@@ -478,12 +482,15 @@ def test_params_tree_matches_reference_structure():
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet
+# the encoder-decoder's and the VLM's configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_configs_and_models_raise(arch):
-    with pytest.raises(ValueError, match="not yet ported.*item 9"):
-        configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Model(_port_cfg(ref_configs.get_config(arch)))
+@pytest.mark.parametrize("arch", ENCDEC_VLM)
+def test_encdec_and_vlm_configs_match_reference(arch):
+    """Whisper's and InternVL2's full and SMOKE configs are the
+    reference's, field for field, and a model builds on each."""
+    for get in ("get_config", "get_smoke_config"):
+        a = dataclasses.asdict(getattr(configs, get)(arch))
+        b = dataclasses.asdict(getattr(ref_configs, get)(arch))
+        assert a.pop("ft") == b.pop("ft") and a == b, get
+        Model(getattr(configs, get)(arch))

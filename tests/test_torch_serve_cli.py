@@ -6,8 +6,8 @@ the CPU (``--device cpu``: the kernels' plain versions).
 same worker description, and both print a ``rel_err`` against numpy under
 the suite's complex64 tolerance (4e-5). ``--mode serve`` serves its mixed
 self-test workload with every request completed and the same bucket
-ledger as the reference. What the port does not run yet raises, naming
-its ROADMAP item.
+ledger as the reference. What the port does not run yet (a mesh) raises,
+naming its ROADMAP item; ``--mode lm`` serves Whisper.
 """
 from __future__ import annotations
 
@@ -115,12 +115,14 @@ def test_cli_serve_mode_default_n_refuses_the_ft_tenant(capsys):
         _run_port(capsys, "--mode", "serve", "--serve-requests", "4")
 
 
-def test_cli_lm_mode_names_item_9(capsys):
-    """``--mode lm`` runs the decoder-only models
-    (``tests/test_torch_serve_lm.py``); an architecture whose layers are
-    not ported yet (Whisper's encoder-decoder) raises, naming the item."""
-    with pytest.raises(ValueError, match="not yet ported.*item 9"):
-        _run_port(capsys, "--mode", "lm", "--arch", "whisper-base")
+def test_cli_lm_mode_serves_whisper(capsys):
+    """``--mode lm`` serves every architecture of the reference, the
+    encoder-decoder Whisper too (``tests/test_torch_encdec.py`` holds its
+    tokens and ledger against the reference CLI's)."""
+    out = _run_port(capsys, "--mode", "lm", "--arch", "whisper-base",
+                    "--preset", "tiny", "--batch", "2", "--prompt-len", "4",
+                    "--gen", "4")
+    assert out.startswith("generated (2, 4) in "), out
 
 
 @pytest.mark.parametrize("flags", [("--fft-shards", "2"), ("--fft-data", "2"),
