@@ -39,14 +39,15 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   Then convolve and correlate through ``serve_plan``, and the runtime at
   max_batch 1 against 16 on throughput (printed);
 * the LM path (phase 7, ``lm_drive``): Phi-4-mini 3.8B at its published
-  widths (32 layers, d_model 3072, d_ff 8192, vocab 200064; f32 params,
+  widths (d_model 3072, d_ff 8192, vocab 200064) cut to 8 of its 32
+  layers (``LM_REDUCED``; f32 params,
   bf16 activations, random weights from a seeded CUDA generator), one
   protected ``Model.apply`` prefill at 4 x 512 tokens against the
   unprotected one (``LM_LOGIT_TOL``), then ``launch.serve.decode`` at
   batch 4 (every protected product's M padded to 64) and 64, each
   unprotected, protected and protected under the CLI's ``FaultSchedule``:
   7 ``ft_matmul`` launches a layer per step and no call of the eager ABFT
-  path, the SEU ledger injected == detected == corrected == 2 x 32, the
+  path, the SEU ledger injected == detected == corrected == 2 x 8, the
   SEU run's tokens those of the clean protected run, under 28 GB of device
   memory; then Gemma-3 1B (local and global caches, tied embeddings)
   protected at batch 4 under the same schedule. ``lm_measure`` then times
@@ -57,9 +58,10 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   runs ``python -m repro_torch.launch.serve --mode lm`` at Gemma-3 1B's
   widths);
 * the recurrent LM path (phase 8, ``ssm_drive``, then ``ssm_measure``):
-  RecurrentGemma-2B (26 layers, RG-LRU and local attention, d_model 2560,
-  vocab 256000) and then xLSTM-350M (24 layers, mLSTM and sLSTM, d_model
-  1024), each at its published widths with random f32 weights from a
+  RecurrentGemma-2B (RG-LRU and local attention, d_model 2560, vocab
+  256000) and then xLSTM-350M (mLSTM and sLSTM, d_model 1024), each at its
+  published widths and, since PR 25, 12 of its 26 or 24 layers
+  (``SSM_LAYERS``), with random f32 weights from a
   seeded CUDA generator and bf16 activations, the first freed before the
   second is built: a protected 4 x 512 prefill against the unprotected
   one, 8 decode steps against the forward at float32 activations
@@ -68,8 +70,8 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   unprotected forward with every weight one ulp up, ``ulp_witness``),
   greedy decode unprotected, protected and
   protected under the CLI's schedule (RecurrentGemma at batch 4 and 64,
-  xLSTM at 4): one ``ft_matmul`` launch a protected site a step (164 and
-  144), no eager ABFT call, the ledger 2 x layers with the clean run's
+  xLSTM at 4): one ``ft_matmul`` launch a protected site a step (76 and
+  72 at 12 layers), no eager ABFT call, the ledger 2 x layers with the clean run's
   tokens; then the prefill by CUDA events, one primed trace of a
   protected decode step, ``ft_matmul`` against its plain version at the
   path's own products (``SSM_FTMM_SHAPES``: the MLP's, and the sLSTM
@@ -141,12 +143,36 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   launches a protected step, nothing flagged at 1e-4; then the prefill by
   CUDA events, a primed trace of one protected decode step, ``ft_matmul``
   at the new products, and a primed trace of one protected train step
-  (every ``ft_matmul_tile`` in the forward); last, the LM CLIs of phases 7-9 and
-  11, ``python -m repro_torch.launch.serve --mode lm --ft`` for Gemma-3
-  1B, xLSTM-350M, Whisper-base and InternVL2-1B at their published widths
-  and DeepSeek-V3 at its SMOKE size, all started together (each a
-  host-bound process of its own): each exits 0 with its ledger exact, 2
-  faults a layer detected and corrected, and Whisper's ``injected=2
+  (every ``ft_matmul_tile`` in the forward);
+* training the recurrent and MoE models (phase 12, ``rm_drive``, then
+  ``rm_measure``, one config at a time, each built from a seeded CUDA
+  generator and freed before the next; f32 params, bf16 activations,
+  ``TokenPipeline(seed=0)`` at each vocabulary): RecurrentGemma-2B and
+  xLSTM-350M at their published widths and full depth, DeepSeek-V3 at 1
+  of 61 layers with 32 of 256 routed experts and Llama-4 Maverick at 2 of
+  48 layers with 8 of 128 (``RM_REDUCED``; each parameter count
+  asserted), at batch 8 x 256 (xLSTM 4 x 64): (a) one step's float32 loss
+  and gradients on ft_matmul, on the eager path and unprotected, held
+  against each other (RecurrentGemma at one period of its pattern, 3
+  layers; xLSTM at 4 x 8 tokens, its loss and gradients at
+  SSM_WITNESS_FACTOR x ``grad_witness``, the unprotected step with every
+  weight one ulp up, where that exceeds the plain tolerances); (b) 10 bf16 steps
+  protected and 10 unprotected from the same weights: finite losses, the
+  last three below the first three, exactly 164, 144, 7 and 14
+  ``ft_matmul`` launches a protected step and 3 eager batched expert
+  products a MoE layer, nothing flagged at 1e-4, peak memory under 72 GB;
+  (c) one SEU at site 0 of every block inside the loss (RecurrentGemma,
+  DeepSeek), flagged and corrected in each, the loss and gradients the
+  clean step's; (d) a primed trace of one protected step split into
+  forward, backward and optimizer (every ``ft_matmul_tile`` in the
+  forward). Last, the CLIs, all started together (each a host-bound
+  process of its own): ``python -m repro_torch.launch.train --arch
+  xlstm-350m --preset full --ft-linears`` for 3 steps at 4 x 64 (each
+  step line ``ft_flagged 0``) and the LM CLIs of phases 7-9 and 11,
+  ``python -m repro_torch.launch.serve --mode lm --ft`` for Gemma-3 1B,
+  xLSTM-350M, Whisper-base and InternVL2-1B at their published widths
+  and DeepSeek-V3 at its SMOKE size: each exits 0 with its ledger exact,
+  2 faults a layer detected and corrected, and Whisper's ``injected=2
   detected=0 corrected=0`` (its blocks take no fault descriptor, as the
   reference's).
 
@@ -179,6 +205,7 @@ the ``kernels`` JSON and ``{"ok": true, "device": ...}``. Any failed check
 raises and exits non-zero; without a CUDA device it exits 1 and prints no
 result.
 """
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1265,13 +1292,18 @@ def serve_phase(dev):
             "cli": cli, "seconds": seconds}
 
 
-# ---- phase 7: the LM path. Phi-4-mini 3.8B at its published widths (f32
-# params, bf16 activations, random weights from a seeded CUDA generator):
+# ---- phase 7: the LM path. Phi-4-mini 3.8B at its published widths, cut in
+# depth (LM_REDUCED; f32 params, bf16 activations, random weights from a
+# seeded CUDA generator):
 # one protected prefill, then greedy decode at batch 4 (M padded to 64 in
 # every protected product) and 64 (aligned), each unprotected, protected
 # and protected under the CLI's FaultSchedule; then Gemma-3 1B (local and
 # global caches, tied embeddings) once, protected, and the CLI on the card
 LM_ARCH, LM_SMALL_ARCH = "phi4_mini_3p8b", "gemma3_1b"
+LM_LAYERS = 8
+LM_REDUCED = ("8 of 32 layers, for the script's time (1202 s with phase 12 "
+              "at 16 layers on a slow host, PR 25): the decode runs are "
+              "host-bound; every width published")
 LM_PREFILL = (4, 512)              # (batch, tokens): M = 2048, no padding
 LM_BATCHES = (4, 64)
 LM_PROMPT, LM_GEN = 16, 32
@@ -1438,9 +1470,12 @@ def lm_drive(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    base = get_config(LM_ARCH)
-    check((base.num_layers, base.d_model, base.d_ff, base.vocab_size)
-          == (32, 3072, 8192, 200064), f"{LM_ARCH}: {base}")
+    full = get_config(LM_ARCH)
+    check((full.num_layers, full.d_model, full.d_ff, full.vocab_size)
+          == (32, 3072, 8192, 200064), f"{LM_ARCH}: {full}")
+    base = dataclasses.replace(full, num_layers=LM_LAYERS)
+    log(f"LM {LM_ARCH} reduced: {LM_REDUCED}")
+    res["reduced"] = LM_REDUCED
     layers_n, vocab = base.num_layers, base.vocab_size
     models = {"unprotected": Model(base), "protected": Model(protect(base))}
     t0 = time.perf_counter()
@@ -1771,6 +1806,10 @@ SSM_ARCHS = ("recurrentgemma_2b", "xlstm_350m")
 SSM_WIDTHS = {"recurrentgemma_2b": (26, 2560, 7680, 256000, 10),
               "xlstm_350m": (24, 1024, 0, 50304, 4)}
 SSM_BATCHES = {"recurrentgemma_2b": (4, 64), "xlstm_350m": (4,)}
+# the depth phase 8 runs, for the script's time (1202 s on a slow host with
+# both at full depth, PR 25): RecurrentGemma's four periods of (rglru,
+# rglru, local), xLSTM's six (mlstm, slstm) pairs; every width published
+SSM_LAYERS = {"recurrentgemma_2b": 12, "xlstm_350m": 12}
 # protected products a block, by mixer: RG-LRU 3 + the MLP's 3, local
 # attention 4 + 3, mLSTM 5, sLSTM 4 + its SwiGLU's 3
 SSM_SITES = {"rglru": 6, "local": 7, "mlstm": 5, "slstm": 7}
@@ -1816,35 +1855,46 @@ def _window_errs(a, b):
             for lo, hi in SSM_WINDOWS]
 
 
-def ulp_witness(model, params, tokens):
-    """``model.apply``'s logits of ``tokens`` with every parameter moved one
-    ulp up (``nextafter`` toward +inf, in place): a perturbation at the
-    rounding level of the one between the protected and the unprotected
-    products, for which the model itself, and not the protected path,
-    answers. The parameters are moved back after, and held bit for bit."""
+def _fingerprint(leaves):
+    """An int32 sum of each float32 leaf's bits: it wraps, in any order, and
+    copies nothing (an int64 one would copy each leaf at twice its size)."""
+    import torch
+
+    return [int(t.view(torch.int32).sum(dtype=torch.int32)) for t in leaves]
+
+
+@contextlib.contextmanager
+def ulp_up(params):
+    """Every float32 parameter moved one ulp up (``nextafter`` toward +inf,
+    in place) for the block: a perturbation at the rounding level of the
+    one between the protected and the unprotected products, for which the
+    model itself, and not the protected path, answers. The parameters are
+    moved back after, and held bit for bit."""
     import torch
     from repro_torch import tree
 
     leaves = [t for t in tree.leaves(params) if t.dtype == torch.float32]
-
-    def sums():
-        # an int32 sum wraps, in any order, and copies nothing (an int64
-        # one would copy each leaf at twice its size)
-        return [int(t.view(torch.int32).sum(dtype=torch.int32))
-                for t in leaves]
-
-    before = sums()
+    before = _fingerprint(leaves)
     with torch.no_grad():
         for t in leaves:
             t.nextafter_(t.new_full((), math.inf))
-        try:
-            logits = model.apply(params, {"tokens": tokens})[0]
-        finally:
+    try:
+        yield
+    finally:
+        with torch.no_grad():
             for t in leaves:
                 t.nextafter_(t.new_full((), -math.inf))
-    check(before == sums(),
-          "ulp_witness: the parameters did not come back bit for bit")
-    return logits
+    check(before == _fingerprint(leaves),
+          "ulp_up: the parameters did not come back bit for bit")
+
+
+def ulp_witness(model, params, tokens):
+    """``model.apply``'s logits of ``tokens`` with every parameter one ulp
+    up (``ulp_up``)."""
+    import torch
+
+    with ulp_up(params), torch.no_grad():
+        return model.apply(params, {"tokens": tokens})[0]
 
 
 def ssm_drive(dev, arch):
@@ -1863,9 +1913,12 @@ def ssm_drive(dev, arch):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    base = get_config(arch)
-    check((base.num_layers, base.d_model, base.d_ff, base.vocab_size,
-           base.num_heads) == SSM_WIDTHS[arch], f"{arch}: {base}")
+    full = get_config(arch)
+    check((full.num_layers, full.d_model, full.d_ff, full.vocab_size,
+           full.num_heads) == SSM_WIDTHS[arch], f"{arch}: {full}")
+    base = dataclasses.replace(full, num_layers=SSM_LAYERS[arch])
+    res["reduced"] = (f"{SSM_LAYERS[arch]} of {full.num_layers} layers, "
+                      f"for the script's time")
     layers_n, vocab = base.num_layers, base.vocab_size
     kinds = effective_kinds(base)
     sites = sum(SSM_SITES[k.split("|")[0]] for k in kinds)
@@ -2506,12 +2559,13 @@ def _f32_on(cfg, backend=None):
         gemm_backend=backend or cfg.ft.gemm_backend))
 
 
-def backend_agreement(tag, cfg, params, batch, sites, eager_calls):
+def backend_agreement(tag, cfg, params, batch, sites, eager_calls,
+                      loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL):
     """One step's loss and gradients at float32 activations three ways:
     protected on ft_matmul (``sites`` launches), protected on the eager
     path (``sites`` eager ABFT calls) and unprotected, the latter two held
-    against the first (the loss to TRAIN_LOSS_TOL relative, each gradient
-    leaf to TRAIN_GRAD_TOL x its max), nothing flagged. Returns (the rows,
+    against the first (the loss to ``loss_tol`` relative, each gradient
+    leaf to ``grad_tol`` x its max), nothing flagged. Returns (the rows,
     the fused run's loss and gradients)."""
     import torch
     from repro_torch.kernels.ft_matmul import ft_matmul
@@ -2542,9 +2596,9 @@ def backend_agreement(tag, cfg, params, batch, sites, eager_calls):
         else:
             rel = abs(float(total) - float(ref[0])) / abs(float(ref[0]))
             errs = _leaf_errs(grads, ref[1])
-            check(rel <= TRAIN_LOSS_TOL and errs[0][0] <= TRAIN_GRAD_TOL,
+            check(rel <= loss_tol and errs[0][0] <= grad_tol,
                   f"{tag} {label} vs fused: loss {rel:.3e}, worst leaf "
-                  f"{errs[0]}")
+                  f"{errs[0]} (tolerances {loss_tol:.3e}, {grad_tol:.3e})")
             row.update(loss_rel_err=rel, worst_leaf=list(errs[0]))
             del grads
         res[label] = row
@@ -2609,13 +2663,16 @@ def train_grad_gate(dev, base, params, eager_calls):
 
 
 def train_run(tag, model, run, params, opt_state, start, stop, eager_calls,
-              batch, sites, mgr=None):
+              batch, sites, mgr=None, batched=None, batched_per_step=0):
     """Steps ``start``..``stop - 1`` of ``make_train_step`` on ``params``
     and ``opt_state`` (written in place), each between CUDA events, on
     ``batch(device, step)``; every loss finite; a protected step makes
     exactly ``sites`` ft_matmul launches, flags nothing and calls no eager
-    ABFT path; an unprotected one launches nothing. With ``mgr``, the
-    state is saved after TRAIN_SAVE_AFTER steps. Returns the rows."""
+    ABFT path; an unprotected one launches nothing. With ``batched`` (a
+    counter of the eager batched expert products, ``{"calls": n}``), a
+    protected step also makes exactly ``batched_per_step`` of them and an
+    unprotected one none. With ``mgr``, the state is saved after
+    TRAIN_SAVE_AFTER steps. Returns the rows."""
     import torch
     from repro_torch.kernels.ft_matmul import ft_matmul
     from repro_torch.train import make_train_step
@@ -2628,6 +2685,7 @@ def train_run(tag, model, run, params, opt_state, start, stop, eager_calls,
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         before, calls = ft_matmul.launches, len(eager_calls)
+        experts = batched["calls"] if batched is not None else 0
         e0.record()
         params, opt_state, m = step_fn(params, opt_state, b, step)
         e1.record()
@@ -2635,6 +2693,12 @@ def train_run(tag, model, run, params, opt_state, start, stop, eager_calls,
         row = {k: float(v) for k, v in m.items()}
         row.update(step=step, ms=e0.elapsed_time(e1),
                    ft_matmul_launches=ft_matmul.launches - before)
+        if batched is not None:
+            row["expert_products"] = batched["calls"] - experts
+            want_experts = batched_per_step if want else 0
+            check(row["expert_products"] == want_experts,
+                  f"train {tag} step {step}: {row['expert_products']} eager "
+                  f"batched expert products (not {want_experts})")
         check(math.isfinite(row["loss"]) and row["skipped_updates"] == 0,
               f"train {tag} step {step}: {row}")
         check(row["ft_matmul_launches"] == want
@@ -3300,6 +3364,399 @@ def encdec_measure(dev, arch, models, params, batch, prompts4, cuda_ms,
         f"{arch} train (protected)", Model(cfg), run, params,
         encdec_train_batch(cfg, dev, 4), sites, trace_call)
     return res
+
+
+# ---- phase 12: training the recurrent and MoE models. RecurrentGemma-2B
+# and xLSTM-350M at their published widths and full depth, DeepSeek-V3 and
+# Llama-4 Maverick at their published widths cut in depth and experts
+# (RM_REDUCED), one at a time, the first freed before the next is built:
+# f32 params (16 bytes a param to train, with the gradients and both AdamW
+# moments), bf16 activations, random weights from a seeded CUDA generator,
+# TokenPipeline(seed=0) batches at each model's vocabulary, lr 3e-4. Every
+# protected linear's forward runs on ft_matmul and its backward is the
+# product's gradient; the routed experts' three checked products are the
+# eager batched ones, differentiated through their correction
+RM_ARCHS = ("recurrentgemma_2b", "xlstm_350m", "deepseek_v3_671b",
+            "llama4_maverick")
+# the cuts (ModelConfig fields) of training at one card
+RM_CUTS = {"recurrentgemma_2b": {}, "xlstm_350m": {},
+           "deepseek_v3_671b": dict(num_layers=1, first_k_dense=0,
+                                    num_experts=32),
+           "llama4_maverick": dict(num_layers=2, num_experts=8)}
+RM_PARAMS = {"recurrentgemma_2b": 2_894_435_840,
+             "xlstm_350m": 442_344_496,
+             "deepseek_v3_671b": 3_494_042_624,
+             "llama4_maverick": 3_453_158_400}
+# (batch, tokens): launch.train's defaults but for xLSTM, whose mLSTM
+# saves two (B, 4, 512, 512) float32 states a time step for the backward
+# and whose step is host-bound
+RM_BATCH = {"recurrentgemma_2b": (8, 256), "xlstm_350m": (4, 64),
+            "deepseek_v3_671b": (8, 256), "llama4_maverick": (8, 256)}
+# ft_matmul launches a protected step: SSM_SITES over the blocks, MOE_SITES
+# a layer (the MoE layers' routed experts are eager batched products)
+RM_SITES = {"recurrentgemma_2b": 164, "xlstm_350m": 144,
+            "deepseek_v3_671b": 7, "llama4_maverick": 14}
+# (a) and (c) at one period of RecurrentGemma's block pattern (rglru,
+# rglru, local): three float32 gradient trees of all 26 layers are 11.6 GB
+# each beside the float32 activations
+RM_GRAD_LAYERS = {"recurrentgemma_2b": 3}
+# (a) held to SSM_WITNESS_FACTOR x the one-ulp witness (loss and gradients)
+# where that is larger than TRAIN_LOSS_TOL and TRAIN_GRAD_TOL, as phase 8's
+# windows: xLSTM's random-weight recurrence is chaotic. It runs at RM_GRAD_BATCH's 4 x 8 tokens: at 4 x 64 the
+# witness moves the float32 gradients by 1.08 of a leaf's max and the
+# loss by 3.2e-4 (an NVIDIA H100), so a gate at a factor of it could tell
+# no fault from the chaos; phase 8 holds the forward's first 8 positions
+RM_WITNESSED = ("xlstm_350m",)
+RM_GRAD_BATCH = {"xlstm_350m": (4, 8)}
+# (d) traces xLSTM's step at 4 x 4 tokens: at 4 x 64 it is 178074 kernels,
+# and tracing it took 106 s of the phase, at 4 x 8 35899 kernels and 37 s
+# (an NVIDIA H100)
+RM_TRACE_BATCH = {"xlstm_350m": (4, 4)}
+RM_SEU_ARCHS = ("recurrentgemma_2b", "deepseek_v3_671b")
+# (c): site 0 of every block (RG-LRU's first product, local attention's
+# q, MLA's wq_a), token row 5, column 7, +300
+RM_SEU = (0.0, 5.0, 7.0, 1.0, 300.0)
+RM_STEPS = 10
+RM_REDUCED = {
+    "recurrentgemma_2b": "26 of 26 layers at batch 8 x 256 for (b) and "
+                         "(d); gates (a) and (c) at one period of the "
+                         "block pattern, 3 layers (rglru, rglru, local): "
+                         "three float32 gradient trees of 26 layers are "
+                         "11.6 GB each beside the float32 activations",
+    "xlstm_350m": "24 of 24 layers; batch 4 x 64 tokens, not 8 x 256: each "
+                  "mLSTM time step saves two (B, 4, 512, 512) float32 "
+                  "states, 206 GB at 8 x 256 (26 GB at 4 x 64), and the "
+                  "step is host-bound, about 50 torch kernels a time step "
+                  "of an mLSTM/sLSTM pair; gate (a) at 4 x 8 tokens, where "
+                  "the one-ulp witness is small enough to gate on, and "
+                  "(d)'s trace at 4 x 4 (178074 kernels at 4 x 64)",
+    "deepseek_v3_671b": "1 of 61 layers (first_k_dense 3 -> 0: one MLA + "
+                        "MoE block); 32 of 256 routed experts, top-8 and "
+                        "the shared expert kept (capacity 640 an expert at "
+                        "8 x 256); all 256 experts are 45.1 GB of f32 "
+                        "weights, 180 GB to train. The reference's init "
+                        "draws an expert weight with fan-in E, so at 32 "
+                        "experts they are 2.8x the published model's",
+    "llama4_maverick": "2 of 48 layers (the MoE block, then a dense block, "
+                       "as phase 9); 8 of 128 routed experts, top-1 and "
+                       "the shared expert kept: each routed expert is "
+                       "0.5 GB of f32 weights, 2 GB to train. The "
+                       "reference's init draws an expert weight with "
+                       "fan-in E, so at 8 experts they are 4x the "
+                       "published model's (std 0.35, not 0.088)"}
+RM_CLI = ("--arch", "xlstm-350m", "--preset", "full", "--ft-linears",
+          "--steps", "3", "--batch", "4", "--seq", "64", "--log-every", "1")
+
+
+def rm_setup(arch, layers=None):
+    """``arch``'s protected and unprotected configs with RM_CUTS (and
+    ``layers`` layers, if given), the run config of ``launch.train.build``
+    at RM_STEPS, and the protected products a forward and the eager
+    batched expert products a step, derived from SSM_SITES and MOE_SITES.
+    The published widths and the parameter count are checked."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build
+    from repro_torch.models import count_params
+    from repro_torch.models.transformer import effective_kinds
+
+    if arch in SSM_ARCHS:
+        full = get_config(arch)
+        widths = (full.num_layers, full.d_model, full.d_ff, full.vocab_size,
+                  full.num_heads)
+        check(widths == SSM_WIDTHS[arch], f"{arch}: {widths}")
+    else:
+        moe_config(arch)
+    b, t = RM_BATCH[arch]
+    out = {}
+    for label in ("protected", "unprotected"):
+        cfg, run = build(arch, "full", steps=RM_STEPS, batch=b, seq=t,
+                         lr=TRAIN_LR, ft_linears=label == "protected")
+        cfg = dataclasses.replace(cfg, **RM_CUTS[arch])
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        out[label] = (cfg, dataclasses.replace(run, model=cfg))
+    cfg = out["protected"][0]
+    if arch in SSM_ARCHS:
+        sites = sum(SSM_SITES[kind.split("|")[0]]
+                    for kind in effective_kinds(cfg))
+        batched = 0
+    else:
+        sites = MOE_SITES * cfg.num_layers
+        batched = MOE_EXPERT_PRODUCTS * sum(
+            cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    if layers is None:
+        check(count_params(cfg) == RM_PARAMS[arch]
+              and sites == RM_SITES[arch] and cfg.dtype == "bfloat16"
+              and cfg.ft.threshold == 1e-4,
+              f"{arch}: {count_params(cfg)} params, {sites} sites, "
+              f"{cfg.dtype}, threshold {cfg.ft.threshold}")
+    return out, sites, batched
+
+
+def rm_params(dev, cfg):
+    """``cfg``'s params drawn on the card from the seeded generator: every
+    call gives the same weights."""
+    import torch
+    from repro_torch.models import Model
+
+    return Model(cfg).init(torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+
+
+def rm_batch(arch, cfg, dev, step, shape=None):
+    """``launch.train``'s batch of ``step`` at ``shape`` (RM_BATCH[arch]
+    by default): TokenPipeline(seed=0) at ``cfg``'s vocabulary, on
+    ``dev``."""
+    import torch
+    from repro_torch.data import TokenPipeline
+
+    b, t = shape or RM_BATCH[arch]
+    pipe = TokenPipeline(seed=0, batch=b, seq_len=t,
+                         vocab_size=cfg.vocab_size)
+    return {k: torch.from_numpy(v).to(dev) for k, v in pipe(step).items()}
+
+
+def grad_witness(cfg, params, batch):
+    """The unprotected float32 step's gradients with every parameter one
+    ulp up (``ulp_up``) against its gradients: (the worst leaf's error over
+    its max and its name, the loss's relative move)."""
+    from repro_torch.models import Model
+    from repro_torch.train.loop import _value_and_grad
+
+    model = Model(_f32_on(cfg))
+    (t0, _), g0 = _value_and_grad(model, params, batch, block_q=1024,
+                                  remat="none")
+    with ulp_up(params):
+        (t1, _), g1 = _value_and_grad(model, params, batch, block_q=1024,
+                                      remat="none")
+    worst = _leaf_errs(g1, g0)[0]
+    return worst, abs(float(t1) - float(t0)) / abs(float(t0))
+
+
+def rm_grad_gates(dev, arch, eager_calls):
+    """(a) one step's loss and gradients at float32 activations on the
+    three backends (``backend_agreement``; xLSTM's held to
+    SSM_WITNESS_FACTOR x ``grad_witness``, at RM_GRAD_BATCH), at
+    RM_GRAD_LAYERS' depth where it cuts one; (c) for RM_SEU_ARCHS, one SEU
+    at site 0 of every block
+    inside the loss: flagged and corrected in each block, the loss and
+    gradients the clean fused step's. Returns (the results, the eager ABFT
+    calls (a) makes)."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import layer_groups
+    from repro_torch.train.loop import _value_and_grad
+
+    layers = RM_GRAD_LAYERS.get(arch)
+    runs, sites, _ = rm_setup(arch, layers)
+    cfg = runs["protected"][0]
+    tag = f"{arch} train"
+    res = {"layers": cfg.num_layers, "sites": sites}
+    params = rm_params(dev, cfg)
+    shape = RM_GRAD_BATCH.get(arch, RM_BATCH[arch])
+    res["batch"] = list(shape)
+    batch = rm_batch(arch, cfg, dev, 0, shape)
+    loss_tol, grad_tol = TRAIN_LOSS_TOL, TRAIN_GRAD_TOL
+    if arch in RM_WITNESSED:
+        (worst, leaf), loss_move = grad_witness(cfg, params, batch)
+        # as phase 8's windows: the plain tolerance, or the witness's
+        # factor where the model's own conditioning is worse
+        loss_tol = max(TRAIN_LOSS_TOL, SSM_WITNESS_FACTOR * loss_move)
+        grad_tol = max(TRAIN_GRAD_TOL, SSM_WITNESS_FACTOR * worst)
+        res["witness"] = {"worst_leaf": [worst, leaf],
+                          "loss_rel_move": loss_move, "loss_tol": loss_tol,
+                          "grad_tol": grad_tol}
+        log(f"{tag} (a) witness at {shape[0]} x {shape[1]} tokens: the "
+            f"unprotected float32 step with every weight one ulp up moves "
+            f"the gradients by {worst:.3e} of a leaf's max ({leaf}) and "
+            f"the loss by {loss_move:.3e}; the backends are held to "
+            f"{SSM_WITNESS_FACTOR} x those or TRAIN_GRAD_TOL and "
+            f"TRAIN_LOSS_TOL, whichever is larger: {grad_tol:.3e} and "
+            f"{loss_tol:.3e}")
+    res["grad_gate"], ref = backend_agreement(
+        f"{tag} (a)", cfg, params, batch, sites, eager_calls,
+        loss_tol=loss_tol, grad_tol=grad_tol)
+    if arch in RM_SEU_ARCHS:
+        f32 = _f32_on(cfg, "fused")
+        g = layer_groups(f32)
+        blocks = len(g.prefix) + g.n_super * len(g.super_block) + len(g.tail)
+        check(blocks == cfg.num_layers, f"layer groups {g}")
+        inject = torch.tensor([RM_SEU], dtype=torch.float32, device=dev)
+        (total, (_, aux)), grads = _value_and_grad(
+            Model(f32), params, batch, block_q=1024, remat="none",
+            inject=inject)
+        rel = abs(float(total) - float(ref[0])) / abs(float(ref[0]))
+        errs = _leaf_errs(grads, ref[1])
+        del grads
+        seu = {"site": RM_SEU, "blocks": blocks,
+               "ft_flagged": float(aux["ft_flagged"]),
+               "ft_corrected": float(aux["ft_corrected"]),
+               "max_score": float(aux["ft_max_score"]),
+               "loss_rel_err": rel, "worst_leaf": list(errs[0])}
+        check(seu["ft_flagged"] == seu["ft_corrected"] == blocks
+              and rel <= TRAIN_LOSS_TOL and errs[0][0] <= TRAIN_GRAD_TOL,
+              f"{tag} (c) SEU step: {seu}")
+        res["seu"] = seu
+        log(f"{tag} (c) SEU at site 0 (row {int(RM_SEU[1])}, column "
+            f"{int(RM_SEU[2])}, +{RM_SEU[4]}) of every block: flagged "
+            f"{seu['ft_flagged']:.0f}, corrected {seu['ft_corrected']:.0f} "
+            f"of {blocks} blocks, max score {seu['max_score']:.3e}; vs the "
+            f"clean step: loss {rel:.3e} relative, worst gradient leaf "
+            f"{errs[0][0]:.3e} of its max ({errs[0][1]})")
+    del params, ref
+    torch.cuda.empty_cache()
+    return res, sites
+
+
+def rm_drive(dev, arch, eager_calls, batched):
+    """Drive phase 12's ``arch`` once (counts are the caller's to reset
+    and read): gates (a) and (c) (``rm_grad_gates``), then (b) RM_STEPS
+    bf16 steps protected and as many unprotected, each run from the seeded
+    weights drawn anew (the same bits): finite losses, the mean of the
+    last three below the mean of the first three, RM_SITES[arch]
+    ft_matmul launches and MOE_EXPERT_PRODUCTS eager batched products a MoE
+    layer a protected step (``train_run``; ``rm_measure``'s trace puts
+    every ft_matmul launch in the forward), nothing flagged at the
+    policy's threshold, peak memory under MOE_MEMORY_LIMIT. Returns (the
+    results, the protected model and run, the eager calls of (a))."""
+    import numpy as np
+    import torch
+    from repro_torch import optim, tree
+    from repro_torch.models import Model
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs, sites, per_step = rm_setup(arch)
+    b, t = RM_BATCH[arch]
+    res = {"params": RM_PARAMS[arch], "reduced": RM_REDUCED[arch],
+           "batch": [b, t], "lr": TRAIN_LR, "steps": RM_STEPS,
+           "sites_per_step": sites, "expert_products_per_step": per_step}
+    log(f"{arch} train: {RM_PARAMS[arch]} params, "
+        f"{4 * RM_PARAMS[arch] / 1e9:.2f} GB f32 "
+        f"({16 * RM_PARAMS[arch] / 1e9:.2f} GB with gradients and both "
+        f"AdamW moments), batch {b} x {t}, {sites} ft_matmul launches and "
+        f"{per_step} eager batched expert products a protected step; "
+        f"reduced: {RM_REDUCED[arch]}")
+    t0 = time.perf_counter()
+    gates, gate_sites = rm_grad_gates(dev, arch, eager_calls)
+    res.update(gates)
+    res["gates_s"] = time.perf_counter() - t0
+    prints = None
+    t0 = time.perf_counter()
+    for label in ("protected", "unprotected"):
+        cfg, run = runs[label]
+        params = rm_params(dev, cfg)
+        fp = _fingerprint(tree.leaves(params))
+        check(prints is None or fp == prints,
+              f"{arch}: the {label} run's weights are not the protected "
+              f"run's")
+        prints = fp
+        opt_state = optim.init_state(params)
+        torch.cuda.synchronize()
+        rows = train_run(f"{arch} {label}", Model(cfg), run, params,
+                         opt_state, 0, RM_STEPS, eager_calls,
+                         functools.partial(rm_batch, arch, cfg), sites,
+                         batched=batched, batched_per_step=per_step)
+        losses = [r["loss"] for r in rows]
+        first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+        check(all(math.isfinite(x) for x in losses) and last < first,
+              f"{arch} train {label}: the loss did not fall: {losses}")
+        timed = [r["ms"] for r in rows[TRAIN_WARMUP:]]
+        ms = float(np.median(timed))
+        res[label] = {
+            "losses": losses, "first3_mean": float(first),
+            "last3_mean": float(last), "ms_per_step": ms,
+            "ms_per_step_range": [float(np.min(timed)),
+                                  float(np.max(timed))],
+            "tokens_per_s": b * t / (ms / 1e3),
+            "ft_matmul_launches_per_step": rows[-1]["ft_matmul_launches"],
+            "expert_products_per_step": rows[-1].get("expert_products", 0),
+            "ft_flagged": sum(r["ft_flagged"] for r in rows)}
+        log(f"{arch} train (b) {label}: {RM_STEPS} bf16 steps, loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 3 {first:.4f}, "
+            f"last 3 {last:.4f}); {ms:.2f} ms a step, the median of steps "
+            f"{TRAIN_WARMUP}-{RM_STEPS - 1} (range {min(timed):.2f}-"
+            f"{max(timed):.2f}), {res[label]['tokens_per_s']:.0f} tokens/s, "
+            f"{rows[-1]['ft_matmul_launches']} ft_matmul launches and "
+            f"{res[label]['expert_products_per_step']} eager batched expert "
+            f"products a step, flagged {res[label]['ft_flagged']:.0f}")
+        del params, opt_state
+        torch.cuda.empty_cache()
+    res["runs_s"] = time.perf_counter() - t0
+    res["ft_overhead_per_step"] = (res["protected"]["ms_per_step"]
+                                   / res["unprotected"]["ms_per_step"] - 1)
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    check(res["peak_memory_bytes"] < MOE_MEMORY_LIMIT,
+          f"{arch} train: peak {res['peak_memory_bytes'] / 1e9:.2f} GB")
+    log(f"{arch} train: FT overhead {res['ft_overhead_per_step']:+.1%} a "
+        f"step; peak {res['peak_memory_bytes'] / 1e9:.2f} GB (limit "
+        f"{MOE_MEMORY_LIMIT / 1e9:.0f} GB); gates (a) and (c) "
+        f"{res['gates_s']:.1f} s, the two runs {res['runs_s']:.1f} s")
+    return res, runs["protected"], gate_sites
+
+
+def rm_measure(dev, arch, prot, trace_call):
+    """(d): one protected step of ``arch`` at its RM_BATCH (RM_TRACE_BATCH
+    where it cuts one) under a primed torch.profiler
+    (``trace_train_step``: every ft_matmul_tile kernel in the forward), on
+    the seeded weights. Returns a dict."""
+    import torch
+    from repro_torch.models import Model
+
+    cfg, run = prot
+    t0 = time.perf_counter()
+    params = rm_params(dev, cfg)
+    shape = RM_TRACE_BATCH.get(arch, RM_BATCH[arch])
+    res = {"trace_batch": list(shape)}
+    res["parts"], res["trace"] = trace_train_step(
+        f"{arch} train (protected) at {shape[0]} x {shape[1]}", Model(cfg),
+        run, params, rm_batch(arch, cfg, dev, 4, shape), RM_SITES[arch],
+        trace_call)
+    del params
+    torch.cuda.empty_cache()
+    res["trace_s"] = time.perf_counter() - t0
+    return res
+
+
+def rm_cli_start():
+    """``python -m repro_torch.launch.train *RM_CLI`` on the card, started
+    in the background: returns (the process, its output file, the start
+    time)."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *RM_CLI],
+        cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, out, time.perf_counter()
+
+
+def rm_cli_finish(proc, out, t0):
+    """The RM_CLI process's end: it must exit 0 and print its three step
+    lines with finite losses and ``ft_flagged 0``. Returns its row."""
+    try:
+        code = proc.wait(timeout=600)
+        seconds = time.perf_counter() - t0
+        out.seek(0)
+        text = out.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    lines = re.findall(r"step +(\d+) loss (\S+) ce \S+ gnorm \S+ "
+                       r"ft_flagged (\d+)", text)
+    check(code == 0 and [int(s) for s, _, _ in lines] == [0, 1, 2]
+          and all(math.isfinite(float(loss)) and f == "0"
+                  for _, loss, f in lines),
+          f"launch.train {' '.join(RM_CLI)}: exit {code}\n{text[-3000:]}")
+    log(f"launch.train {' '.join(RM_CLI)}: steps 0-2, loss {lines[0][1]} "
+        f"-> {lines[-1][1]}, ft_flagged 0 ({seconds:.1f} s with the "
+        f"process start)")
+    return {"argv": list(RM_CLI), "seconds": seconds,
+            "steps": [[int(s), float(loss)] for s, loss, _ in lines]}
 
 
 def main() -> int:
@@ -4085,25 +4542,96 @@ def main() -> int:
           f"{len(eager_calls)} eager ABFT calls")
     encdec["launches"] = encdec_launches
     encdec["device"] = smi
+    encdec["seconds"] = time.perf_counter() - t11
+    log(f"phase 11 took {encdec['seconds']:.1f} s; the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
 
-    # phase 11 ends with the `--mode lm` CLIs of phases 7-9 and its own,
-    # started together: each is a host-bound process of its own, with its
-    # own ledger, 2 faults a layer (the demo schedule's two entries fire in
-    # every block), none for Whisper, whose blocks take no fault descriptor
+    # ---- phase 12: training the recurrent and MoE models, counts from each
+    # config's drive only (set to 0 just before it, read just after, and
+    # summed); every protected linear's forward launches ft_matmul, the
+    # routed experts' three checked products are the eager batched ones
+    # (counted a step in the drive), and the eager 2-D path runs only in
+    # each gate (a)'s eager step (counted there)
+    t12 = time.perf_counter()
+    log(f"phase 12 starts {t12 - t_start:.1f} s into the run ({smi})")
+    torch.cuda.empty_cache()
+    rm = {}
+    rm_launches = {"block_fft": 0, "abft_fft": 0, "ft_matmul": 0}
+    eager_calls.clear()
+    batched = {"calls": 0}
+    batched_fn = abft_gemm.ft_matmul_batched
+
+    def counted_batched(*args, **kwargs):
+        batched["calls"] += 1
+        return batched_fn(*args, **kwargs)
+
+    want_eager = 0
+    abft_gemm.ft_matmul = counted_eager
+    abft_gemm.ft_matmul_batched = counted_batched
+    try:
+        for arch in RM_ARCHS:
+            block_fft.launches = 0
+            abft_fft.launches = 0
+            ft_matmul.launches = 0
+            t_arch = time.perf_counter()
+            res, prot, gate_sites = rm_drive(dev, arch, eager_calls,
+                                             batched)
+            torch.cuda.synchronize()
+            res["launches"] = {"block_fft": block_fft.launches,
+                               "abft_fft": abft_fft.launches,
+                               "ft_matmul": ft_matmul.launches}
+            for key, n in res["launches"].items():
+                rm_launches[key] += n
+            want_eager += gate_sites
+            res.update(rm_measure(dev, arch, prot, trace_call))
+            del prot
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            res["seconds"] = time.perf_counter() - t_arch
+            rm[arch] = res
+            log(f"{arch} train took {res['seconds']:.1f} s")
+    finally:
+        abft_gemm.ft_matmul = eager_ft_matmul
+        abft_gemm.ft_matmul_batched = batched_fn
+    log(f"recurrent and MoE training launches, their drives: "
+        f"{json.dumps(rm_launches)}; eager ABFT calls {len(eager_calls)} "
+        f"(the gates (a)' eager steps: {want_eager}); eager batched expert "
+        f"products {batched['calls']}")
+    check(rm_launches["ft_matmul"] > 0 and len(eager_calls) == want_eager,
+          f"recurrent and MoE training: {rm_launches}, {len(eager_calls)} "
+          f"eager ABFT calls")
+    rm["launches"] = rm_launches
+    rm["device"] = smi
+    rm["models_seconds"] = time.perf_counter() - t12
+    log(f"phase 12's four models took {rm['models_seconds']:.1f} s")
+
+    # the script ends with the CLIs, started together, each a host-bound
+    # process of its own: phase 12's `launch.train` at xLSTM-350M's
+    # published widths, and the `--mode lm` CLIs of phases 7-9 and 11, each
+    # with its own ledger, 2 faults a layer (the demo schedule's two
+    # entries fire in every block), none for Whisper, whose blocks take no
+    # fault descriptor
     from repro_torch.configs import get_config, get_smoke_config
-    t_cli = time.perf_counter()
-    clis = lm_clis([
-        (LM_CLI, 2 * get_config(LM_SMALL_ARCH).num_layers),
-        (SSM_CLI, 2 * get_config("xlstm_350m").num_layers),
-        (MOE_CLI, 2 * get_smoke_config("deepseek_v3_671b").num_layers),
-        *(ENCDEC_CLI[arch] for arch in ENCDEC_ARCHS)])
+    proc, out, t_cli = rm_cli_start()
+    try:
+        clis = lm_clis([
+            (LM_CLI, 2 * get_config(LM_SMALL_ARCH).num_layers),
+            (SSM_CLI, 2 * get_config("xlstm_350m").num_layers),
+            (MOE_CLI, 2 * get_smoke_config("deepseek_v3_671b").num_layers),
+            *(ENCDEC_CLI[arch] for arch in ENCDEC_ARCHS)])
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        out.close()
+        raise
+    rm["cli"] = rm_cli_finish(proc, out, t_cli)
     lm["cli"], ssm["xlstm_350m"]["cli"], moe_res["deepseek_v3_671b"][
         "cli"] = clis[:3]
     encdec["cli"] = clis[3:]
-    encdec["cli_seconds"] = time.perf_counter() - t_cli
-    encdec["seconds"] = time.perf_counter() - t11
-    log(f"phase 11 took {encdec['seconds']:.1f} s, its five CLIs "
-        f"{encdec['cli_seconds']:.1f} s of it; the run "
+    rm["cli_seconds"] = time.perf_counter() - t_cli
+    rm["seconds"] = time.perf_counter() - t12
+    log(f"phase 12 took {rm['seconds']:.1f} s, its six CLIs "
+        f"{rm['cli_seconds']:.1f} s of it; the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
 
     kernels = [
@@ -4153,7 +4681,8 @@ def main() -> int:
                               "ssm": ssm_launches["ft_matmul"],
                               "moe": moe_launches["ft_matmul"],
                               "train": train_launches["ft_matmul"],
-                              "encdec": encdec_launches["ft_matmul"]},
+                              "encdec": encdec_launches["ft_matmul"],
+                              "rm_train": rm_launches["ft_matmul"]},
          "launches_per_call": {"plan.ft_matmul": 1,
                                "protected MLP block": mlp_per_call,
                                "protected prefill":
@@ -4182,7 +4711,11 @@ def main() -> int:
                                **{f"{arch} protected train step":
                                   encdec[arch]["train"]["protected"][
                                       "ft_matmul_launches_per_step"]
-                                  for arch in ENCDEC_ARCHS}},
+                                  for arch in ENCDEC_ARCHS},
+                               **{f"{arch} protected train step":
+                                  rm[arch]["protected"][
+                                      "ft_matmul_launches_per_step"]
+                                  for arch in RM_ARCHS}},
          "max_abs_err": max(gemm_parts.values()),
          "max_abs_err_parts": gemm_parts, "max_err_over_tol": gemm_ratio,
          "max_abs_err_by_path": {
@@ -4216,7 +4749,7 @@ def main() -> int:
          "instances": ftmm_instances, "shapes": gemm_rows,
          "mlp_block": mlp_ms, "seu": {"plan": gemm_seu, "mlp": mlp_seu},
          "lm": lm, "ssm": ssm, "moe": moe_res, "train": train,
-         "encdec": encdec},
+         "encdec": encdec, "rm_train": rm},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

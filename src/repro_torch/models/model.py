@@ -103,7 +103,10 @@ def _dots_policy(ctx, op, *args, **kwargs):
     in place, which a saved tensor must not be), recompute the rest. A
     product inside an ``autograd.Function``'s forward (the fused checked
     GEMM's plain version) runs with grad off and is recomputed, as the
-    reference recomputes its Pallas call."""
+    reference recomputes its Pallas call. A product with batch dims is a
+    ``bmm`` (the mLSTM's and sLSTM's per-head einsums, attention's, the
+    routed experts' batched products) and is recomputed too: the
+    reference's ``dots_with_no_batch_dims_saveable``."""
     if (op is torch.ops.aten.mm.default and torch.is_grad_enabled()
             and args[0].shape[0] > 1 and args[1].shape[1] > 1):
         return torch_checkpoint.CheckpointPolicy.MUST_SAVE

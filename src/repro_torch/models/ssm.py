@@ -58,10 +58,29 @@ def gelu(x):
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))
 
 
+class _Silu(torch.autograd.Function):
+    """``jax.nn.silu``'s forward, op by op, with ``jax.nn.sigmoid``'s
+    derivative ``t (1 - t)`` (``lax.logistic``'s): autograd through ``exp``
+    and ``reciprocal`` gives ``0 * inf = nan`` where ``exp(-x)`` overflows,
+    x below -88.7 in float32 and bfloat16 alike."""
+
+    @staticmethod
+    def forward(ctx, x):
+        t = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, t)
+        return x * t
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t = ctx.saved_tensors
+        return g * t + (g * x) * (t * (1 - t))
+
+
 def silu(x):
     """``jax.nn.silu``: ``x * (1 / (1 + exp(-x)))`` (``reciprocal`` is one
-    kernel; a Python ``1 /`` is a reciprocal and a multiply)."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    kernel; a Python ``1 /`` is a reciprocal and a multiply), its gradient
+    finite everywhere (``_Silu``)."""
+    return _Silu.apply(x)
 
 
 def _write_state(state: dict, new: dict) -> dict:

@@ -91,14 +91,20 @@ def apply_updates(
     step = state.step + 1
     c1 = 1.0 - b1 ** step.float()
     c2 = 1.0 - b2 ** step.float()
+    # each leaf's operations in the reference's order, their temporaries
+    # written in place: a leaf's update holds two leaf-sized float32
+    # temporaries at a time, not four (the peak of a step whose largest
+    # leaf is a 4 GB embedding)
     for p, g, m, v in zip(leaves(params), leaves(grads),
                           leaves(state.mu), leaves(state.nu)):
         gf = g.float() * scale
         m.mul_(b1).add_((1 - b1) * gf)
-        v.mul_(b2).add_((1 - b2) * gf * gf)
-        delta = (m / c1) / (torch.sqrt(v / c2) + eps)
+        v.mul_(b2).add_(((1 - b2) * gf).mul_(gf))
+        del gf
+        delta = m / c1
+        delta.div_((v / c2).sqrt_().add_(eps))
         if p.dim() >= 2:             # decoupled decay on matrices only
             delta.add_(weight_decay * p.float())
-        p.copy_(p.float() - lr * delta)
+        p.copy_(p.float() - delta.mul_(lr))
     state.step.copy_(step)
     return params, state, info

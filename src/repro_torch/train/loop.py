@@ -16,12 +16,18 @@ given. A protected linear checks its forward product (``ft_matmul`` on
 the card) and its backward is the plain product's gradient, as the
 reference's autodiff gives (``core.gemm.api._FusedLinear``).
 
-Training covers the dense decoder family, the VLM (InternVL2: a batch may
-carry ``patch_embeds``, and the loss takes the text tail of the logits)
-and the encoder-decoder (Whisper: a batch carries ``frames``). The
-recurrent models (``models.ssm``) and the MoE models (``models.moe``,
-MLA) raise: their training is ROADMAP queue 1 item 9.5. The reference's
-int8 compressed all-reduce belongs to LM parallelism (item 12).
+Every architecture of ``configs`` trains: the dense decoder family, the
+recurrent models (``models.ssm``: autograd runs through the doubling scan
+and the sequential mLSTM and sLSTM loops, which write nothing in place
+without a decode state), the MoE models (``models.moe`` and MLA: the routed
+experts' checked products are eager batched products, differentiated
+through their in-place correction as the reference's ``jax.grad`` runs
+through its ``vmap(abft.ft_matmul)``; the capacity is computed per call,
+so per micro-batch, as in the reference's scan), the VLM (InternVL2: a
+batch may carry ``patch_embeds``, and the loss takes the text tail of the
+logits) and the encoder-decoder (Whisper: a batch carries ``frames``). The
+reference's int8 compressed all-reduce belongs to LM parallelism (ROADMAP
+queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -33,14 +39,11 @@ import torch
 from repro_torch import optim
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import Model
-from repro_torch.models.transformer import RECURRENT_KINDS, effective_kinds
 from repro_torch.tree import leaves, unflatten
 
 __all__ = ["make_train_step", "make_eval_step", "make_serve_step",
            "make_prefill_step", "cross_entropy"]
 
-_ITEM_9_5 = ("training of the recurrent and MoE models, ROADMAP queue 1 "
-             "item 9.5")
 _AUX = ("moe_aux", "ft_flagged", "ft_corrected", "ft_max_score")
 
 
@@ -95,19 +98,6 @@ def _value_and_grad(model: Model, params, batch, *, block_q, remat,
     return ((total.detach(), (ce.detach(), aux)), unflatten(params, grads))
 
 
-def check_trainable(model: Model) -> None:
-    """Raise ``NotImplementedError`` unless every block of ``model`` is a
-    dense-family block (attention with an MLP), as the VLM's and the
-    encoder-decoder's are."""
-    kinds = effective_kinds(model.cfg)
-    for kind in kinds:
-        base, ffn = kind.split("|")
-        if base in RECURRENT_KINDS or base == "mla" or ffn == "moe":
-            raise NotImplementedError(
-                f"{model.cfg.name}: its {kind} blocks do not train in the "
-                f"port yet: {_ITEM_9_5}")
-
-
 def make_train_step(model: Model, run: RunConfig) -> Callable:
     """The train step ``(params, opt_state, batch, step) -> (params,
     opt_state, metrics)``. ``batch`` holds ``tokens`` and ``labels``
@@ -116,7 +106,6 @@ def make_train_step(model: Model, run: RunConfig) -> Callable:
     split along its first axis and the gradients, losses and aux are
     summed over the micro-batches, then gradients and losses divided by
     their count, as the reference's scan does."""
-    check_trainable(model)
     par = run.parallel
     micro = par.microbatch
     grad = functools.partial(_value_and_grad, model,

@@ -9,7 +9,8 @@ Tolerances: one AdamW update, params and moments, 1e-6 x max|reference|
 (float32 arithmetic in another order: an ulp or two); the schedule, the
 global norm and the CE loss 1e-6 relative; three train steps at float32
 activations, params within 1e-6 absolute (a step moves a param by at
-most about lr = 1e-3) and loss, CE and grad norm 1e-5 relative; the
+most about lr = 1e-3; a MoE model's within 4x the reference's own drift
+from params one ulp up) and loss, CE and grad norm 1e-5 relative; the
 batches, the checkpoints and a skipped step bit for bit. Restart: the
 loss 1e-5 relative, the reference's ``test_train_restart_determinism``.
 """
@@ -48,6 +49,7 @@ from repro_torch.models import Model, params_from_numpy
 from repro_torch.train import loop
 
 CPU = "cpu"
+WITNESS_FACTOR = 4                 # chip_smoke.SSM_WITNESS_FACTOR
 
 
 def _np(t):
@@ -374,9 +376,32 @@ def _runs(arch, micro=1, lr=1e-3, protect=False):
                 remat="none", microbatch=micro), **kw))
 
 
+def _ulp_drift(ref_step, tree, pipe, steps, want):
+    """The reference's own drift: max |params - ``want``| after ``steps``
+    of ``ref_step`` from ``tree`` with every float32 leaf one ulp up."""
+    rp = jax.tree.map(lambda a: jnp.asarray(
+        np.nextafter(a, np.float32(np.inf)) if a.dtype == np.float32
+        else a), tree)
+    rs = ref_optim.init_state(rp)
+    for step in range(steps):
+        _, jb = _batch(pipe(step))
+        rp, rs, _ = ref_step(rp, rs, jb, jnp.int32(step))
+    return max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+               for a, b in zip(jax.tree.leaves(rp), jax.tree.leaves(want)))
+
+
 @pytest.mark.parametrize("arch,micro", [("phi4_mini_3p8b", 1),
-                                        ("gemma3_1b", 2)])
+                                        ("gemma3_1b", 2),
+                                        ("llama4_maverick", 2)])
 def test_three_train_steps_match_reference(arch, micro):
+    """Three steps, micro-batched on Gemma-3 and on Llama-4 (a MoE model:
+    its capacity is computed per micro-batch in both packages). A MoE
+    model's params are held to WITNESS_FACTOR x the reference's own drift
+    from params one ulp up (``_ulp_drift``: 2.1e-6 on Llama-4 SMOKE, where
+    the dense models' is 1.8e-7 to 2.4e-7): an expert weight that few
+    tokens reach has a gradient at its rounding noise, which AdamW's
+    normalised update turns into steps of lr's size (measured: the port
+    1.17e-6 off the reference at one such element of 262144)."""
     model, run, rmodel, rrun = _runs(arch, micro)
     tree = _ref_params_np(arch)
     pp, rp = params_from_numpy(tree, device=CPU), jax.tree.map(jnp.asarray,
@@ -395,7 +420,12 @@ def test_three_train_steps_match_reference(arch, micro):
             np.testing.assert_allclose(float(m[k]), float(rm[k]), rtol=1e-5)
         for k in ("lr", "skipped_updates", "moe_aux", "ft_flagged"):
             np.testing.assert_allclose(float(m[k]), float(rm[k]), rtol=1e-6)
-    _assert_trees_close(pp, rp, atol=1e-6)
+    atol = 1e-6
+    if model.cfg.num_experts:
+        drift = _ulp_drift(ref_step, tree, pipe, 3, rp)
+        assert drift > 0.0
+        atol = WITNESS_FACTOR * drift
+    _assert_trees_close(pp, rp, atol=atol)
     _assert_trees_close(ps.nu, rs.nu, rel=1e-5)
 
 
@@ -528,10 +558,23 @@ def test_value_and_grad_restores_flags_when_the_loss_raises(missing):
 
 @pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_350m",
                                   "deepseek_v3_671b", "llama4_maverick"])
-def test_recurrent_and_moe_training_raise(arch):
-    pc = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="item 9.5"):
-        loop.make_train_step(Model(pc), RunConfig(model=pc))
+def test_recurrent_and_moe_train_step(arch):
+    """``make_train_step`` builds for the recurrent and MoE models, and one
+    protected step at SMOKE size returns finite metrics under the
+    reference's keys, the aux loss nonzero on a MoE model only."""
+    model, run, _, _ = _runs(arch, protect=True)
+    pp = model.init(torch.Generator().manual_seed(0), device=CPU)
+    tb, _ = _batch(make_batch(0, 0, batch=2, seq_len=16,
+                              vocab_size=model.cfg.vocab_size))
+    _, _, m = loop.make_train_step(model, run)(pp, optim.init_state(pp),
+                                               tb, 0)
+    assert set(m) == {"loss", "ce", "lr", "grad_norm", "skipped_updates",
+                      "moe_aux", "ft_flagged", "ft_corrected",
+                      "ft_max_score"}
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert float(m["skipped_updates"]) == float(m["ft_flagged"]) == 0.0
+    assert (float(m["moe_aux"]) > 0) == (arch in ("deepseek_v3_671b",
+                                                  "llama4_maverick"))
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,7 @@ BACKENDS = ["none", "eager", "fused"]
 F32_LOSS, F32_GRAD = 1e-6, 1e-5
 BF16_LOSS, BF16_GRAD = 2e-3, 5e-2
 REMAT_TOL = 1e-6
+MOE_COEF = 0.01                    # _loss_fn's default weight of the aux loss
 # one SEU: the MLP gate product (site 4: q, k, v, o, then gate, up, down)
 # of every block, token row 5, column 7, +300
 SEU = [4.0, 5.0, 7.0, 1.0, 300.0]
@@ -103,9 +104,10 @@ def _reference(arch, dtype, protected, inject=None):
     def loss(p, b):
         logits, aux = model.apply(p, b, block_q=8, inject=inj)
         total, ce = ref_loop.cross_entropy(logits[:, -16:], b["labels"])
-        return total, (ce, aux)
+        return total + MOE_COEF * aux["moe_aux"], (ce, aux)
 
     # the reference's _loss_fn takes no inject; with none, it is _loss_fn's
+    # (``loss`` is _loss_fn's with the fault descriptor passed on)
     fn = (loss if inject is not None else functools.partial(
         ref_loop._loss_fn, model, block_q=8, remat="none"))
     grad = jax.value_and_grad(fn, has_aux=True)
@@ -171,15 +173,13 @@ def test_loss_and_grads_match_reference_bf16(arch, backend):
     assert max(errs.values()) <= BF16_GRAD, errs
 
 
-@pytest.mark.parametrize("backend", ["eager", "fused"])
-def test_seu_under_autograd_matches_reference(backend):
-    """One SEU at a protected site of every block: detected and corrected
-    in each (Gemma-3 SMOKE's 7 blocks, all unrolled, one context each),
-    loss and gradients those of the reference's faulted step and of the
-    clean step."""
-    arch = "gemma3_1b"
-    r_loss, r_aux, r_grads = _reference(arch, "float32", True, tuple(SEU))
-    loss, aux, grads = _port(arch, "float32", backend, inject=SEU)
+def assert_seu_matches_reference(arch, backend, seu):
+    """One SEU ``seu`` at a protected site of every block of ``arch``'s
+    SMOKE model under autograd: detected and corrected in each block, in
+    both packages, the loss and gradients those of the reference's
+    faulted step and of the clean step."""
+    r_loss, r_aux, r_grads = _reference(arch, "float32", True, tuple(seu))
+    loss, aux, grads = _port(arch, "float32", backend, inject=seu)
     blocks = configs.get_smoke_config(arch).num_layers
     assert aux["ft_flagged"] == aux["ft_corrected"] == blocks
     assert r_aux["ft_flagged"] == r_aux["ft_corrected"] == blocks
@@ -188,6 +188,15 @@ def test_seu_under_autograd_matches_reference(backend):
     c_loss, _, c_grads = _reference(arch, "float32", False)
     np.testing.assert_allclose(loss, c_loss, rtol=F32_LOSS)
     assert max(_leaf_errors(grads, c_grads, norm=False).values()) <= F32_GRAD
+
+
+@pytest.mark.parametrize("backend", ["eager", "fused"])
+def test_seu_under_autograd_matches_reference(backend):
+    """One SEU at a protected site of every block: detected and corrected
+    in each (Gemma-3 SMOKE's 7 blocks, all unrolled, one context each),
+    loss and gradients those of the reference's faulted step and of the
+    clean step."""
+    assert_seu_matches_reference("gemma3_1b", backend, SEU)
 
 
 def _count_calls(monkeypatch, module, name):
@@ -202,6 +211,36 @@ def _count_calls(monkeypatch, module, name):
     return calls
 
 
+def assert_remat_matches(monkeypatch, arch, backend, remat, seu, sites,
+                         batched=0):
+    """``remat`` against no remat on ``arch``'s SMOKE model: the same loss
+    and gradients; the ft stats of a step faulted by ``seu`` are the first
+    forward's, not doubled; each protected product's check (``sites`` a
+    forward on the GEMM backend, ``batched`` eager batched expert products)
+    runs twice, once in the forward and once in the recompute."""
+    inject = None if backend == "none" else seu
+    module, name = ((gemm_api.ft_kernel, "ft_matmul") if backend == "fused"
+                    else (abft_gemm, "ft_matmul"))
+    calls = _count_calls(monkeypatch, module, name)
+    experts = _count_calls(monkeypatch, abft_gemm, "ft_matmul_batched")
+    want = _port(arch, "float32", backend, inject=inject)
+    plain_calls, plain_experts = len(calls), len(experts)
+    got = _port(arch, "float32", backend, inject=inject, remat=remat)
+    cfg = configs.get_smoke_config(arch)
+    if backend == "none":
+        sites = batched = 0
+    assert plain_calls == sites and len(calls) - plain_calls == 2 * sites
+    assert (plain_experts == batched
+            and len(experts) - plain_experts == 2 * batched)
+    np.testing.assert_allclose(got[0], want[0], rtol=REMAT_TOL)
+    assert got[1] == want[1]
+    if backend != "none":
+        assert got[1]["ft_flagged"] == got[1]["ft_corrected"] \
+            == cfg.num_layers
+    assert max(_leaf_errors(got[2], want[2], norm=False).values()) \
+        <= REMAT_TOL
+
+
 @pytest.mark.parametrize("remat", ["block", "dots"])
 @pytest.mark.parametrize("backend", ["none", "eager", "fused"])
 def test_remat_matches_no_remat(monkeypatch, backend, remat):
@@ -210,23 +249,8 @@ def test_remat_matches_no_remat(monkeypatch, backend, remat):
     are the first forward's, not doubled; each protected product's check
     runs twice, once in the forward and once in the recompute."""
     arch = "phi4_mini_3p8b"
-    inject = None if backend == "none" else SEU
-    module, name = ((gemm_api.ft_kernel, "ft_matmul") if backend == "fused"
-                    else (abft_gemm, "ft_matmul"))
-    calls = _count_calls(monkeypatch, module, name)
-    want = _port(arch, "float32", backend, inject=inject)
-    plain_calls = len(calls)
-    got = _port(arch, "float32", backend, inject=inject, remat=remat)
-    cfg = configs.get_smoke_config(arch)
-    sites = 0 if backend == "none" else 7 * cfg.num_layers
-    assert plain_calls == sites and len(calls) - plain_calls == 2 * sites
-    np.testing.assert_allclose(got[0], want[0], rtol=REMAT_TOL)
-    assert got[1] == want[1]
-    if backend != "none":
-        assert got[1]["ft_flagged"] == got[1]["ft_corrected"] \
-            == cfg.num_layers
-    assert max(_leaf_errors(got[2], want[2], norm=False).values()) \
-        <= REMAT_TOL
+    assert_remat_matches(monkeypatch, arch, backend, remat, SEU,
+                         7 * configs.get_smoke_config(arch).num_layers)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
