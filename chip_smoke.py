@@ -176,6 +176,26 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   detected=0 corrected=0`` (its blocks take no fault descriptor, as the
   reference's).
 
+* the sharded 1-D FFT (phase 13, ``sharded_phase``): four processes on
+  the one card, a gloo group over a file store (gloo takes CUDA tensors
+  and stages them through the host, so its collective times are host
+  copies, not NVLink), each driving ``plan(FFTSpec(..., mesh=...))`` on a
+  1-D mesh of 4 and a 2 x 2 ``data x fft`` mesh (``make_fft_mesh``) at
+  ``SHARD_CASES`` (complex64 2^20 x 256 and 2^25 x 8, whose N2 = 65536
+  tail runs two local passes, complex128 2^20 x 16), inputs made on the
+  card from SEED: the natural forward and inverse, the transposed forward
+  against the digit-permuted spectrum, the TRANSPOSED_IN inverse, each on
+  the rank's rows against ``torch.fft`` at ATOL * max|ref|, ``chunks=2``
+  bitwise ``chunks=1``, one case through ``shard_signals`` (its ingest
+  all-to-all); each call's ``block_fft`` launches and its all-to-all and
+  all-gather calls and bytes held to the plan's; one case's pass-1
+  (the offset twiddle) and pass-2 launches held to ``block_fft_plain`` on
+  every rank; the local passes' device ms from a primed trace and each
+  call's host ms. Then one rank on NCCL in this process:
+  ``make_fft_mesh(1)`` plans the local transform, whose ``fft`` launches
+  the same two passes as ``plan.fft``, bitwise, timed beside it and
+  ``torch.fft``.
+
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
 ``ft_matmul`` the CTAs an SM runs (occupancy query); a spill in a fast
@@ -215,6 +235,7 @@ import re
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3759,6 +3780,409 @@ def rm_cli_finish(proc, out, t0):
             "steps": [[int(s), float(loss)] for s, loss, _ in lines]}
 
 
+# ---- phase 13: the sharded 1-D FFT on torch.distributed. Four ranks on the
+# one card over gloo (which stages CUDA tensors through the host, so its
+# collective times are host copies, not NVLink), on a 1-D mesh of 4 and a
+# 2 x 2 data x fft mesh, at turbofft_bench's corners; then one rank on NCCL
+# through make_fft_mesh(1), where the plan is the local one.
+SHARD_CASES = (("complex64", 20, 256), ("complex64", 25, 8),
+               ("complex128", 20, 16))
+SHARD_MESHES = ((4, 1), (2, 2))         # (fft shards, data shards)
+SHARD_RANKS = 4
+SHARD_CHECKED_CASES = (1, 2)            # their launches against the plain one
+SHARD_INGEST_CASE = 2                   # its input through shard_signals
+SHARD_TIMEOUT = 300                     # seconds the four ranks may take
+SHARD_ONE_RANK = ("complex64", 20, 256)
+
+
+def _shard_collectives():
+    """Wrap ``dist.all_to_all_single`` and ``dist.all_gather_into_tensor``
+    so each call's count and bytes (the all-to-all's send buffer, the
+    all-gather's output) land in the returned dict."""
+    import torch.distributed as dist
+
+    seen = {"all_to_all": [0, 0], "all_gather": [0, 0]}
+    a2a, gather = dist.all_to_all_single, dist.all_gather_into_tensor
+
+    def spy_a2a(out, inp, *a, **k):
+        seen["all_to_all"][0] += 1
+        seen["all_to_all"][1] += inp.numel() * inp.element_size()
+        return a2a(out, inp, *a, **k)
+
+    def spy_gather(out, inp, *a, **k):
+        seen["all_gather"][0] += 1
+        seen["all_gather"][1] += out.numel() * out.element_size()
+        return gather(out, inp, *a, **k)
+
+    dist.all_to_all_single = spy_a2a
+    dist.all_gather_into_tensor = spy_gather
+    return seen
+
+
+def shard_drive(rank, trace):
+    """One rank's drive of the sharded transform: every case on both
+    meshes, each call's results against torch.fft on this rank's rows,
+    its block_fft launches and collectives against the plan's, chunks=2
+    bitwise chunks=1; in the checked cases every launch of the rank's
+    steps against block_fft_plain (``shard_launch_checks``); device ms of
+    the local passes and host ms of whole transforms."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.fft import FFTSpec, plan
+    from repro_torch.kernels.stockham import block_fft
+    from repro_torch.kernels.trace_age import PRIMER, prime
+    from repro_torch.launch.mesh import make_fft_mesh
+
+    dev = torch.device("cuda", 0)
+    seen = _shard_collectives()
+    out = {"rank": rank, "cases": [], "launches": 0, "failures": []}
+    gen = torch.Generator(device=dev)
+
+    def fail(msg):
+        out["failures"].append(msg)
+
+    def call(fn):
+        """(result, launches, collectives, host ms) of one call, every
+        rank starting together."""
+        print(f"{time.perf_counter():.3f} {label} {fn}", file=trace,
+              flush=True)
+        dist.barrier()
+        torch.cuda.synchronize()
+        before = block_fft.launches
+        for v in seen.values():
+            v[0] = v[1] = 0
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (y, block_fft.launches - before,
+                {k: list(v) for k, v in seen.items()}, ms)
+
+    def err_ratio(got, want):
+        tol = ATOL[str(want.dtype).split(".")[-1]] * want.abs().max().item()
+        return (got - want).abs().max().item() / tol
+
+    block_fft.launches = 0
+    for shards, data in SHARD_MESHES:
+        mesh = make_fft_mesh(shards, data)
+        d = mesh.get_local_rank("fft")
+        md = mesh.get_local_rank("data") if data > 1 else 0
+        for ci, (dtype, logn, b) in enumerate(SHARD_CASES):
+            n = 1 << logn
+            gen.manual_seed(SEED + logn + b)
+            x = torch.randn((b, n), dtype=getattr(torch, dtype), device=dev,
+                            generator=gen)
+            ref = torch.fft.fft(x)
+            spec = dict(dtype=dtype, mesh=mesh)
+            p = plan(FFTSpec((b, n), **spec))
+            pt = plan(FFTSpec((b, n), natural_order=False, **spec))
+            pc = plan(FFTSpec((b, n), natural_order=False, chunks=2, **spec))
+            pen = p.pencil
+            tail = pen.launches - 1
+            rows = b // data
+            r0 = md * rows
+            label = f"{dtype} 2^{logn}x{b} on ({data}, {shards})"
+            row = {"case": label, "n1": pen.n1, "n2": pen.n2, "tail": tail,
+                   "mesh": [data, shards], "calls": {}}
+
+            def record(name, res, want_launches, want_coll):
+                _, launches, coll, ms = res
+                row["calls"][name] = {"launches": launches,
+                                      "collectives": coll, "host_ms": ms}
+                if launches != want_launches:
+                    fail(f"{label} {name}: {launches} block_fft launches, "
+                         f"not {want_launches}")
+                if coll != want_coll:
+                    fail(f"{label} {name}: collectives {coll}, not "
+                         f"{want_coll}")
+
+            v, vt, vc = p.volume, pt.volume, pc.volume
+
+            def coll(vol, extra=None):
+                want = {"all_to_all": [vol["all_to_all_count"],
+                                       int(vol["all_to_all_bytes"])],
+                        "all_gather": [vol["all_gather_count"],
+                                       int(vol["gather_hlo"])]}
+                if extra:
+                    want["all_to_all"][0] += 1
+                    want["all_to_all"][1] += extra
+                return want
+
+            res = call(lambda: p.fft(x))
+            record("fft", res, 1 + tail, coll(v))
+            row["fft"] = err_ratio(res[0].to_local(), ref[r0:r0 + rows])
+            del res
+            res = call(lambda: p.ifft(ref))
+            record("ifft", res, 1 + tail, coll(v))
+            row["ifft"] = err_ratio(res[0].to_local(), x[r0:r0 + rows])
+            del res
+            # the transposed order: this rank's contiguous block of
+            # y[k1*N2 + k2] = X[k1 + N1*k2]
+            res = call(lambda: pt.fft(x))
+            yt = res[0]
+            record("fft transposed", res, 1 + tail, coll(vt))
+            del res
+            span = n // shards
+            want_t = ref.view(b, pen.n2, pen.n1).transpose(1, 2).reshape(
+                b, n)[r0:r0 + rows, d * span:(d + 1) * span]
+            row["fft_transposed"] = err_ratio(yt.to_local(), want_t)
+            del want_t
+            inv_bytes = rows * n * x.element_size() // shards
+            res = call(lambda: pt.ifft(yt))
+            xb = res[0]
+            record("ifft transposed-in", res, tail + 1,
+                   {"all_to_all": [1, inv_bytes], "all_gather": [0, 0]})
+            del res
+            w = rows // shards
+            mine = x[r0 + d * w:r0 + (d + 1) * w]
+            row["ifft_transposed_in"] = err_ratio(xb.to_local(), mine)
+            res = call(lambda: pc.fft(x))
+            record("fft transposed chunks=2", res, 2 * (1 + tail), coll(vc))
+            row["chunks_bitwise"] = bool(torch.equal(res[0].to_local(),
+                                                     yt.to_local()))
+            res2 = call(lambda: pc.ifft(res[0]))
+            record("ifft transposed-in chunks=2", res2, 2 * (tail + 1),
+                   {"all_to_all": [2, inv_bytes], "all_gather": [0, 0]})
+            row["chunks_bitwise"] &= bool(torch.equal(res2[0].to_local(),
+                                                      xb.to_local()))
+            if not row["chunks_bitwise"]:
+                fail(f"{label}: chunks=2 is not bitwise chunks=1")
+            del res, res2, xb
+            if shards == 4 and ci == SHARD_INGEST_CASE:
+                xs = p.shard(x)
+                res = call(lambda: p.fft(xs))
+                record("fft of shard_signals", res, 1 + tail,
+                       coll(v, extra=rows * n * x.element_size() // shards))
+                row["fft_shard_signals"] = err_ratio(res[0].to_local(),
+                                                     ref[r0:r0 + rows])
+                del res, xs
+            print(f"{time.perf_counter():.3f} {label} trace and checks",
+                  file=trace, flush=True)
+            if shards == 4:
+                # the local passes' device time, from a primed trace of the
+                # transposed forward (the other ranks' kernels share the
+                # card meanwhile)
+                dist.barrier()
+                pt.fft(x)
+                torch.cuda.synchronize()
+                acts = [torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    prime()
+                    pt.fft(x)
+                    torch.cuda.synchronize()
+                kern = [e.time_range.elapsed_us() / 1e3
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "block_fft" in e.name and PRIMER not in e.name]
+                row["local_passes_device_ms"] = sum(kern)
+                row["local_passes_traced"] = len(kern)
+            print(f"{time.perf_counter():.3f} {label} traced", file=trace,
+                  flush=True)
+            if shards == 4 and ci in SHARD_CHECKED_CASES:
+                row.update(shard_launch_checks(pen, x, yt.to_local(), d,
+                                               err_ratio))
+            for key in SHARD_ERRORS:
+                if row.get(key, 0) > 1:
+                    fail(f"{label} {key}: error {row[key]:.3f} x tol")
+            out["cases"].append(row)
+            del x, ref, yt
+            torch.cuda.empty_cache()
+    # the main path's launches: those of the calls held to the plan, not
+    # the checks' direct ones nor the traced repeats
+    out["launches"] = sum(c["launches"] for row in out["cases"]
+                          for c in row["calls"].values())
+    return out
+
+
+SHARD_ERRORS = ("fft", "ifft", "fft_transposed", "ifft_transposed_in",
+                "fft_shard_signals", "pass1_vs_plain", "pass2_vs_plain",
+                "passA_vs_plain", "passB_vs_plain")
+
+
+def shard_launch_checks(pen, x, yt_local, d, err_ratio):
+    """Each launch of rank ``d``'s steps at this case's shapes, the kernel
+    against its plain version on the same card tensors: pass 1 (the
+    twiddle of the rank's global columns) on ``x``, every pass of the N2
+    tail in its layout on pass 1's output, pass A's launches (two on a
+    two-pass tail, the second reading the first's output) on this rank's
+    transposed-order block ``yt_local`` (B, N/D), and pass B. Returns the
+    largest error over tolerance of each step."""
+    import torch
+
+    from repro_torch.core.fft import distributed as sd
+    from repro_torch.core.fft.plan import pass_layouts
+    from repro_torch.kernels.stockham import block_fft, block_fft_plain
+
+    b, n = x.shape
+    shards = pen.shards
+
+    def both(launch, src, shape):
+        got = launch(src, torch.zeros(shape, dtype=x.dtype, device=x.device))
+        want = launch(src, torch.zeros_like(got), plain=True)
+        return got, err_ratio(got, want)
+
+    rec = {}
+    src = sd.Source(x.view(-1), d * pen.n2l, n, pen.n2)
+    got, rec["pass1_vs_plain"] = both(
+        pen.pass1_launch(src, b, d, inverse=False), src.flat[src.base:],
+        (shards, pen.n1l, b, pen.n2l))
+    z = got.permute(2, 1, 0, 3).reshape(b * pen.n1l, pen.n2)
+    del got
+    ax = pen.ax2
+    facs = ax.plan.kernel_factors
+    errs = []
+    for i, layout in enumerate(pass_layouts(z.shape[0], facs)):
+        kw = dict(layout=layout, twiddle=None if i == len(facs) - 1
+                  else ax.twiddles[False][i])
+        k = block_fft(z, ax.plan.stages[i], tables=ax.tables[False][i],
+                      out=torch.zeros_like(z), **kw)
+        errs.append(err_ratio(k, block_fft_plain(
+            z, ax.plan.stages[i], out=torch.zeros_like(z), **kw)))
+        del k
+    rec["pass2_vs_plain"] = max(errs)
+    del z
+    row_len, w = pen.n1l * pen.n2, b // shards
+    y = yt_local.contiguous().view(-1)
+    errs = []
+    for launch in pen.pass_a_launches(shards, w * row_len, w, row_len, d):
+        y, e = both(launch, y, (shards, w, pen.n1l, pen.n2))
+        errs.append(e)
+    rec["passA_vs_plain"] = max(errs)
+    rec["passA_launches"] = len(errs)
+    _, rec["passB_vs_plain"] = both(
+        pen.pass_b_launch(w), y.transpose(0, 1).reshape(w, pen.n1, pen.n2),
+        (w, pen.n1, pen.n2))
+    return rec
+
+
+def shard_rank(rank, store, out_dir):
+    """The entry point of one of the four ranks: a gloo group over a file
+    store, the drive, its record written to ``out_dir``."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    trace = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
+    faulthandler.enable(trace)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=SHARD_RANKS)
+    try:
+        res = shard_drive(rank, trace)
+    except Exception:                 # reported by the main process
+        res = {"rank": rank, "failures": [traceback.format_exc()],
+               "cases": [], "launches": 0}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def sharded_phase(dev, cuda_ms):
+    """Phase 13: four gloo ranks on the one card (``shard_rank``), then one
+    NCCL rank in this process. Returns its record; raises on a failure."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.core.fft import FFTSpec, plan
+    from repro_torch.kernels.stockham import block_fft
+    from repro_torch.launch.mesh import make_fft_mesh
+
+    rec = {}
+    out_dir = tempfile.mkdtemp(prefix="shards-", dir=_build_dir())
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank,
+                         args=(r, os.path.join(out_dir, "store"), out_dir))
+             for r in range(SHARD_RANKS)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    deadline = t0 + SHARD_TIMEOUT
+    for proc in procs:
+        proc.join(max(1.0, deadline - time.perf_counter()))
+    alive = [proc for proc in procs if proc.is_alive()]
+    for proc in alive:
+        proc.kill()
+        proc.join()
+    rec["four_ranks_seconds"] = time.perf_counter() - t0
+    check(not alive, f"phase 13: {len(alive)} ranks still ran after "
+          f"{SHARD_TIMEOUT} s")
+    ranks = []
+    for r in range(SHARD_RANKS):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        if not os.path.exists(path):
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                log(f"phase 13 rank {r}'s log ends:\n"
+                    + "".join(f.readlines()[-30:]))
+        check(os.path.exists(path), f"phase 13: rank {r} wrote no record "
+              f"(exit code {procs[r].exitcode})")
+        with open(path) as f:
+            ranks.append(json.load(f))
+    for res in ranks:
+        for msg in res["failures"]:
+            log(f"phase 13 rank {res['rank']}: {msg}")
+    check(all(not res["failures"] for res in ranks),
+          "phase 13: a rank failed (above)")
+    check(all(res["launches"] > 0 for res in ranks),
+          f"phase 13: a rank launched no block_fft: "
+          f"{[res['launches'] for res in ranks]}")
+    for row in ranks[0]["cases"]:
+        calls = {k: (round(c["host_ms"], 1), c["launches"])
+                 for k, c in row["calls"].items()}
+        errs = {k: round(row[k], 4) for k in SHARD_ERRORS if k in row}
+        log(f"  rank 0 {row['case']} (n1 {row['n1']}, n2 {row['n2']}, "
+            f"tail {row['tail']} passes): err/tol {errs}; host ms and "
+            f"launches {calls}; local passes "
+            f"{row.get('local_passes_device_ms', float('nan')):.4f} device "
+            f"ms")
+    rec["ranks"] = ranks
+    rec["launches"] = sum(res["launches"] for res in ranks)
+
+    # (a) one rank on NCCL: make_fft_mesh(1) plans the local transform
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        dtype, logn, b = SHARD_ONE_RANK
+        n = 1 << logn
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + logn + b)
+        x = torch.randn((b, n), dtype=getattr(torch, dtype), device=dev,
+                        generator=gen)
+        mesh = make_fft_mesh(1)
+        p1 = plan(FFTSpec((b, n), dtype=dtype, mesh=mesh))
+        p0 = plan(FFTSpec((b, n), dtype=dtype))
+        check(p1.decomp == "local" and p1.shards == 1,
+              f"phase 13: the one-rank plan is {p1!r}")
+        block_fft.launches = 0
+        y1 = p1.fft(x)
+        torch.cuda.synchronize()
+        one = block_fft.launches
+        check(one == p0.local_plan.num_passes == 2,
+              f"phase 13: the one-rank plan launched {one} block_fft")
+        check(torch.equal(y1, p0.fft(x)),
+              "phase 13: the one-rank plan is not bitwise plan.fft")
+        rec["one_rank"] = {"case": f"{dtype} 2^{logn}x{b}", "launches": one,
+                           "mesh_ms": cuda_ms(lambda: p1.fft(x)),
+                           "plan_ms": cuda_ms(lambda: p0.fft(x)),
+                           "torch_fft_ms": cuda_ms(
+                               lambda: torch.fft.fft(x))}
+        rec["launches"] += one
+        del x, y1
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4634,6 +5058,26 @@ def main() -> int:
         f"{rm['cli_seconds']:.1f} s of it; the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
 
+    # ---- phase 13: the sharded 1-D FFT, counts from its drives only: each
+    # of the four ranks sets its count to 0 before its drive and reports it
+    # after; the one NCCL rank here likewise
+    t13 = time.perf_counter()
+    log(f"phase 13 starts {t13 - t_start:.1f} s into the run ({smi})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(dev, cuda_ms)
+    sharded["device"] = smi
+    sharded["seconds"] = time.perf_counter() - t13
+    one = sharded["one_rank"]
+    log(f"sharded FFT: four gloo ranks on one card took "
+        f"{sharded['four_ranks_seconds']:.1f} s ({sharded['launches']} "
+        f"block_fft launches in all); one NCCL rank, make_fft_mesh(1), "
+        f"{one['case']}: plan.fft on the mesh {one['mesh_ms']:.4f} ms, "
+        f"plan.fft {one['plan_ms']:.4f} ms, torch.fft "
+        f"{one['torch_fft_ms']:.4f} ms ({smi})")
+    log(f"phase 13 took {sharded['seconds']:.1f} s; the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+
     kernels = [
         {"name": "block_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_fft.cu",
@@ -4647,9 +5091,10 @@ def main() -> int:
          "bound_by": blk_bound[1], "library_ms": lib_ms,
          "launches_by_path": {"fft": launches["block_fft"],
                               "extensions": ext_launches["block_fft"],
-                              "serve": serve["launches"]["block_fft"]},
+                              "serve": serve["launches"]["block_fft"],
+                              "sharded": sharded["launches"]},
          "shapes": fft_shapes, "extensions": ext_rows,
-         "axis_layouts": axis_rows, "serve": serve},
+         "axis_layouts": axis_rows, "serve": serve, "sharded": sharded},
         {"name": "abft_fft", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/abft_fft.cu",
          "replaces": "src/repro/kernels/stockham_abft.py:119",

@@ -7,9 +7,16 @@ resolves it ONCE — the stage plan of every transform axis and its stage
 tables uploaded to the device — and hands back an :class:`FFTPlan` whose
 executors (``fft/ifft``, ``fft2/ifft2``, ``rfft/irfft``, ``rfft2/irfft2``,
 ``ft_fft``, ``convolve/correlate``, ``power_spectrum``) run ``kernels.ops``
-on those stage plans and tables. This is the local (single-device) subset
-of ``repro.core.fft.api``; sharded specs raise ``NotImplementedError``
-naming ROADMAP queue 1 item 10, which ports them.
+on those stage plans and tables.
+
+A spec with a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with an
+``fft`` dimension of size > 1) plans the sharded rank-1 transform of
+``core.fft.distributed``: ``fft``/``ifft`` (natural or transposed order,
+``chunks`` transactions, the batch over a ``data`` dimension) and the
+packed ``rfft``/``irfft``, each rank running the pencil pipeline's local
+passes on the block-FFT kernel. Still to port, and raising
+``NotImplementedError``: the sharded ABFT (``ft`` on a mesh, ROADMAP queue 1
+item 10.2) and the n-D, real rank-2 and spectral mesh paths (item 10.3).
 """
 from __future__ import annotations
 
@@ -22,14 +29,16 @@ import torch
 from repro_torch.core import plan as planbase
 from repro_torch.core.plan import FTConfig
 
-from . import extensions, multidim, spectral
+from . import distributed, extensions, multidim, spectral
+from .distributed import _AUTO, FFT_AXIS, mesh_axes, mesh_size
 
 __all__ = ["FFTSpec", "FTConfig", "FFTPlan", "plan", "spec_for",
            "plan_cache_info", "plan_cache_clear", "plan_cache_keys"]
 
 _COMPLEX_DTYPES = {"complex64": torch.complex64,
                    "complex128": torch.complex128}
-_ITEM_10 = "ROADMAP queue 1 item 10 (sharded FFT on torch.distributed)"
+_ITEM_10_2 = distributed._ITEM_10_2
+_ITEM_10_3 = distributed._ITEM_10_3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,17 +59,33 @@ class FFTSpec:
     ``rfft2/irfft2`` (rank 2) executors — the packed half-length
     transforms. Rank 2 and 3 bind ``fft2/ifft2`` (alias ``fftn/ifftn``):
     every power-of-two axis runs the block-FFT kernel, any other length the
-    direct DFT. ``mesh`` raises ``NotImplementedError`` (ROADMAP queue 1
-    item 10).
+    direct DFT.
+
+    ``mesh`` (a ``DeviceMesh`` with an ``axis`` dimension; build it with
+    ``launch.mesh.make_fft_mesh``) selects the sharded pipeline of a rank-1
+    spec when that dimension has more than one rank: the batch shards over
+    ``data_axis`` (auto-detected ``"data"``; None replicates it),
+    ``natural_order=False`` is the FFTW-MPI transposed pairing, and
+    ``chunks`` splits the batch into that many overlapped transactions (0 =
+    auto from the modelled all-to-all bytes; results are bitwise the same
+    for every count). ``decomp`` is the n-D slab/pencil knob (rank >= 2).
+    On a mesh of one ``fft`` rank the plan is the local one. ``ft``, rank
+    2/3 and real rank 2 on a sharded mesh raise ``NotImplementedError``
+    (ROADMAP queue 1 items 10.2 and 10.3).
     """
 
     shape: tuple[int, ...]
     dtype: str = "complex64"
     rank: int = 1
     mesh: object | None = None
+    axis: str = FFT_AXIS
+    data_axis: str | None = _AUTO
+    decomp: str = "auto"
+    natural_order: bool = True
     ft: FTConfig | None = None
     real: bool = False
     device: str = "cuda"
+    chunks: int = 1
 
     def __post_init__(self):
         shape = tuple(int(s) for s in self.shape)
@@ -84,11 +109,42 @@ class FFTSpec:
             raise ValueError(f"FFTSpec.ft must be an FTConfig, "
                              f"got {type(self.ft).__name__}")
         object.__setattr__(self, "device", str(torch.device(self.device)))
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"sharded transforms (FFTSpec.mesh) are not ported yet: "
-                f"{_ITEM_10}")
+        sharded = self._check_mesh()
+        if self.rank == 1:
+            if self.decomp != "auto":
+                raise ValueError(
+                    f"FFTSpec.decomp is a multi-dimensional knob (rank >= "
+                    f"2); rank-1 transforms are always the pencil digit "
+                    f"split — got decomp={self.decomp!r}")
+        elif self.decomp not in ("auto", "slab", "pencil", "local"):
+            raise ValueError(f"FFTSpec.decomp must be auto|slab|pencil|"
+                             f"local, got {self.decomp!r}")
+        if not isinstance(self.chunks, int) or isinstance(self.chunks, bool) \
+                or self.chunks < 0:
+            raise ValueError(
+                f"FFTSpec.chunks must be a non-negative int (0 = auto, 1 = "
+                f"bulk-synchronous, k = k transactions), got "
+                f"{self.chunks!r}")
+        if sharded and self.decomp != "local":
+            if self.ft is not None:
+                raise NotImplementedError(
+                    f"fault-tolerant transforms on a mesh (FFTSpec.ft with "
+                    f"a sharded mesh) are not ported yet: {_ITEM_10_2}")
+            if self.rank != 1:
+                raise NotImplementedError(
+                    f"rank-{self.rank} {'real ' if self.real else ''}"
+                    f"transforms on a mesh are not ported yet: "
+                    f"{_ITEM_10_3}")
+            if len(self.shape) != 2:
+                raise ValueError(
+                    f"a sharded rank-1 plan takes (B, N) operands, got "
+                    f"shape {self.shape} — flatten the batch dims")
         if self.real:
+            if not self.natural_order:
+                raise ValueError(
+                    "real plans are natural-order only — the Hermitian "
+                    "unpack indexes half-spectrum bins by k, which the "
+                    "transposed digit pairing scrambles")
             if self.rank == 3:
                 raise ValueError(
                     "real plans are rank 1 (rfft) or rank 2 (rfft2); rank=3 "
@@ -105,7 +161,36 @@ class FFTSpec:
             raise ValueError(
                 f"fault-tolerant 2-D transforms run the sharded grouped ABFT "
                 f"on the slab transpose: the spec needs a mesh, which is "
-                f"{_ITEM_10}")
+                f"{_ITEM_10_3}")
+
+    def _check_mesh(self) -> bool:
+        """Validate ``mesh``, ``axis`` and ``data_axis``; whether the mesh
+        shards the transform (its ``axis`` dimension has > 1 rank)."""
+        if self.mesh is None:
+            return False
+        names = mesh_axes(self.mesh)
+        if not names or not hasattr(self.mesh, "size"):
+            raise ValueError(
+                f"FFTSpec.mesh must be a torch.distributed DeviceMesh with "
+                f"named dimensions (launch.mesh.make_fft_mesh), got "
+                f"{type(self.mesh).__name__}")
+        if self.axis not in names:
+            raise ValueError(
+                f"FFTSpec.axis {self.axis!r} is not an axis of the mesh "
+                f"{names} — build the mesh with launch.mesh.make_fft_mesh "
+                f"or pass the right axis name")
+        if self.data_axis not in (None, _AUTO) \
+                and self.data_axis not in names:
+            raise ValueError(
+                f"FFTSpec.data_axis {self.data_axis!r} is not an axis of "
+                f"the mesh {names}")
+        mesh_dev = getattr(self.mesh, "device_type", None)
+        if mesh_dev is not None and mesh_dev != torch.device(
+                self.device).type:
+            raise ValueError(
+                f"FFTSpec.device {self.device!r} is not the mesh's device "
+                f"type {mesh_dev!r}")
+        return mesh_size(self.mesh, self.axis) > 1
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -122,19 +207,61 @@ class FFTSpec:
         return math.prod(self.shape[:-self.rank])
 
 
-def spec_for(x, *, rank: int = 1, ft: FTConfig | None = None,
-             real: bool = False, device="cuda") -> FFTSpec:
+def spec_for(x, *, rank: int = 1, mesh=None, axis: str = FFT_AXIS,
+             data_axis: str | None = _AUTO, decomp: str = "auto",
+             natural_order: bool = True, ft: FTConfig | None = None,
+             real: bool = False, chunks: int = 1,
+             device="cuda") -> FFTSpec:
     """Build the :class:`FFTSpec` describing ``x``'s transform on
-    ``device``. On a C2C spec real dtypes map to ``complex64``; on a real
-    spec (``real=True``) the operand's precision is KEPT: ``float64``
-    signals plan a ``complex128`` half spectrum."""
-    x = torch.as_tensor(x)
+    ``device``. With ``mesh=None`` the mesh is inferred from ``x``: a
+    ``DTensor`` laid out over an ``axis`` mesh dimension of size > 1 plans
+    sharded (the auto-dispatch contract of ``kernels.ops``). On a C2C spec
+    real dtypes map to ``complex64``; on a real spec (``real=True``) the
+    operand's precision is KEPT: ``float64`` signals plan a ``complex128``
+    half spectrum."""
+    x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    if mesh is None:
+        from repro_torch.parallel.fft_sharding import infer_fft_mesh
+        mesh = infer_fft_mesh(x, axis)
     dt = x.dtype
     if not x.is_complex():
         dt = (torch.complex128 if real and dt == torch.float64
               else torch.complex64)
     return FFTSpec(shape=tuple(x.shape), dtype=planbase.dtype_name(dt),
-                   rank=rank, ft=ft, real=real, device=str(device))
+                   rank=rank, mesh=mesh, axis=axis, data_axis=data_axis,
+                   decomp=decomp, natural_order=natural_order, ft=ft,
+                   real=real, chunks=chunks, device=str(device))
+
+
+def _feasible_1d(n: int, shards: int) -> bool:
+    """Whether an n-point transform can pencil-split over ``shards``."""
+    return (n > 0 and not (n & (n - 1)) and shards > 0
+            and not (shards & (shards - 1)) and n >= shards * shards)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _on_local(fn, x):
+    """Run the local executor ``fn`` on a ``DTensor`` whose transform axis
+    is whole on each rank (redistributed there first when it is sharded),
+    and return the result with the operand's placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    last = x.dim() - 1
+    pl = [Replicate() if isinstance(p, Shard) and p.dim % x.dim() == last
+          else p for p in x.placements]
+    if pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    y = fn(x.to_local())
+    shape = tuple(x.shape[:-1]) + (y.shape[-1],)
+    return DTensor.from_local(y, x.device_mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.Size(
+                                  distributed._contiguous_strides(shape)))
 
 
 @planbase.register_plan_type(FFTSpec)
@@ -152,6 +279,13 @@ class FFTPlan(planbase.Plan):
     its spectral consumers run. The executors are bound to these, so they
     decide nothing. Construct via :func:`plan` (LRU-cached on the spec),
     not directly.
+
+    On a sharded mesh a rank-1 plan is ``decomp="pencil"``: it resolves
+    the split (``dist_plan``), the batch's data dimension (``daxis``,
+    ``dsize``), the transaction count (``chunks``), the per-rank
+    collective volume (``volume``, the reference's ``collective_volume``)
+    and the placements of its operands, and binds the pencil pipeline's
+    per-shard steps (``pencil``: stage and twiddle tables on the device).
     """
 
     def __init__(self, spec: FFTSpec):
@@ -165,6 +299,16 @@ class FFTPlan(planbase.Plan):
         self.device = planbase.resolve_device(spec.device, "FFTSpec")
         self.decomp = "local"
         self.groups = None
+        mesh = distributed._resolve_mesh(spec.mesh, spec.axis)
+        self.sharded = (mesh is not None and spec.decomp != "local"
+                        and mesh_size(mesh, spec.axis) > 1)
+        self.mesh = mesh if self.sharded else None
+        self.shards = mesh_size(mesh, spec.axis) if self.sharded else 1
+        self.daxis = (distributed._resolve_data_axis(mesh, spec.data_axis)
+                      if self.sharded else None)
+        self.dsize = mesh_size(mesh, self.daxis) if self.daxis else 1
+        self.chunks = 1
+        self.dist_plan = self.volume = self.pencil = None
         self._rdtype = multidim._real_of(spec.torch_dtype)
         self._fwd = self._inv = None      # C2C executors (None: none bound)
         if spec.real:
@@ -184,7 +328,91 @@ class FFTPlan(planbase.Plan):
                               twiddles=ax.twiddles[inv], inverse=inv)
             for inv in (False, True))
 
+    def _model_dsize(self) -> int:
+        """The data-shard count the pipeline uses: the batch must divide
+        over the data dimension, else it replicates."""
+        if self.dsize <= 1 or self.batch % self.dsize:
+            return 1
+        return self.dsize
+
+    def _resolve_sharded(self, n: int, *, real: bool = False):
+        """Resolve the pencil split of an ``n``-point transform (the packed
+        half length of a real one): ``dist_plan``, ``chunks`` (auto from
+        the modelled all-to-all bytes when 0), ``volume`` and the
+        per-shard steps. The real transforms themselves run as one
+        transaction: their ``volume`` models one, and ``chunks`` is kept
+        for the spectral consumers, as the reference does."""
+        spec = self.spec
+        self.decomp = "pencil"
+        m = n // 2 if real else n
+        self.dist_plan = distributed.make_dist_plan(m, self.shards,
+                                                    spec.axis)
+        dsz = self._model_dsize()
+        kw = dict(itemsize=spec.torch_dtype.itemsize, data_shards=dsz,
+                  natural_order=spec.natural_order, real=real)
+        batch = max(self.batch, 1)
+        rows = batch // dsz
+        requested = spec.chunks or distributed.choose_chunks(
+            distributed.collective_volume(n, batch, self.shards,
+                                          **kw)["all_to_all_bytes"], rows)
+        self.chunks = distributed.resolve_chunks(rows, requested)
+        self.volume = distributed.collective_volume(
+            n, batch, self.shards, chunks=1 if real else self.chunks, **kw)
+        from repro_torch.kernels.stockham import device_key
+        self.pencil = distributed.pencil(m, self.shards, spec.torch_dtype,
+                                         device_key(self.device))
+
+    def _mesh_view(self):
+        return distributed._Mesh.of(self.mesh, self.spec.axis, self.daxis)
+
+    def _sharded_c2c(self, x, *, inverse: bool):
+        """The pencil pipeline on this rank (``x`` the global (B, N) value
+        or a DTensor); a DTensor result."""
+        return distributed.sharded(x, self.pencil, self._mesh_view(),
+                                   inverse=inverse,
+                                   natural_order=self.spec.natural_order,
+                                   chunks=self.chunks)
+
+    def _replicated_local(self, x):
+        """``x``'s global value on this rank (a DTensor is replicated
+        first): the real executors pack and unpack whole rows."""
+        from torch.distributed.tensor import Replicate
+
+        if _is_dtensor(x):
+            x = x.redistribute(x.device_mesh,
+                               [Replicate()] * x.device_mesh.ndim)
+            x = x.to_local()
+        return x
+
+    def _sharded_rfft(self, x):
+        """Packed rfft on the mesh: the half-length C2C rides the pencil
+        pipeline (natural order), the Hermitian unpack is local on the
+        gathered rows."""
+        cc = x.shape[-1]
+        z = multidim._pack(self._replicated_local(x))
+        zf = distributed.sharded(z, self.pencil, self._mesh_view(),
+                                 inverse=False, natural_order=True, chunks=1)
+        return _with_local(zf, multidim._unpack_half(zf.to_local(), cc))
+
+    def _sharded_irfft(self, y):
+        """Packed irfft on the mesh: the local repack, then the
+        half-length inverse on the pencil pipeline (natural order, 1/h in
+        its first pass); the interleave of each rank's rows is a view."""
+        h = y.shape[-1] - 1
+        z = multidim._combine(self._replicated_local(y), 2 * h,
+                              inverse=True)
+        zt = distributed.sharded(z, self.pencil, self._mesh_view(),
+                                 inverse=True, natural_order=True, chunks=1)
+        loc = zt.to_local()
+        return _with_local(zt, torch.view_as_real(loc).reshape(
+            loc.shape[:-1] + (2 * h,)))
+
     def _build_c2c(self, ops):
+        if self.rank == 1 and self.sharded:
+            self._resolve_sharded(self.tshape[0])
+            self._fwd = functools.partial(self._sharded_c2c, inverse=False)
+            self._inv = functools.partial(self._sharded_c2c, inverse=True)
+            return
         if self.rank == 1:
             n = self.tshape[0]
             ax = self._axis(ops, n, batch=self.batch)
@@ -207,6 +435,13 @@ class FFTPlan(planbase.Plan):
         (plus the full-length C2C of the spectral consumers), rank 2
         ``multidim._local_rfft2/_local_irfft2``."""
         cc = self.tshape[-1]
+        if self.rank == 1 and self.sharded and cc % 2 == 0 \
+                and _feasible_1d(cc // 2, self.shards):
+            self._resolve_sharded(cc, real=True)
+            self.axes = ()
+            self._rfwd = self._sharded_rfft
+            self._rinv = self._sharded_irfft
+            return
         half = self._axis(ops, cc // 2) if cc % 2 == 0 else None
         if self.rank == 1:
             self.axes = (half,)
@@ -228,14 +463,21 @@ class FFTPlan(planbase.Plan):
         """Match the plan's dtype and device: a C2C plan coerces real
         inputs to its complex dtype (the legacy contract); a real plan
         REJECTS complex operands and casts to its real precision."""
-        x = torch.as_tensor(x)
+        x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
         if self.spec.real:
             if x.is_complex():
                 raise ValueError(
                     f"a real plan takes a real operand, got {x.dtype} — "
                     f"build a C2C FFTSpec (real=False) for complex signals")
-            return x.to(device=self.device, dtype=self._rdtype)
-        return x.to(device=self.device, dtype=self.spec.torch_dtype)
+            dtype = self._rdtype
+        else:
+            dtype = self.spec.torch_dtype
+        if _is_dtensor(x):
+            if x.device.type != self.device.type:
+                raise ValueError(f"the operand lives on {x.device.type}, "
+                                 f"the plan on {self.device.type}")
+            return x if x.dtype == dtype else x.to(dtype)
+        return x.to(device=self.device, dtype=dtype)
 
     def _check_tshape(self, x):
         if tuple(x.shape[-self.rank:]) != self.tshape:
@@ -243,6 +485,34 @@ class FFTPlan(planbase.Plan):
                 f"operand transform axes {tuple(x.shape[-self.rank:])} do "
                 f"not match the planned {self.tshape} — build a new "
                 f"FFTSpec (plans are shape-specialized, like cufftPlanMany)")
+        if self.decomp == "pencil" \
+                and tuple(x.shape[:-1]) != self.spec.shape[:-1]:
+            raise ValueError(
+                f"operand shape {tuple(x.shape)} does not match the "
+                f"sharded plan's {self.spec.shape} — build a new FFTSpec")
+
+    def _run(self, fn, x):
+        """``fn`` on ``x``: straight on a tensor and on a sharded plan; a
+        local plan takes a DTensor's local rows and keeps its placements."""
+        if _is_dtensor(x) and self.decomp == "local":
+            return _on_local(fn, x)
+        return fn(x)
+
+    def shard(self, x):
+        """Place ``x`` into the plan's input layout (a no-op on an
+        unsharded plan): :func:`~repro_torch.parallel.fft_sharding
+        .shard_signals`, a contiguous block of N on each ``fft`` rank."""
+        x = self._coerce(x)
+        if self.decomp == "local":
+            return x
+        from repro_torch.parallel.fft_sharding import shard_signals
+        return shard_signals(x, self.mesh, self.spec.axis,
+                             data_axis=self.daxis)
+
+    def _local_only(self, what: str):
+        if self.decomp == "pencil":
+            raise NotImplementedError(
+                f"{what} on a mesh is not ported yet: {_ITEM_10_3}")
 
     def _c2c_only(self):
         if self.spec.real:
@@ -262,15 +532,16 @@ class FFTPlan(planbase.Plan):
         self._c2c_only()
         x = self._coerce(x)
         self._check_tshape(x)
-        return self._fwd(x)
+        return self._run(self._fwd, x)
 
     def ifft(self, x):
         """Inverse transform (1/N normalized, N the product of the planned
-        axes)."""
+        axes); a sharded transposed-order plan consumes the forward's
+        transposed-digit output (TRANSPOSED_IN)."""
         self._c2c_only()
         x = self._coerce(x)
         self._check_tshape(x)
-        return self._inv(x)
+        return self._run(self._inv, x)
 
     # rank-2/3 spellings (same executors; the rank lives in the spec)
     def fft2(self, x):
@@ -293,22 +564,26 @@ class FFTPlan(planbase.Plan):
         self._real_only()
         x = self._coerce(x)
         self._check_tshape(x)
-        return self._rfwd(x)
+        return self._run(self._rfwd, x)
 
     def irfft(self, y):
         """Inverse of :meth:`rfft`: half spectrum -> the planned real
         shape. The spectrum's transform axes must be the planned shape's
         Hermitian half (``last axis -> n//2 + 1`` bins)."""
         self._real_only()
-        y = torch.as_tensor(y)
+        y = y if isinstance(y, torch.Tensor) else torch.as_tensor(y)
         want = self.tshape[:-1] + (self.tshape[-1] // 2 + 1,)
         if tuple(y.shape[-self.rank:]) != want:
             raise ValueError(
                 f"half-spectrum axes {tuple(y.shape[-self.rank:])} do not "
                 f"match the planned {want} (the Hermitian half of "
                 f"{self.tshape}) — build a new FFTSpec")
-        return self._rinv(y.to(device=self.device,
-                               dtype=self.spec.torch_dtype))
+        dtype = self.spec.torch_dtype
+        if not _is_dtensor(y):
+            y = y.to(device=self.device, dtype=dtype)
+        elif y.dtype != dtype:
+            y = y.to(dtype)
+        return self._run(self._rinv, y)
 
     # rank-2 spellings (same executors; the rank lives in the spec)
     def rfft2(self, x):
@@ -349,6 +624,7 @@ class FFTPlan(planbase.Plan):
         """``a`` and ``v`` on the plan's device, in its real precision when
         both are real (the packed path) and its complex one otherwise;
         and whether they are both real."""
+        self._local_only("the spectral consumers (convolve, correlate)")
         a = torch.as_tensor(a)
         v = torch.as_tensor(v)
         _, real = spectral._result_dtypes(a, v)
@@ -414,6 +690,7 @@ class FFTPlan(planbase.Plan):
         """Periodogram ``|X|^2 / N`` over the planned axes (natural
         order). A real plan returns the one-sided ``N/2+1``-bin spectrum
         via the packed rfft."""
+        self._local_only("power_spectrum")
         if self.spec.real:
             y = self.rfft(x)
         else:
@@ -426,7 +703,20 @@ class FFTPlan(planbase.Plan):
         s = self.spec
         return (f"FFTPlan(shape={s.shape}, dtype={s.dtype}, rank={s.rank}, "
                 f"real={s.real}, decomp={self.decomp!r}, "
+                f"shards={self.shards}, chunks={self.chunks}, "
                 f"device={str(self.device)!r}, ft={s.ft is not None})")
+
+
+def _with_local(like, local: torch.Tensor):
+    """A DTensor of ``local`` with ``like``'s mesh and placements (its
+    global shape from ``like``'s leading dims and ``local``'s last)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(like.shape[:-1]) + (local.shape[-1],)
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.Size(
+                                  distributed._contiguous_strides(shape)))
 
 
 def plan(spec: FFTSpec) -> FFTPlan:

@@ -29,6 +29,7 @@ import dataclasses
 
 import torch
 
+from .distributed import _AUTO, FFT_AXIS
 from .multidim import _complex_of, _irfft_cols, _irfft_odd, _rfft_cols
 from .stockham import naive_dft
 
@@ -53,30 +54,46 @@ def _irfft(y: torch.Tensor, half, *, n: int) -> torch.Tensor:
     return _irfft_cols(y, half)
 
 
-def rfft(x, *, device="cuda") -> torch.Tensor:
+def rfft(x, *, mesh=None, axis: str = FFT_AXIS,
+         data_axis: str | None = _AUTO, device="cuda") -> torch.Tensor:
     """Real-input FFT over the last axis -> (..., N/2+1) half spectrum, on
     ``device``: a rank-1 real plan (float64 keeps complex128). Odd lengths
-    run the direct DFT and crop to the ``n//2 + 1`` bins."""
+    run the direct DFT and crop to the ``n//2 + 1`` bins.
+
+    ``mesh`` (inferred from a DTensor operand when omitted) runs the
+    packed half-length C2C transform on the pencil pipeline over its
+    ``axis`` dimension, the batch over ``data_axis``; the Hermitian unpack
+    stays local on the gathered rows. A (B, N) operand; the result is a
+    DTensor replicated over ``axis``. Sizes the pencil cannot split run
+    locally."""
     from . import api
 
-    x = torch.as_tensor(x)
+    x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
     if x.shape[-1] == 0:
         raise ValueError("rfft: empty signal axis (n=0) has no spectrum")
-    return api.plan(api.spec_for(x, real=True, device=device)).rfft(x)
+    return api.plan(api.spec_for(x, real=True, mesh=mesh, axis=axis,
+                                 data_axis=data_axis,
+                                 device=device)).rfft(x)
 
 
-def irfft(y, n: int | None = None, *, device="cuda") -> torch.Tensor:
+def irfft(y, n: int | None = None, *, mesh=None, axis: str = FFT_AXIS,
+          data_axis: str | None = _AUTO, device="cuda") -> torch.Tensor:
     """Inverse of :func:`rfft`: (..., bins) half spectrum -> (..., n) real.
 
     Even ``n`` (default ``2*(bins-1)``) reconstructs the ``2*(bins-1)``-point
     signal and truncates it to ``n`` samples; an even ``n`` above
     ``2*(bins-1)`` raises. Odd ``n`` crops to the ``(n+1)//2`` bins an
     odd-length real signal has (numpy's convention) and inverts exactly by
-    the direct DFT.
+    the direct DFT. ``mesh``, ``axis`` and ``data_axis`` as :func:`rfft`:
+    the half-length inverse rides the pencil pipeline (odd ``n`` runs
+    locally).
     """
     from . import api
 
-    y = torch.as_tensor(y)
+    y = y if isinstance(y, torch.Tensor) else torch.as_tensor(y)
+    if mesh is None:
+        from repro_torch.parallel.fft_sharding import infer_fft_mesh
+        mesh = infer_fft_mesh(y, axis)
     bins = y.shape[-1]
     if bins == 0:
         raise ValueError("irfft: empty spectrum (0 bins)")
@@ -94,6 +111,8 @@ def irfft(y, n: int | None = None, *, device="cuda") -> torch.Tensor:
         # one sample: the spectrum is just the (real) DC bin
         return y[..., :1].to(device=device, dtype=dtype).real
     if n % 2:
+        mesh = None                    # the direct DFT runs locally
+    if n % 2:
         full = n
         m = (n + 1) // 2   # bins of an odd-length real signal
         if bins < m:
@@ -108,7 +127,8 @@ def irfft(y, n: int | None = None, *, device="cuda") -> torch.Tensor:
                 f"samples, got n={n} — pass n <= {full} or a longer "
                 f"spectrum")
     spec = api.FFTSpec(shape=tuple(y.shape[:-1]) + (full,), dtype=dtype,
-                       real=True, device=str(device))
+                       real=True, mesh=mesh, axis=axis, data_axis=data_axis,
+                       device=str(device))
     out = api.plan(spec).irfft(y)
     return out if n == full else out[..., :n]
 

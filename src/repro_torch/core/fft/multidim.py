@@ -2,7 +2,7 @@
 real-input rfft2/irfft2, and 2-D convolution.
 
 The local part of ``repro.core.fft.multidim``; its slab and pencil mesh
-decompositions are ROADMAP queue 1 item 10 (``fft_convolve2(mesh=...)``
+decompositions are ROADMAP queue 1 item 10.3 (``fft_convolve2(mesh=...)``
 raises). Every transform axis is bound by the plan to an
 :class:`~repro_torch.kernels.ops.AxisFFT` (its stage plan and device
 tables), or to ``None`` when its length is not a power of two:
@@ -263,11 +263,12 @@ def fft_convolve2(a, v, mesh=None, *, mode: str = "full",
     pipeline (a rank-2 real plan: rfft over the columns, one strided launch
     over the rows); otherwise the complex rank-2 plan. Sugar over
     ``plan(FFTSpec(..., rank=2)).convolve``. ``mesh`` is ROADMAP queue 1
-    item 10 and raises.
+    item 10.3 and raises.
     """
     from . import api
-    from .spectral import _result_dtypes
+    from .spectral import _no_mesh, _result_dtypes
 
+    _no_mesh(mesh, "fft_convolve2")
     a = torch.as_tensor(a)
     v = torch.as_tensor(v)
     if a.dim() < 2 or v.dim() < 2:

@@ -9,14 +9,23 @@ riding the imaginary part. Correlation of real operands is the same trick
 on the circularly reversed kernel.
 
 The reference's mesh pipelines (transposed digit order, two all-to-alls)
-are ROADMAP queue 1 item 10: ``mesh=`` raises there.
+are ROADMAP queue 1 item 10.3: ``mesh=`` raises there.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .distributed import _ITEM_10_3
+
 __all__ = ["fft_convolve", "correlate", "power_spectrum", "conv_spec"]
+
+
+def _no_mesh(mesh, what: str) -> None:
+    """The spectral consumers run locally: a ``mesh`` raises."""
+    if mesh is not None:
+        raise NotImplementedError(f"{what} on a mesh is not ported yet: "
+                                  f"{_ITEM_10_3}")
 
 
 def _next_pow2(n: int) -> int:
@@ -94,6 +103,7 @@ def conv_spec(a, v, mesh=None, *, device="cuda"):
     once and reuse ``plan(spec).convolve/correlate``."""
     from . import api
 
+    _no_mesh(mesh, "conv_spec")
     a = torch.as_tensor(a)
     v = torch.as_tensor(v)
     cdtype, real = _result_dtypes(a, v)
@@ -110,8 +120,8 @@ def fft_convolve(a, v, mesh=None, *, mode: str = "full",
     dims; ``v`` is one kernel ``(Lv,)`` shared by the whole batch or a
     per-signal batch matching ``a``'s leading dims. Real inputs give a real
     result through one packed transform pair. Sugar over
-    ``plan(conv_spec(a, v)).convolve``; ``mesh`` is ROADMAP queue 1 item 10
-    and raises."""
+    ``plan(conv_spec(a, v)).convolve``; ``mesh`` is ROADMAP queue 1 item
+    10.3 and raises."""
     from . import api
 
     return api.plan(conv_spec(a, v, mesh, device=device)).convolve(
@@ -140,6 +150,7 @@ def power_spectrum(x, mesh=None, *, real: bool = False,
     spectrum ``|X[k]|^2 / N`` for ``k <= N/2``."""
     from . import api
 
+    _no_mesh(mesh, "power_spectrum")
     x = torch.as_tensor(x)
     if real and x.is_complex():
         raise ValueError(f"power_spectrum(real=True) takes a real input, "

@@ -12,8 +12,11 @@
 // stride; the last axis is the fastest) and a point stride on each side.
 // Each signal is read once, transformed through the plan's stages, times
 // `scale`, times the optional pass twiddle w_M^(k * i) (k the output point,
-// i the signal's index along the fastest axis, M = N * that axis's count),
-// and written once. A P-pass transform is P such launches with no other
+// i = offset + the signal's index along the fastest axis + mid_step * its
+// index along the axis before it; M = 2^tw_log_m, by default N * the
+// fastest axis's count with offset = mid_step = 0), and written once. The
+// offset and mid_step let one pass of a pencil-sharded transform apply the
+// twiddle of its global columns: w_Ntotal^(k1 * (shard offset + column)). A P-pass transform is P such launches with no other
 // work between them (repro_torch.core.fft.plan.pass_layouts gives the
 // layouts); a single pass is one signal axis of contiguous rows.
 //
@@ -71,6 +74,7 @@ __global__ void __launch_bounds__(kMaxThreads, Traits<V>::kMinBlocks)
 block_fft_kernel(const V* x, V* y, const V* __restrict__ tables,
                  const V* __restrict__ tw, Desc d, int log_n, int nst,
                  unsigned long long logr, int log_l, unsigned mask_m,
+                 long long tw_off, long long tw_mid,
                  typename Traits<V>::R scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   V* s = reinterpret_cast<V*>(smem_raw);
@@ -84,6 +88,7 @@ block_fft_kernel(const V* x, V* y, const V* __restrict__ tables,
   const long long i0 = rest / d.cnt[1];
   const long long ibase = i0 * d.in[0] + i1 * d.in[1] + i2 * d.in[2];
   const long long obase = i0 * d.out[0] + i1 * d.out[1] + i2 * d.out[2];
+  const long long fast0 = i2 + tw_off + i1 * tw_mid;   // the twiddle's index
   const int tile = d.sigs << log_n;
 
   // complex128 rows: the first stage reads them itself
@@ -150,14 +155,14 @@ block_fft_kernel(const V* x, V* y, const V* __restrict__ tables,
     __syncthreads();
   }
   store_tile<V, FAST>(y, s, d, obase, nsig, log_n, scale, tw, log_l, mask_m,
-                      i2);
+                      fast0);
 }
 
 template <typename V, bool INV, bool FAST, bool DIRECT>
 int launch(const void* x, void* y, const void* tables, const void* tw,
            const long long* packed, int log_n, int nst,
-           unsigned long long logr, int tw_log_m, double scale,
-           void* stream) {
+           unsigned long long logr, int tw_log_m, long long tw_off,
+           long long tw_mid, double scale, void* stream) {
   Desc d;
   for (int a = 0; a < 3; ++a) {
     d.cnt[a] = packed[a];
@@ -189,42 +194,44 @@ int launch(const void* x, void* y, const void* tables, const void* tw,
       tw_log_m >= 32 ? 0xffffffffu : (unsigned)((1ull << tw_log_m) - 1);
   kernel<<<(unsigned)grid, threads, smem, (cudaStream_t)stream>>>(
       (const V*)x, (V*)y, (const V*)tables, (const V*)tw, d, log_n, nst, logr,
-      log_l, mask_m, (typename Traits<V>::R)scale);
+      log_l, mask_m, tw_off, tw_mid, (typename Traits<V>::R)scale);
   return (int)cudaGetLastError();
 }
 
 template <typename V, bool INV>
 int launch_fast(const void* x, void* y, const void* tables, const void* tw,
                 const long long* desc, int log_n, int nst,
-                unsigned long long logr, int tw_log_m, double scale,
-                void* stream) {
+                unsigned long long logr, int tw_log_m, long long tw_off,
+                long long tw_mid, double scale, void* stream) {
   // Rows in (point stride 1) and more than one stage: the first stage
   // reads them itself; complex64 needs its 16-byte pairs aligned.
   const bool direct = desc[9] == 1 && nst >= 2
                       && (std::is_same<V, double2>::value || desc[14]);
   return direct ? launch<V, INV, true, true>(x, y, tables, tw, desc, log_n,
-                                             nst, logr, tw_log_m, scale,
-                                             stream)
+                                             nst, logr, tw_log_m, tw_off,
+                                             tw_mid, scale, stream)
                 : launch<V, INV, true, false>(x, y, tables, tw, desc, log_n,
-                                              nst, logr, tw_log_m, scale,
-                                              stream);
+                                              nst, logr, tw_log_m, tw_off,
+                                              tw_mid, scale, stream);
 }
 
 template <typename V>
 int dispatch(const void* x, void* y, const void* tables, const void* tw,
              const long long* desc, int log_n, int nst,
              unsigned long long logr, int inverse, int fast, int tw_log_m,
-             double scale, void* stream) {
+             long long tw_off, long long tw_mid, double scale, void* stream) {
   if (fast) {
     return inverse ? launch_fast<V, true>(x, y, tables, tw, desc, log_n, nst,
-                                          logr, tw_log_m, scale, stream)
+                                          logr, tw_log_m, tw_off, tw_mid,
+                                          scale, stream)
                    : launch_fast<V, false>(x, y, tables, tw, desc, log_n,
-                                           nst, logr, tw_log_m, scale,
-                                           stream);
+                                           nst, logr, tw_log_m, tw_off,
+                                           tw_mid, scale, stream);
   }
   // the generic stages take the direction from the tables
   return launch<V, false, false, false>(x, y, tables, tw, desc, log_n, nst,
-                                        logr, tw_log_m, scale, stream);
+                                        logr, tw_log_m, tw_off, tw_mid, scale,
+                                        stream);
 }
 
 }  // namespace blockfft
@@ -237,25 +244,31 @@ extern "C" {
 // strides in and out, signals in all, signals per CTA and its log2, and the
 // 16-byte-access flags for input and output. tables: the plan's flat stage
 // table in this direction; tw: the pass twiddle table (lo then hi) of
-// M = 2^tw_log_m, or null. fast: every radix <= 16. Returns the CUDA error
-// code of the launch (0 on success).
+// M = 2^tw_log_m, or null; tw_off and tw_mid: the twiddle index of a signal
+// is tw_off + its fastest-axis index + tw_mid * its middle-axis index.
+// fast: every radix <= 16. Returns the CUDA error code of the launch (0 on
+// success).
 int block_fft_c64(const void* x, void* y, const void* tables, const void* tw,
                   const long long* desc, int log_n, int nst,
                   unsigned long long logr, int inverse, int fast,
-                  int tw_log_m, double scale, void* stream) {
+                  int tw_log_m, long long tw_off, long long tw_mid,
+                  double scale, void* stream) {
   return turbofft::blockfft::dispatch<float2>(x, y, tables, tw, desc, log_n,
                                               nst, logr, inverse, fast,
-                                              tw_log_m, scale, stream);
+                                              tw_log_m, tw_off, tw_mid, scale,
+                                              stream);
 }
 
 // As block_fft_c64 for complex128 (the 16-byte flags are ignored).
 int block_fft_c128(const void* x, void* y, const void* tables, const void* tw,
                    const long long* desc, int log_n, int nst,
                    unsigned long long logr, int inverse, int fast,
-                   int tw_log_m, double scale, void* stream) {
+                   int tw_log_m, long long tw_off, long long tw_mid,
+                   double scale, void* stream) {
   return turbofft::blockfft::dispatch<double2>(x, y, tables, tw, desc, log_n,
                                                nst, logr, inverse, fast,
-                                               tw_log_m, scale, stream);
+                                               tw_log_m, tw_off, tw_mid,
+                                               scale, stream);
 }
 
 }  // extern "C"

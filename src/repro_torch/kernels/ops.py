@@ -18,6 +18,9 @@
 The entry points build (or LRU-hit) the :class:`~repro_torch.core.fft.api
 .FFTPlan` for the operand and run its executor on the spec's device
 (``"cuda"`` by default; ``device="cpu"`` runs the kernels' plain versions).
+A ``DTensor`` operand on a mesh with an ``fft`` dimension of more than one
+rank plans the sharded transform (``core.fft.distributed``), the
+reference's auto-dispatch.
 """
 from __future__ import annotations
 
@@ -123,16 +126,16 @@ class AxisFFT:
     twiddles: dict
 
 
-def axis_fft(n: int, dtype: torch.dtype, device, *,
-             batch: int = 1) -> AxisFFT | None:
+def axis_fft(n: int, dtype: torch.dtype, device, *, batch: int = 1,
+             plan: Plan | None = None) -> AxisFFT | None:
     """Upload the stage and pass-twiddle tables of an ``n``-point axis to
     ``device`` (each table once per process: they are cached by stages,
-    dtype, direction and device) and bundle them with the stage plan of
-    ``make_plan(n, batch)``. ``None`` when ``n`` is not a power of two: such
-    an axis runs the direct DFT."""
+    dtype, direction and device) and bundle them with ``plan``, by default
+    the stage plan of ``make_plan(n, batch)``. ``None`` when ``n`` is not
+    a power of two: such an axis runs the direct DFT."""
     if not _is_pow2(n):
         return None
-    p = make_plan(n, batch=batch)
+    p = make_plan(n, batch=batch) if plan is None else plan
     facs = p.kernel_factors
     return AxisFFT(
         plan=p,
@@ -193,7 +196,8 @@ def _as_complex(x) -> torch.Tensor:
 
 def fft(x, *, device="cuda") -> torch.Tensor:
     """TurboFFT forward transform over the last axis (complex in/out), on
-    ``device``: builds (or LRU-hits) the plan for the operand and runs it."""
+    ``device``: builds (or LRU-hits) the plan for the operand and runs it
+    (sharded when ``x`` is a DTensor laid out over an ``fft`` mesh)."""
     x = _as_complex(x)
     return fft_api.plan(fft_api.spec_for(x, rank=1, device=device)).fft(x)
 

@@ -35,7 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     f"block_fft_{s}": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_ulonglong, _I,
-                       _I, _I, ctypes.c_double, _P)
+                       _I, _I, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_double, _P)
     for s in ("c64", "c128")
 }
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
@@ -131,20 +132,47 @@ def _twiddle_split(m: int) -> tuple[int, int]:
     return log_m, (log_m + 1) // 2
 
 
+def _twiddle_m(n: int, layout: PassLayout, m: int | None) -> int:
+    """The pass twiddle's M: ``m``, by default N times the fastest axis's
+    count; a power of two either way."""
+    m = n * layout.fast_count if m is None else int(m)
+    if m <= 0 or m & (m - 1):
+        raise ValueError(f"the pass twiddle's M must be a power of two, "
+                         f"got {m}")
+    return m
+
+
+def _twiddle_index(layout: PassLayout, offset: int,
+                   mid_step: int) -> torch.Tensor:
+    """Each signal's pass twiddle index, over the layout's signal axes:
+    ``offset`` + its index along the fastest axis + ``mid_step`` times its
+    index along the axis before it."""
+    counts = tuple(a[0] for a in layout.axes)
+    idx = torch.arange(counts[-1]) + offset
+    if mid_step and len(counts) > 1:
+        idx = idx + mid_step * torch.arange(counts[-2])[:, None]
+    return idx.expand(counts)
+
+
 def block_fft_plain(x: torch.Tensor, stages: Sequence[StagePlan], *,
                     inverse: bool = False, scale: float = 1.0,
                     layout: PassLayout | None = None,
                     twiddle: torch.Tensor | None = None,
+                    m: int | None = None, offset: int = 0,
+                    mid_step: int = 0,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch version of the kernel: ``scale`` times the unnormalized
     transform of each row of ``x`` through ``stages``. With ``layout``, the
     signals are strided views of ``x``'s storage and the result is written
     through the output strides into ``out`` (a new tensor like ``x`` when
-    omitted), each point k of the signal at index i of the fastest axis
-    times the pass twiddle ``w_M^(k*i)`` when ``twiddle`` is given."""
+    omitted), each point k of a signal times the pass twiddle ``w_M^(k*i)``
+    when ``twiddle`` is given: i is ``offset`` + the signal's index along
+    the fastest axis + ``mid_step`` times its index along the axis before
+    it, and M is ``m`` (by default N times the fastest axis's count)."""
     if layout is None:
         y = fft_stages(x, stages, inverse=inverse)
-        return y if scale == 1.0 else y * scale
+        y = y if scale == 1.0 else y * scale
+        return y if out is None else out.copy_(y)
     n = math.prod(st.radix for st in stages)
     counts = tuple(a[0] for a in layout.axes)
     src = torch.as_strided(x, counts + (n,),
@@ -154,9 +182,9 @@ def block_fft_plain(x: torch.Tensor, stages: Sequence[StagePlan], *,
     if scale != 1.0:
         y = y * scale
     if twiddle is not None:
-        log_m, log_l = _twiddle_split(n * layout.fast_count)
-        e = (torch.arange(layout.fast_count)[:, None]
-             * torch.arange(n)[None, :]) & ((1 << log_m) - 1)
+        log_m, log_l = _twiddle_split(_twiddle_m(n, layout, m))
+        e = (_twiddle_index(layout, offset, mid_step)[..., None]
+             * torch.arange(n)) & ((1 << log_m) - 1)
         e = e.to(twiddle.device)
         y = y * (twiddle[e & ((1 << log_l) - 1)]
                  * twiddle[(1 << log_l) + (e >> log_l)])
@@ -249,6 +277,7 @@ def block_fft(x: torch.Tensor, stages: Sequence[StagePlan], *,
               tables: torch.Tensor | None = None,
               layout: PassLayout | None = None,
               twiddle: torch.Tensor | None = None,
+              m: int | None = None, offset: int = 0, mid_step: int = 0,
               out: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of the block FFT through ``stages``, times ``scale``.
 
@@ -257,13 +286,18 @@ def block_fft(x: torch.Tensor, stages: Sequence[StagePlan], *,
     written through its output strides into ``out`` (which may be ``x``
     itself when the layout reads and writes the same places; a new tensor
     like ``x`` when omitted), times the pass twiddle ``twiddle`` (a
-    :func:`pass_twiddle_table` of M = N * the fastest axis's count) when
-    given. CUDA tensor: the kernel; CPU tensor: the plain version.
+    :func:`pass_twiddle_table` of M = ``m``, by default N * the fastest
+    axis's count) when given: point k of a signal times ``w_M^(k*i)``, i =
+    ``offset`` + the signal's fastest-axis index + ``mid_step`` * its index
+    along the axis before that (a shard's pass over its columns of a
+    larger transform). CUDA tensor: the kernel; CPU tensor: the plain
+    version.
     ``tables`` is the :func:`stage_tables` of ``stages`` in this direction
     as an FFT plan keeps them (looked up when omitted)."""
     if x.device.type == "cpu":
         return block_fft_plain(x, stages, inverse=inverse, scale=scale,
-                               layout=layout, twiddle=twiddle, out=out)
+                               layout=layout, twiddle=twiddle, m=m,
+                               offset=offset, mid_step=mid_step, out=out)
     if x.device.type != "cuda":
         raise ValueError(f"block_fft runs on cuda (kernel) or cpu (plain "
                          f"version), got a {x.device.type} tensor")
@@ -298,7 +332,7 @@ def block_fft(x: torch.Tensor, stages: Sequence[StagePlan], *,
     _check_tables(tables, x)
     tw_log_m, tw_ptr = 0, None
     if twiddle is not None:
-        tw_log_m, log_l = _twiddle_split(n * layout.fast_count)
+        tw_log_m, log_l = _twiddle_split(_twiddle_m(n, layout, m))
         if twiddle.numel() != (1 << log_l) + (1 << (tw_log_m - log_l)):
             raise ValueError(f"the pass twiddle has {twiddle.numel()} "
                              f"entries, not those of M = 2^{tw_log_m}")
@@ -307,7 +341,7 @@ def block_fft(x: torch.Tensor, stages: Sequence[StagePlan], *,
     fn = _kernel(x.dtype)
     args = (x.data_ptr(), out.data_ptr(), tables.data_ptr(), tw_ptr,
             ctypes.addressof(desc), log_n, nst, logr, int(inverse),
-            int(fast), tw_log_m, float(scale))
+            int(fast), tw_log_m, int(offset), int(mid_step), float(scale))
     index = x.device.index
     # the launch is on the current stream of x's device; switching devices
     # only when needed keeps the host's share of a launch small

@@ -8,7 +8,7 @@ power of two; a handful of buckets then absorbs the whole request
 distribution and the plan cache stays hot. The mesh round-up of
 :func:`pad_transform_shape` (pencil feasibility ``n >= shards^2``) is kept
 as the arithmetic it is; bucket plans themselves are local until ROADMAP
-queue 1 item 10 ports the sharded FFT.
+queue 1 item 10.3 ports serving over a mesh.
 
 Padded serving semantics: a request of ``n_req`` points served from an
 ``n``-point bucket receives the ``n``-point transform of its zero-padded
@@ -34,20 +34,24 @@ __all__ = ["BucketKey", "SpecBucketer", "pad_transform_shape", "next_pow2",
 # through serve_plan (admission rejects them with a pointer there).
 BATCHABLE_OPS = ("fft", "spectrum")
 
-ITEM_10 = "ROADMAP queue 1 item 10 (sharded FFT on torch.distributed)"
+ITEM_10_3 = "ROADMAP queue 1 item 10.3 (serving over a mesh)"
 
 
 def mesh_shards(mesh) -> int:
     """Devices along a mesh's ``fft`` axis (1 without a mesh). Only a
-    local plan runs in the port: more than one shard raises, naming the
-    ROADMAP item that ports the sharded FFT."""
+    local plan serves in the port: more than one shard raises, naming the
+    ROADMAP item that ports serving over a mesh."""
     if mesh is None:
         return 1
-    shards = int(dict(getattr(mesh, "shape", {})).get("fft", 1))
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if "fft" in names:
+        shards = int(mesh.size(names.index("fft")))
+    else:
+        shards = int(dict(getattr(mesh, "shape", {})).get("fft", 1))
     if shards > 1:
         raise NotImplementedError(
             f"serving over a mesh of {shards} fft shards is not ported "
-            f"yet: {ITEM_10}")
+            f"yet: {ITEM_10_3}")
     return shards
 
 

@@ -1,0 +1,954 @@
+"""The port's sharded 1-D FFT (``repro_torch.core.fft.distributed``) against
+the reference (``repro.core.fft.distributed``) and ``np.fft``.
+
+Without a spawn: the split rule, the chunk and group resolution and the
+volume models, value for value against the reference's over grids of
+sizes; ``block_fft_plain``'s pass twiddle with an explicit M, offset and
+middle-axis step against a numpy formula; and the pipeline's per-shard
+pipelines driven as D shards in one process (``torch_shards.fft_on_shards``:
+the mesh's loops on threads, a tensor permute in place of the
+collectives) against ``np.fft``, the two-pass tail included.
+
+With one four-process gloo spawn on the CPU (a file store under
+``tmp_path``, so parallel workers never race for a port), shared by the
+whole file: the plan API, ``distributed_fft``, ``extensions.rfft/irfft``,
+``shard_signals`` and ``ops.fft``'s auto-dispatch on a 1-D mesh of 4 and
+a 2 x 2 ``data x fft`` mesh, natural, transposed and TRANSPOSED_IN order,
+``chunks=2`` bitwise against ``chunks=1``, ``make_fft_mesh``'s shrink rules
+at world size 4, and a spy on ``dist.all_to_all_single`` /
+``dist.all_gather_into_tensor`` holding each transform's calls and bytes
+to ``plan.volume``. The reference's own outputs on a 1-D mesh of 4 come
+from one JAX subprocess running at the same time (its 2-D meshes fail in
+this container's JAX, so the 2 x 2 mesh is held to ``np.fft`` only).
+
+Tolerance: ``ATOL[dtype] * max|ref|`` (4e-5 complex64, 1e-11 complex128).
+"""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import ATOL, REPO
+
+from repro_torch.core.fft import distributed as tdist
+from repro_torch.core.fft.api import FFTSpec, FTConfig
+from repro_torch.core.fft.plan import PassLayout, make_plan
+from repro_torch.kernels.stockham import block_fft, block_fft_plain
+from torch_shards import fft_on_shards, pencil
+
+CPU = "cpu"
+SIZES = (10, 14)            # log2 N of the spawned cases
+BATCH = 8
+PAD_BATCH = 6               # a TRANSPOSED_IN batch that needs padding to 8
+DTYPES = ("complex64", "complex128")
+
+
+def _ref():
+    from repro.core.fft import distributed as rdist
+    return rdist
+
+
+def _same(call_port, call_ref):
+    """Both calls return the same value, or raise the same error words."""
+    try:
+        want = call_ref()
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            call_port()
+        assert str(got.value) == str(e)
+        return
+    assert call_port() == want
+
+
+# ---------------------------------------------------------------------------
+# the plain arithmetic, against the reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("ln", range(4, 30))
+def test_make_dist_plan_matches_reference(ln, shards):
+    rd = _ref()
+    n = 1 << ln
+
+    def fields(p):
+        return (p.n, p.n1, p.n2, p.shards, p.axis, p.local_in, p.local_out)
+
+    _same(lambda: fields(tdist.make_dist_plan(n, shards)),
+          lambda: fields(rd.make_dist_plan(n, shards)))
+
+
+@pytest.mark.parametrize("n,shards", [(100, 2), (1 << 14, 3), (8, 4),
+                                      (0, 1)])
+def test_make_dist_plan_rejects_what_the_reference_rejects(n, shards):
+    rd = _ref()
+    with pytest.raises(ValueError) as want:
+        rd.make_dist_plan(n, shards)
+    with pytest.raises(ValueError) as got:
+        tdist.make_dist_plan(n, shards)
+    assert str(got.value) == str(want.value)
+
+
+def test_constants_match_reference():
+    rd = _ref()
+    for name in ("FFT_AXIS", "DATA_AXIS", "_AUTO", "EPS", "ID_VAR_TOL",
+                 "CHUNK_LATENCY_BYTES"):
+        assert getattr(tdist, name) == getattr(rd, name), name
+
+
+@pytest.mark.parametrize("rows", [0, 1, 2, 3, 6, 8, 12, 16, 24])
+def test_resolve_chunks_matches_reference(rows):
+    rd = _ref()
+    for chunks in (0, 1, 2, 3, 4, 5, 8, 16):
+        for granule in (1, 2, 4):
+            assert tdist.resolve_chunks(rows, chunks, granule=granule) \
+                == rd.resolve_chunks(rows, chunks, granule=granule)
+
+
+@pytest.mark.parametrize("a2a_bytes", [0, 1 << 10, 1 << 16, 1 << 18,
+                                       3 << 20, 1 << 22, 1 << 30])
+def test_choose_chunks_matches_reference(a2a_bytes):
+    rd = _ref()
+    for rows in (1, 2, 3, 8, 12, 64):
+        for granule in (1, 4):
+            for cap in (2, 8):
+                assert tdist.choose_chunks(a2a_bytes, rows, granule=granule,
+                                           max_chunks=cap) \
+                    == rd.choose_chunks(a2a_bytes, rows, granule=granule,
+                                        max_chunks=cap)
+
+
+@pytest.mark.parametrize("batch", [1, 6, 8, 12, 16])
+def test_resolve_abft_groups_matches_reference(batch):
+    rd = _ref()
+    for groups in (None, 1, 2, 3, 4, 8):
+        for group_size in (None, 2, 4, 5):
+            for data_shards in (1, 2, 4):
+                kw = dict(groups=groups, group_size=group_size,
+                          data_shards=data_shards)
+                _same(lambda: tdist.resolve_abft_groups(batch, **kw),
+                      lambda: rd.resolve_abft_groups(batch, **kw))
+
+
+_VOLUME_CASES = [
+    dict(),
+    dict(itemsize=16),
+    dict(natural_order=False),
+    dict(ft=True, groups=4),
+    dict(ft=True, groups=4, data_shards=2),
+    dict(ft=True, groups=3, data_shards=2),
+    dict(ft=True, itemsize=16, groups=2, chunks=2),
+    dict(data_shards=2, chunks=4),
+    dict(real=True),
+    dict(real=True, ft=True),
+    dict(chunks=0),
+]
+
+
+@pytest.mark.parametrize("kw", _VOLUME_CASES,
+                         ids=[",".join(f"{k}={v}" for k, v in c.items())
+                              or "default" for c in _VOLUME_CASES])
+@pytest.mark.parametrize("n,batch,shards", [(1 << 14, 8, 4),
+                                            (1 << 17, 12, 2),
+                                            (1 << 20, 256, 8)])
+def test_collective_volume_matches_reference(n, batch, shards, kw):
+    rd = _ref()
+    _same(lambda: tdist.collective_volume(n, batch, shards, **kw),
+          lambda: rd.collective_volume(n, batch, shards, **kw))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kernel_batch=1),
+                                dict(kernel_batch=4, data_shards=2),
+                                dict(real=True, kernel_batch=3),
+                                dict(itemsize=16, chunks=2)])
+@pytest.mark.parametrize("n,batch,shards", [(1 << 14, 8, 4),
+                                            (1 << 20, 16, 2)])
+def test_spectral_volume_matches_reference(n, batch, shards, kw):
+    rd = _ref()
+    assert tdist.spectral_volume(n, batch, shards, **kw) \
+        == rd.spectral_volume(n, batch, shards, **kw)
+
+
+class _BothMesh:
+    """A mesh as both packages read one: the reference's ``axis_names`` and
+    ``shape``, the port's ``mesh_dim_names`` and ``size``."""
+
+    def __init__(self, **sizes):
+        self.shape = dict(sizes)
+        self.axis_names = self.mesh_dim_names = tuple(sizes)
+        self.device_type = "cpu"
+
+    def size(self, dim=None):
+        return list(self.shape.values())[dim]
+
+
+_MESHES = [None, _BothMesh(fft=4), _BothMesh(data=2, fft=2),
+           _BothMesh(data=4, fft=1), _BothMesh(data=1, fft=8)]
+
+
+@pytest.mark.parametrize("mesh", _MESHES,
+                         ids=["none", "fft4", "data2xfft2", "data4xfft1",
+                              "data1xfft8"])
+def test_fft_sharding_helpers_match_reference(mesh):
+    """The mesh-axis queries and the ABFT-group and chunk layouts, value
+    for value (or the same error words) against the reference's."""
+    from repro.parallel import fft_sharding as rfs
+
+    from repro_torch.parallel import fft_sharding as tfs
+
+    assert tfs.fft_mesh_axis(mesh) == rfs.fft_mesh_axis(mesh)
+    assert tfs.data_mesh_axis(mesh) == rfs.data_mesh_axis(mesh)
+    for batch in (6, 8, 12):
+        for groups in (None, 1, 2, 4):
+            _same(lambda: tfs.abft_group_layout(mesh, batch, groups=groups),
+                  lambda: rfs.abft_group_layout(mesh, batch, groups=groups))
+            for chunks in (1, 2, 3, 4):
+                _same(lambda: tfs.chunk_layout(mesh, batch, chunks,
+                                               groups=groups),
+                      lambda: rfs.chunk_layout(mesh, batch, chunks,
+                                               groups=groups))
+    want = rfs.abft_group_spec(mesh)
+    got = tfs.abft_group_spec(mesh)
+    assert list(got) == [a for a in want if a is not None]
+
+
+def test_fft_sharding_specs_mirror_the_reference_partition_specs():
+    """Each placement names the mesh dimension the reference's
+    PartitionSpec puts on the same array dimension; the n-D layouts raise,
+    naming item 10.3."""
+    from torch.distributed.tensor import Shard
+
+    from repro.parallel import fft_sharding as rfs
+    from repro_torch.parallel import fft_sharding as tfs
+
+    for data in (None, "data"):
+        for got, want in zip(tfs.pencil_specs("fft", data),
+                             rfs.pencil_specs("fft", data)):
+            assert {name: pl.dim for name, pl in got.items()} == {
+                name: dim for dim, name in enumerate(want) if name}
+        assert tfs.layout_specs(1, "pencil", data_axis=data) \
+            == tfs.pencil_specs("fft", data)
+    specs = tfs.signal_specs("fft", "data", natural_order=False)
+    assert specs["input"] == {"data": Shard(0), "fft": Shard(1)}
+    assert specs["inverse"] == {"data": Shard(0), "fft": Shard(0)}
+    for shape in ((8, 64), (2, 16, 33)):
+        assert tfs.half_spectrum_shape(shape) == rfs.half_spectrum_shape(
+            shape)
+    for call in (lambda: tfs.layout_specs(2, "slab"), tfs.slab_specs,
+                 tfs.pencil_nd_specs,
+                 lambda: tfs.shard_grid(torch.zeros(2, 8, 8), None)):
+        with pytest.raises(NotImplementedError, match="item 10.3"):
+            call()
+
+
+# ---------------------------------------------------------------------------
+# block_fft_plain's pass twiddle of a global column
+# ---------------------------------------------------------------------------
+
+
+def _stages(n):
+    return make_plan(n).stages[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m,offset,mid_step", [(1 << 12, 0, 0),
+                                               (1 << 12, 48, 0),
+                                               (1 << 14, 96, 0),
+                                               (1 << 14, 40, 64)])
+def test_block_fft_plain_twiddle_with_m_offset_and_mid_step(
+        dtype, inverse, m, offset, mid_step):
+    """Point k of signal (b, j, i) times w_M^(k * (offset + i + mid_step*j))
+    (the sign of the direction), against numpy in float64."""
+    from repro_torch.kernels.stockham import pass_twiddle_table
+
+    n, rows, mid, fast = 16, 2, 3, 8
+    rng = np.random.default_rng(m + offset + mid_step)
+    x = (rng.standard_normal((rows, mid, fast, n))
+         + 1j * rng.standard_normal((rows, mid, fast, n)))
+    # the signals' points n apart... stored point-major: (rows, mid, n, fast)
+    xs = np.ascontiguousarray(x.transpose(0, 1, 3, 2))
+    layout = PassLayout(((rows, mid * n * fast, mid * n * fast),
+                         (mid, n * fast, n * fast), (fast, 1, 1)),
+                        fast, fast)
+    tw = pass_twiddle_table(m, dtype, inverse=inverse)
+    got = block_fft_plain(torch.from_numpy(xs).to(dtype), _stages(n),
+                          inverse=inverse, layout=layout, twiddle=tw, m=m,
+                          offset=offset, mid_step=mid_step)
+    f = np.fft.ifft(x, axis=-1) * n if inverse else np.fft.fft(x, axis=-1)
+    i = (offset + np.arange(fast)[None, :, None]
+         + mid_step * np.arange(mid)[:, None, None])
+    k = np.arange(n)[None, None, :]
+    sign = 1.0 if inverse else -1.0
+    want = f * np.exp(sign * 2j * np.pi * ((i * k) % m) / m)[None]
+    got = got.numpy().reshape(rows, mid, n, fast).transpose(0, 1, 3, 2)
+    tol = ATOL[np.dtype(str(dtype).split(".")[-1])] * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_block_fft_default_twiddle_is_unchanged(dtype):
+    """The defaults (M = N * the fastest count, offset and step 0) give the
+    same bits as stating them, on both the wrapper and the plain version."""
+    from repro_torch.kernels.stockham import pass_twiddle_table
+
+    n, fast = 32, 16
+    layout = PassLayout(((4, n * fast, n * fast), (fast, 1, 1)), fast, fast)
+    x = torch.randn((4, n * fast), dtype=dtype,
+                    generator=torch.Generator().manual_seed(3))
+    tw = pass_twiddle_table(n * fast, dtype)
+    a = block_fft(x, _stages(n), layout=layout, twiddle=tw)
+    b = block_fft_plain(x, _stages(n), layout=layout, twiddle=tw,
+                        m=n * fast, offset=0, mid_step=0)
+    assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the per-shard steps in one process
+# ---------------------------------------------------------------------------
+
+
+def _rand(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return x.astype(dtype)
+
+
+def _close(got, want, dtype, factor=1.0):
+    got, want = np.asarray(got), np.asarray(want)
+    tol = factor * ATOL[np.dtype(dtype)] * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+def _transposed(y, n, shards):
+    """The transposed digit order of natural-order ``y``:
+    ``t[k1*N2 + k2] = y[k1 + N1*k2]``."""
+    p = tdist.make_dist_plan(n, shards)
+    return y.reshape(-1, p.n2, p.n1).transpose(0, 2, 1).reshape(-1, n)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ln,shards,batch,tail", [
+    (8, 2, 5, None), (10, 4, 8, None), (14, 4, 3, None),
+    (12, 4, 6, (8, 8)), (12, 4, 8, (8, 8)), (14, 2, 3, (16, 8))],
+    ids=["2^8/2", "2^10/4", "2^14/4", "2^12/4-two-pass",
+         "2^12/4-two-pass-even", "2^14/2-two-pass"])
+def test_fft_on_shards_matches_numpy(dtype, ln, shards, batch, tail):
+    """The mesh pipelines on ``shards`` in-process shards, each reading
+    the plain global input: natural forward, natural inverse, transposed
+    forward and the TRANSPOSED_IN inverse (padded where the batch does not
+    divide; with a two-pass tail it copies each chunk's signals
+    contiguous), with ``chunks=2`` bitwise ``chunks=1``; ``tail`` splits
+    N2 into two local passes, as N >= 2^23 does."""
+    n = 1 << ln
+    x = _rand((batch, n), dtype, ln + shards)
+    xt = torch.from_numpy(x)
+    ref = np.fft.fft(x)
+    kw = dict(tail=tail)
+    _close(fft_on_shards(xt, shards, **kw).numpy(), ref, dtype)
+    _close(fft_on_shards(torch.from_numpy(ref.astype(dtype)), shards,
+                         inverse=True, **kw).numpy(), x, dtype)
+    yt = fft_on_shards(xt, shards, natural_order=False, **kw)
+    _close(yt.numpy(), _transposed(ref, n, shards), dtype)
+    back = fft_on_shards(yt, shards, inverse=True, natural_order=False, **kw)
+    _close(back.numpy(), x, dtype)
+    assert torch.equal(
+        fft_on_shards(yt, shards, inverse=True, natural_order=False,
+                      chunks=2, **kw), back)
+    assert torch.equal(fft_on_shards(xt, shards, chunks=2, **kw),
+                       fft_on_shards(xt, shards, **kw))
+
+
+def test_pencil_launches_one_pass1_and_the_tail(monkeypatch):
+    """A transaction launches block_fft once for pass 1 and once a pass
+    of the n2 tail; the TRANSPOSED_IN inverse once a pass of pass A and
+    once for pass B."""
+    from repro_torch.kernels import stockham
+
+    n, shards = 1 << 12, 4
+    x = torch.from_numpy(_rand((4, n), "complex64", 0))
+    for tail, want in ((None, 2), ((8, 8), 3)):
+        p = pencil(n, shards, torch.complex64, CPU, tail)
+        assert p.launches == want
+        before = stockham.block_fft.launches
+        calls = []
+        real = stockham.block_fft_plain
+
+        def counted(*a, **k):
+            calls.append(1)
+            return real(*a, **k)
+
+        monkeypatch.setattr(stockham, "block_fft_plain", counted)
+        yt = fft_on_shards(x, shards, natural_order=False, p=p)
+        assert len(calls) == shards * want
+        calls.clear()
+        fft_on_shards(yt, shards, inverse=True, natural_order=False, p=p)
+        assert len(calls) == shards * want
+        monkeypatch.setattr(stockham, "block_fft_plain", real)
+        assert stockham.block_fft.launches == before   # the CPU launches none
+
+
+# ---------------------------------------------------------------------------
+# what stays to port raises, naming its item
+# ---------------------------------------------------------------------------
+
+
+class _FakeMesh:
+    """A mesh of four fft ranks as the spec validates it (names, sizes,
+    device type), for the raises that need no process group."""
+
+    mesh_dim_names = ("fft",)
+    device_type = "cpu"
+
+    def size(self, dim=None):
+        return 4
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(ft=FTConfig()), "item 10.2"),
+    (dict(rank=2, shape=(8, 64, 64)), "item 10.3"),
+    (dict(rank=3, shape=(2, 8, 8, 8)), "item 10.3"),
+    (dict(rank=2, real=True, shape=(8, 64, 64)), "item 10.3")],
+    ids=["ft", "rank2", "rank3", "real-rank2"])
+def test_unported_mesh_paths_name_their_item(kw, item):
+    kw = dict(dict(shape=(8, 64)), **kw)
+    with pytest.raises(NotImplementedError, match=item):
+        FFTSpec(mesh=_FakeMesh(), device=CPU, **kw)
+
+
+def test_spectral_consumers_and_serving_on_a_mesh_name_item_10_3():
+    from repro_torch.core.fft import multidim, spectral
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.bucketing import mesh_shards
+
+    a = torch.zeros((2, 64))
+    v = torch.zeros(5)
+    for call in (lambda: spectral.conv_spec(a, v, _FakeMesh(), device=CPU),
+                 lambda: spectral.fft_convolve(a, v, _FakeMesh(),
+                                               device=CPU),
+                 lambda: spectral.correlate(a, v, _FakeMesh(), device=CPU),
+                 lambda: spectral.power_spectrum(a, _FakeMesh(), device=CPU),
+                 lambda: multidim.fft_convolve2(a[None], v[None],
+                                                _FakeMesh(), device=CPU),
+                 lambda: mesh_shards(_FakeMesh()),
+                 lambda: launch.serve_fft(a, shards=4, device=CPU)):
+        with pytest.raises(NotImplementedError, match="item 10.3"):
+            call()
+
+
+def test_spec_mesh_validation():
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        FFTSpec(shape=(8, 64), mesh=object(), device=CPU)
+    with pytest.raises(ValueError, match="not an axis of the mesh"):
+        FFTSpec(shape=(8, 64), mesh=_FakeMesh(), axis="x", device=CPU)
+    with pytest.raises(ValueError, match="device type"):
+        FFTSpec(shape=(8, 64), mesh=_FakeMesh(), device="cuda")
+    with pytest.raises(ValueError, match="chunks"):
+        FFTSpec(shape=(8, 64), chunks=-1, device=CPU)
+    with pytest.raises(ValueError, match="decomp"):
+        FFTSpec(shape=(8, 64), decomp="slab", device=CPU)
+    with pytest.raises(ValueError, match="natural-order only"):
+        FFTSpec(shape=(8, 64), real=True, natural_order=False, device=CPU)
+    with pytest.raises(ValueError, match=r"\(B, N\) operands"):
+        FFTSpec(shape=(2, 4, 64), mesh=_FakeMesh(), device=CPU)
+
+
+@pytest.mark.parametrize("mesh", [_BothMesh(fft=4), _BothMesh(data=2, fft=2)],
+                         ids=["fft4", "data2xfft2"])
+@pytest.mark.parametrize("shape,dtype,chunks,natural", [
+    ((8, 1 << 14), "complex64", 1, True),
+    ((8, 1 << 14), "complex64", 2, True),
+    ((8, 1 << 14), "complex128", 0, False),
+    ((256, 1 << 20), "complex64", 0, True),
+    ((6, 1 << 12), "complex64", 4, False)],
+    ids=["c64-bulk", "c64-2", "c128-auto", "c64-2^20-auto", "ragged-4"])
+def test_plan_resolves_the_pencil_as_the_reference(mesh, shape, dtype,
+                                                   chunks, natural):
+    """A sharded rank-1 plan's split, data dimension, transaction count
+    (``chunks=0``: ``choose_chunks`` on the modelled all-to-all bytes) and
+    ``volume`` are the reference plan's resolution. A real plan with the
+    same ``chunks`` models the packed half length in one transaction, the
+    one its rfft/irfft run, and resolves ``chunks`` apart for the spectral
+    consumers, as the reference's ``_build_1d_real`` does; nothing here
+    needs a process group."""
+    from repro_torch.core.fft import api
+
+    rd = _ref()
+    b, n = shape
+    shards = mesh.shape["fft"]
+    dsize = mesh.shape.get("data", 1)
+    dsz = dsize if b % dsize == 0 else 1
+    item = np.dtype(dtype).itemsize
+    p = api.plan(FFTSpec(shape, dtype=dtype, mesh=mesh, chunks=chunks,
+                         natural_order=natural, device=CPU))
+    assert (p.decomp, p.shards, p.dsize) == ("pencil", shards, dsize)
+    assert p.daxis == ("data" if dsize > 1 else None)
+    want = rd.make_dist_plan(n, shards)
+    assert (p.dist_plan.n1, p.dist_plan.n2) == (want.n1, want.n2)
+    kw = dict(itemsize=item, natural_order=natural, data_shards=dsz)
+    rows = b // dsz
+    ask = chunks or rd.choose_chunks(
+        rd.collective_volume(n, b, shards, **kw)["all_to_all_bytes"], rows)
+    assert p.chunks == rd.resolve_chunks(rows, ask)
+    assert p.volume == rd.collective_volume(n, b, shards, chunks=p.chunks,
+                                            **kw)
+    r = api.plan(FFTSpec(shape, dtype=dtype, mesh=mesh, real=True,
+                         chunks=chunks, device=CPU))
+    assert r.decomp == "pencil"
+    rvol = rd.collective_volume(n, b, shards, real=True, itemsize=item,
+                                data_shards=dsz)
+    assert r.volume == rvol
+    ask = chunks or rd.choose_chunks(rvol["all_to_all_bytes"], rows)
+    assert r.chunks == rd.resolve_chunks(rows, max(1, ask))
+
+
+@pytest.mark.parametrize("devices,shards,data,want", [
+    (4, None, 1, (1, 4)), (4, 3, 1, (1, 2)), (4, 8, 2, (1, 4)),
+    (4, 2, 2, (2, 2)), (4, None, 2, (2, 2)), (8, 4, 4, (2, 4)),
+    (6, None, 1, (1, 4)), (1, None, 1, (1, 1))])
+def test_fft_mesh_shape_shrinks_as_the_reference(devices, shards, data,
+                                                 want):
+    from repro_torch.launch.mesh import fft_mesh_shape
+
+    assert fft_mesh_shape(devices, shards, data) == want
+
+
+def test_make_fft_mesh_raises_without_a_card_or_a_group(monkeypatch):
+    from repro_torch.launch.mesh import make_fft_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_fft_mesh(4)
+    with pytest.raises(RuntimeError, match="initialised process group"):
+        make_fft_mesh(4, device=CPU)
+
+
+# ---------------------------------------------------------------------------
+# four gloo ranks on the CPU, one spawn for the file
+# ---------------------------------------------------------------------------
+
+_REF_SCRIPT = r"""
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_enable_x64", True)
+from repro.core.fft.distributed import distributed_fft, distributed_ifft
+try:        # GSPMD's automatic sharding, which the reference is written for
+    from jax.sharding import AxisType
+    mesh = jax.make_mesh((4,), ("fft",), axis_types=(AxisType.Auto,))
+except ImportError:
+    mesh = jax.make_mesh((4,), ("fft",))
+inp = np.load(sys.argv[1])
+out = {}
+for key in inp.files:
+    x = inp[key]
+    out[key + "/fwd"] = np.asarray(distributed_fft(x, mesh))
+    out[key + "/inv"] = np.asarray(distributed_ifft(np.fft.fft(x).astype(
+        x.dtype), mesh))
+    yt = distributed_fft(x, mesh, natural_order=False)
+    out[key + "/fwd_t"] = np.asarray(yt)
+    out[key + "/inv_t"] = np.asarray(distributed_ifft(yt, mesh,
+                                                      natural_order=False))
+np.savez(sys.argv[2], **out)
+"""
+
+_WORKER_SCRIPT = r"""
+import json, os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def run(rank, store, inputs, outdir):
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=4)
+    from repro_torch.core.fft import api, distributed as tdist, extensions
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_fft_mesh
+    from repro_torch.parallel import infer_fft_mesh, shard_signals
+
+    calls = []
+    a2a, gather = dist.all_to_all_single, dist.all_gather_into_tensor
+
+    def spy_a2a(out, inp, *a, **k):
+        calls.append(["all_to_all", inp.numel() * inp.element_size()])
+        return a2a(out, inp, *a, **k)
+
+    def spy_gather(out, inp, *a, **k):
+        calls.append(["all_gather", out.numel() * out.element_size()])
+        return gather(out, inp, *a, **k)
+
+    dist.all_to_all_single = spy_a2a
+    dist.all_gather_into_tensor = spy_gather
+    res, spy, vol, arrays = {}, {}, {}, {}
+
+    def traced(name, fn):
+        calls.clear()
+        y = fn()
+        spy[name] = [list(c) for c in calls]
+        calls.clear()
+        return y
+
+    def full(y):
+        return y.full_tensor().numpy()
+
+    mesh1 = make_fft_mesh(4, device="cpu")
+    mesh2 = make_fft_mesh(2, data=2, device="cpu")
+    data = np.load(inputs)
+    for key in data.files:
+        if "/" in key:
+            continue
+        x = torch.from_numpy(data[key])
+        dt = key.split("_")[0]
+        b, n = x.shape
+        spec = dict(dtype=dt, device="cpu")
+        p = api.plan(api.FFTSpec((b, n), mesh=mesh1, **spec))
+        vol[key] = dict(p.volume, chunks_resolved=p.chunks)
+        y = traced(key + "/fwd", lambda: p.fft(x))
+        arrays[key + "/fwd"] = full(y)
+        arrays[key + "/fwd_placements"] = np.array([repr(q) for q in
+                                                    y.placements])
+        X = torch.from_numpy(np.fft.fft(data[key]).astype(data[key].dtype))
+        arrays[key + "/inv"] = full(traced(key + "/inv",
+                                           lambda: p.ifft(X)))
+        arrays[key + "/roundtrip"] = full(p.ifft(p.fft(x)))
+        pt = api.plan(api.FFTSpec((b, n), mesh=mesh1, natural_order=False,
+                                  **spec))
+        vol[key + "/t"] = dict(pt.volume)
+        yt = traced(key + "/fwd_t", lambda: pt.fft(x))
+        arrays[key + "/fwd_t"] = full(yt)
+        arrays[key + "/fwd_t_local"] = yt.to_local().numpy()
+        xi = traced(key + "/inv_t", lambda: pt.ifft(yt))
+        arrays[key + "/inv_t"] = full(xi)
+        arrays[key + "/inv_t_local_rows"] = np.array(xi.to_local().shape[0])
+        pc = api.plan(api.FFTSpec((b, n), mesh=mesh1, natural_order=False,
+                                  chunks=2, **spec))
+        vol[key + "/t2"] = dict(pc.volume, chunks_resolved=pc.chunks)
+        yt2 = traced(key + "/fwd_t2", lambda: pc.fft(x))
+        res[key + "/chunks_fwd_t_bitwise"] = bool(
+            torch.equal(yt2.to_local(), yt.to_local()))
+        xi2 = traced(key + "/inv_t2", lambda: pc.ifft(yt2))
+        res[key + "/chunks_inv_t_bitwise"] = bool(
+            torch.equal(xi2.to_local(), xi.to_local()))
+        pn2 = api.plan(api.FFTSpec((b, n), mesh=mesh1, chunks=2, **spec))
+        res[key + "/chunks_fwd_bitwise"] = bool(
+            torch.equal(pn2.fft(x).to_local(), y.to_local()))
+        # a batch the TRANSPOSED_IN inverse pads (6 rows over 4 ranks)
+        xp = x[:6]
+        pp = api.plan(api.FFTSpec((6, n), mesh=mesh1, natural_order=False,
+                                  chunks=2, **spec))
+        xb = pp.ifft(pp.fft(xp))
+        arrays[key + "/pad_roundtrip"] = full(xb)
+        res[key + "/pad_local_rows"] = int(xb.to_local().shape[0])
+        # the 2 x 2 data x fft mesh
+        q = api.plan(api.FFTSpec((b, n), mesh=mesh2, **spec))
+        vol[key + "/mesh2"] = dict(q.volume)
+        y2 = traced(key + "/mesh2_fwd", lambda: q.fft(x))
+        arrays[key + "/mesh2_fwd"] = full(y2)
+        res[key + "/mesh2_placements"] = [repr(v) for v in y2.placements]
+        arrays[key + "/mesh2_inv"] = full(q.ifft(X))
+        qt = api.plan(api.FFTSpec((b, n), mesh=mesh2, natural_order=False,
+                                  **spec))
+        y2t = qt.fft(x)
+        arrays[key + "/mesh2_fwd_t"] = full(y2t)
+        arrays[key + "/mesh2_inv_t"] = full(qt.ifft(y2t))
+        res[key + "/mesh2_inv_t_placements"] = [
+            repr(v) for v in qt.ifft(y2t).placements]
+        # distributed_fft / distributed_ifft
+        arrays[key + "/dist_fwd"] = full(tdist.distributed_fft(x, mesh1))
+        arrays[key + "/dist_inv_t"] = full(tdist.distributed_ifft(
+            tdist.distributed_fft(x, mesh1, natural_order=False), mesh1,
+            natural_order=False))
+        # shard_signals -> spec_for / infer_fft_mesh -> ops.fft
+        xs = p.shard(x)
+        res[key + "/infer_is_mesh"] = infer_fft_mesh(xs) is mesh1
+        res[key + "/spec_for_mesh"] = api.spec_for(xs, device="cpu").mesh \
+            is mesh1
+        res[key + "/shard_placements"] = [repr(v) for v in xs.placements]
+        arrays[key + "/ops_fft"] = full(traced(
+            key + "/ops_fft", lambda: ops.fft(xs, device="cpu")))
+        arrays[key + "/ops_ifft"] = full(ops.ifft(ops.fft(xs, device="cpu"),
+                                                  device="cpu"))
+        xs2 = shard_signals(x, mesh2)
+        arrays[key + "/mesh2_ops_fft"] = full(traced(
+            key + "/mesh2_ops_fft", lambda: ops.fft(xs2, device="cpu")))
+        # the packed real transform on the mesh
+        xr = x.real.contiguous()
+        yr = extensions.rfft(xr, mesh=mesh1, device="cpu")
+        arrays[key + "/rfft"] = full(yr)
+        arrays[key + "/irfft"] = full(extensions.irfft(yr, mesh=mesh1,
+                                                       device="cpu"))
+        pr = api.plan(api.FFTSpec((b, n), dtype=dt, real=True, mesh=mesh1,
+                                  device="cpu"))
+        vol[key + "/real"] = dict(pr.volume)
+        res[key + "/real_decomp"] = pr.decomp
+        # chunks=2 on a real plan: its rfft/irfft still run one transaction
+        pr2 = api.plan(api.FFTSpec((b, n), dtype=dt, real=True, mesh=mesh1,
+                                   chunks=2, device="cpu"))
+        vol[key + "/real2"] = dict(pr2.volume, chunks_resolved=pr2.chunks)
+        yr2 = traced(key + "/rfft2", lambda: pr2.rfft(xr))
+        res[key + "/rfft2_bitwise"] = bool(torch.equal(yr2.to_local(),
+                                                       yr.to_local()))
+        traced(key + "/irfft2", lambda: pr2.irfft(yr2))
+    # make_fft_mesh's shrink rules at world size 4
+    shrink = {}
+    for name, args, kw in (("3", (3,), {}), ("8x2", (8,), dict(data=2)),
+                           ("2x2", (2,), dict(data=2)),
+                           ("default", (), {}), ("data4", (), dict(data=4))):
+        m = make_fft_mesh(*args, device="cpu", **kw)
+        shrink[name] = [list(m.mesh_dim_names), list(m.mesh.shape),
+                        m.get_coordinate() is not None]
+    res["shrink"] = shrink
+    res["one_rank_mesh_is_local"] = api.plan(api.FFTSpec(
+        (8, 1 << 10), mesh=make_fft_mesh(1, device="cpu"),
+        device="cpu")).decomp
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump({"res": res, "spy": spy, "vol": vol}, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    store, inputs, outdir = sys.argv[1:4]
+    mp.spawn(run, args=(store, inputs, outdir), nprocs=4)
+"""
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    """Run the four gloo ranks and the reference's subprocess together;
+    each rank's arrays and records, the reference's outputs and the
+    inputs."""
+    tmp = tmp_path_factory.mktemp("dist_fft")
+    inputs = {}
+    for dt in DTYPES:
+        for ln in SIZES:
+            inputs[f"{dt}_{ln}"] = _rand((BATCH, 1 << ln), dt, ln)
+    np.savez(tmp / "inputs.npz", **inputs)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    (tmp / "ref.py").write_text(_REF_SCRIPT)
+    (tmp / "worker.py").write_text(_WORKER_SCRIPT)
+    ref = subprocess.Popen(
+        [sys.executable, str(tmp / "ref.py"), str(tmp / "inputs.npz"),
+         str(tmp / "ref.npz")],
+        env=dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+                 JAX_PLATFORMS="cpu"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    work = subprocess.run(
+        [sys.executable, str(tmp / "worker.py"), str(tmp / "store"),
+         str(tmp / "inputs.npz"), str(tmp)], env=env,
+        capture_output=True, text=True, timeout=300)
+    ref_out, _ = ref.communicate(timeout=300)
+    assert work.returncode == 0, work.stdout + work.stderr
+    assert ref.returncode == 0, ref_out
+    ranks = []
+    for r in range(4):
+        rec = json.loads((tmp / f"rank{r}.json").read_text())
+        rec["arrays"] = dict(np.load(tmp / f"rank{r}.npz"))
+        ranks.append(rec)
+    return dict(ranks=ranks, ref=dict(np.load(tmp / "ref.npz")),
+                inputs=inputs)
+
+
+def _keys():
+    return [f"{dt}_{ln}" for dt in DTYPES for ln in SIZES]
+
+
+@pytest.mark.parametrize("key", _keys())
+def test_mesh_natural_forward_inverse_round_trip(spawned, key):
+    x = spawned["inputs"][key]
+    dt = key.split("_")[0]
+    ref = np.fft.fft(x)
+    for rec in spawned["ranks"]:
+        a = rec["arrays"]
+        _close(a[key + "/fwd"], ref, dt)
+        _close(a[key + "/fwd"], spawned["ref"][key + "/fwd"], dt)
+        _close(a[key + "/inv"], x, dt)
+        _close(a[key + "/inv"], spawned["ref"][key + "/inv"], dt)
+        _close(a[key + "/roundtrip"], x, dt)
+        assert list(a[key + "/fwd_placements"]) == ["Replicate()"]
+
+
+@pytest.mark.parametrize("key", _keys())
+def test_mesh_transposed_forward_and_transposed_in_inverse(spawned, key):
+    x = spawned["inputs"][key]
+    dt = key.split("_")[0]
+    n = x.shape[-1]
+    want = _transposed(np.fft.fft(x), n, 4)
+    for r, rec in enumerate(spawned["ranks"]):
+        a = rec["arrays"]
+        _close(a[key + "/fwd_t"], want, dt)
+        _close(a[key + "/fwd_t"], spawned["ref"][key + "/fwd_t"], dt)
+        # rank r holds the contiguous r-th block of each transposed row
+        np.testing.assert_array_equal(
+            a[key + "/fwd_t_local"],
+            a[key + "/fwd_t"][:, r * n // 4:(r + 1) * n // 4])
+        _close(a[key + "/inv_t"], x, dt)
+        _close(a[key + "/inv_t"], spawned["ref"][key + "/inv_t"], dt)
+        assert int(a[key + "/inv_t_local_rows"]) == BATCH // 4
+        _close(a[key + "/dist_inv_t"], x, dt)
+        _close(a[key + "/dist_fwd"], np.fft.fft(x), dt)
+
+
+@pytest.mark.parametrize("key", _keys())
+def test_mesh_transposed_in_pads_a_ragged_batch(spawned, key):
+    x = spawned["inputs"][key][:PAD_BATCH]
+    dt = key.split("_")[0]
+    rows = [rec["res"][key + "/pad_local_rows"] for rec in spawned["ranks"]]
+    assert rows == [2, 2, 2, 0]          # torch.chunk's split of 6 over 4
+    for rec in spawned["ranks"]:
+        _close(rec["arrays"][key + "/pad_roundtrip"], x, dt)
+
+
+@pytest.mark.parametrize("key", _keys())
+def test_mesh_chunks_are_bitwise_the_bulk_path(spawned, key):
+    for rec in spawned["ranks"]:
+        assert rec["vol"][key + "/t2"]["chunks_resolved"] == 2
+        for what in ("chunks_fwd_t_bitwise", "chunks_inv_t_bitwise",
+                     "chunks_fwd_bitwise"):
+            assert rec["res"][f"{key}/{what}"] is True, what
+
+
+@pytest.mark.parametrize("key", _keys())
+def test_mesh_data_x_fft_matches_numpy(spawned, key):
+    x = spawned["inputs"][key]
+    dt = key.split("_")[0]
+    n = x.shape[-1]
+    ref = np.fft.fft(x)
+    for rec in spawned["ranks"]:
+        a = rec["arrays"]
+        _close(a[key + "/mesh2_fwd"], ref, dt)
+        _close(a[key + "/mesh2_inv"], x, dt)
+        _close(a[key + "/mesh2_fwd_t"], _transposed(ref, n, 2), dt)
+        _close(a[key + "/mesh2_inv_t"], x, dt)
+        _close(a[key + "/mesh2_ops_fft"], ref, dt)
+        assert rec["res"][key + "/mesh2_placements"] == [
+            "Shard(dim=0)", "Replicate()"]
+        assert rec["res"][key + "/mesh2_inv_t_placements"] == [
+            "Shard(dim=0)", "Shard(dim=0)"]
+
+
+@pytest.mark.parametrize("key", _keys())
+def test_mesh_plan_volume_is_the_reference_model(spawned, key):
+    rd = _ref()
+    x = spawned["inputs"][key]
+    b, n = x.shape
+    item = x.dtype.itemsize
+    rec = spawned["ranks"][0]
+    vol = dict(rec["vol"][key])
+    assert vol.pop("chunks_resolved") == 1
+    assert vol == rd.collective_volume(n, b, 4, itemsize=item)
+    assert rec["vol"][key + "/t"] == rd.collective_volume(
+        n, b, 4, itemsize=item, natural_order=False)
+    vol2 = dict(rec["vol"][key + "/t2"])
+    vol2.pop("chunks_resolved")
+    assert vol2 == rd.collective_volume(n, b, 4, itemsize=item,
+                                        natural_order=False, chunks=2)
+    assert rec["vol"][key + "/mesh2"] == rd.collective_volume(
+        n, b, 2, itemsize=item, data_shards=2)
+    assert rec["vol"][key + "/real"] == rd.collective_volume(
+        n, b, 4, itemsize=x.real.dtype.itemsize * 2, real=True)
+    vr2 = dict(rec["vol"][key + "/real2"])
+    assert vr2.pop("chunks_resolved") == 2
+    assert vr2 == rec["vol"][key + "/real"]
+
+
+def _totals(calls):
+    out = {"all_to_all": [0, 0], "all_gather": [0, 0]}
+    for kind, nbytes in calls:
+        out[kind][0] += 1
+        out[kind][1] += nbytes
+    return out
+
+
+@pytest.mark.parametrize("key", _keys())
+def test_mesh_collectives_are_the_modelled_ones(spawned, key):
+    """Each transform's all-to-all and all-gather calls and bytes on
+    every rank equal ``plan.volume``'s; an input from ``shard_signals``
+    adds one ingest all-to-all of the rank's block, counted apart; the
+    transposed round trip is ``spectral_volume``'s two all-to-alls and no
+    all-gather."""
+    x = spawned["inputs"][key]
+    b, n = x.shape
+    item = x.dtype.itemsize
+    for rec in spawned["ranks"]:
+        spy, vol = rec["spy"], rec["vol"]
+        for name, v in ((key + "/fwd", vol[key]), (key + "/inv", vol[key]),
+                        (key + "/fwd_t", vol[key + "/t"]),
+                        (key + "/fwd_t2", vol[key + "/t2"]),
+                        (key + "/mesh2_fwd", vol[key + "/mesh2"])):
+            t = _totals(spy[name])
+            assert t["all_to_all"] == [v["all_to_all_count"],
+                                       v["all_to_all_bytes"]], name
+            assert t["all_gather"] == [v["all_gather_count"],
+                                       v["gather_hlo"]], name
+        rt = tdist.spectral_volume(n, b, 4, itemsize=item)
+        t = _totals(spy[key + "/fwd_t"] + spy[key + "/inv_t"])
+        assert t["all_to_all"] == [rt["all_to_all_count"],
+                                   rt["all_to_all_bytes"]]
+        assert t["all_gather"] == [0, 0]
+        # a real plan with chunks=2: one transaction a transform, as its
+        # volume says
+        vr = vol[key + "/real2"]
+        assert vr["all_to_all_count"] == 1
+        for name in (key + "/rfft2", key + "/irfft2"):
+            t = _totals(spy[name])
+            assert t["all_to_all"] == [vr["all_to_all_count"],
+                                       vr["all_to_all_bytes"]], name
+            assert t["all_gather"] == [vr["all_gather_count"],
+                                       vr["gather_hlo"]], name
+        t2 = _totals(spy[key + "/fwd_t2"] + spy[key + "/inv_t2"])
+        rt2 = tdist.spectral_volume(n, b, 4, itemsize=item, chunks=2)
+        assert t2["all_to_all"] == [rt2["all_to_all_count"],
+                                    rt2["all_to_all_bytes"]]
+        # shard_signals' block layout: one ingest all-to-all of the rank's
+        # (B, N/4) block first, then the modelled transform
+        for name, shards, rows in ((key + "/ops_fft", 4, b),
+                                   (key + "/mesh2_ops_fft", 2, b // 2)):
+            calls = spy[name]
+            assert calls[0] == ["all_to_all", rows * n // shards * item]
+            v = tdist.collective_volume(n, b, shards, itemsize=item,
+                                        data_shards=4 // shards)
+            t = _totals(calls[1:])
+            assert t["all_to_all"] == [v["all_to_all_count"],
+                                       v["all_to_all_bytes"]], name
+            assert t["all_gather"] == [1, v["gather_hlo"]], name
+
+
+@pytest.mark.parametrize("key", _keys())
+def test_mesh_shard_signals_and_auto_dispatch(spawned, key):
+    x = spawned["inputs"][key]
+    dt = key.split("_")[0]
+    for rec in spawned["ranks"]:
+        assert rec["res"][key + "/infer_is_mesh"] is True
+        assert rec["res"][key + "/spec_for_mesh"] is True
+        assert rec["res"][key + "/shard_placements"] == ["Shard(dim=1)"]
+        _close(rec["arrays"][key + "/ops_fft"], np.fft.fft(x), dt)
+        _close(rec["arrays"][key + "/ops_ifft"], x, dt)
+
+
+@pytest.mark.parametrize("key", _keys())
+def test_mesh_rfft_irfft(spawned, key):
+    x = spawned["inputs"][key].real
+    dt = key.split("_")[0]
+    for rec in spawned["ranks"]:
+        assert rec["res"][key + "/real_decomp"] == "pencil"
+        assert rec["res"][key + "/rfft2_bitwise"] is True
+        _close(rec["arrays"][key + "/rfft"], np.fft.rfft(x), dt)
+        _close(rec["arrays"][key + "/irfft"], x, dt, factor=2)
+
+
+def test_make_fft_mesh_shrink_rules_at_world_size_4(spawned):
+    for r, rec in enumerate(spawned["ranks"]):
+        shrink = rec["res"]["shrink"]
+        assert shrink["3"] == [["fft"], [2], r < 2]
+        assert shrink["8x2"] == [["fft"], [4], True]
+        assert shrink["2x2"] == [["data", "fft"], [2, 2], True]
+        assert shrink["default"] == [["fft"], [4], True]
+        assert shrink["data4"] == [["data", "fft"], [4, 1], True]
+        assert rec["res"]["one_rank_mesh_is_local"] == "local"

@@ -134,6 +134,100 @@ def test_block_fft_kernel_matches_plain_in_every_pass_layout(cuda, n, inverse,
             _close(inplace, want)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("mid_step", [0, 1024])
+def test_block_fft_global_column_twiddle_matches_plain(cuda, inverse, dtype,
+                                                       mid_step):
+    """One launch with the pass twiddle of a shard's global columns, as
+    the sharded transform's pass 1 takes it (M the whole N = 2^20, the
+    index offset of shard 3 of 4; with ``mid_step``, the step of the
+    TRANSPOSED_IN inverse's first pass), against the plain version on the
+    same card tensors. Both read strided columns and write the
+    all-to-all's (D, N1/D, rows, N2/D) order."""
+    from repro_torch.core.fft.plan import PassLayout
+
+    n, n1, shards, rows = 1 << 20, 1024, 4, 4
+    n2l = n // n1 // shards
+    x = _rand(rows, n, dtype).to(cuda)
+    layout = PassLayout(((rows, n, n2l), (n2l, 1, 1)), n // n1, rows * n2l)
+    tw = pass_twiddle_table(n, dtype, inverse=inverse, device=cuda)
+    kw = dict(inverse=inverse, layout=layout, twiddle=tw, m=n,
+              offset=3 * n2l, mid_step=mid_step,
+              scale=1.0 / n if inverse else 1.0)
+    stages = make_plan(n1).stages[0]
+    src = x.view(-1)[3 * n2l:]
+    want = block_fft_plain(src, stages,
+                           out=torch.zeros(n1 * rows * n2l, dtype=dtype,
+                                           device=cuda), **kw)
+    got = block_fft(src, stages,
+                    out=torch.zeros(n1 * rows * n2l, dtype=dtype,
+                                    device=cuda), **kw)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ln,batch", [(20, 8), (23, 2)])
+def test_fft_on_shards_on_card_matches_torch_fft(cuda, ln, batch, dtype):
+    """The mesh pipelines of 4 shards in one process (threads, the
+    exchange a tensor permute; ``torch_shards``): natural and transposed
+    forward, the TRANSPOSED_IN inverse (N = 2^23: a two-pass tail) and
+    ``chunks=2`` bitwise, against torch.fft."""
+    from repro_torch.core.fft.distributed import make_dist_plan
+    from torch_shards import fft_on_shards
+
+    n = 1 << ln
+    x = _rand(batch, n, dtype).to(cuda)
+    ref = torch.fft.fft(x)
+    _close(fft_on_shards(x, 4), ref)
+    p = make_dist_plan(n, 4)
+    yt = fft_on_shards(x, 4, natural_order=False)
+    _close(yt.view(batch, p.n1, p.n2).transpose(1, 2).reshape(batch, n), ref)
+    back = fft_on_shards(yt, 4, inverse=True, natural_order=False)
+    _close(back, x)
+    assert torch.equal(fft_on_shards(yt, 4, inverse=True,
+                                     natural_order=False, chunks=2), back)
+
+
+@pytest.mark.parametrize("dtype,ln,batch", [(torch.complex64, 25, 8),
+                                            (torch.complex128, 20, 16)])
+def test_pencil_launches_match_plain(cuda, dtype, ln, batch):
+    """Every launch of shard 3 of 4 at the sharded path's shapes, the
+    kernel against its plain version on the same card tensors: pass 1 in
+    each direction (the twiddle of the shard's global columns), pass A of
+    the TRANSPOSED_IN inverse (at 2^25, N2 = 65536: two launches, the
+    first with the middle-axis step, the second reading the first's
+    output) and pass B."""
+    from repro_torch.core.fft import distributed as sd
+    from repro_torch.kernels.stockham import device_key
+
+    n, shards, d = 1 << ln, 4, 3
+    p = sd.Pencil(n, shards, dtype, device_key(cuda))
+    gen = torch.Generator(device=cuda).manual_seed(ln)
+    x = torch.randn((batch, n), dtype=dtype, device=cuda, generator=gen)
+
+    def both(launch, src, shape):
+        got = launch(src, torch.zeros(shape, dtype=dtype, device=cuda))
+        want = launch(src, torch.zeros(shape, dtype=dtype, device=cuda),
+                      plain=True)
+        _close(got, want)
+        return got
+
+    src = sd.Source(x.view(-1), d * p.n2l, n, p.n2)
+    for inverse in (False, True):
+        both(p.pass1_launch(src, batch, d, inverse=inverse),
+             src.flat[src.base:], (shards, p.n1l, batch, p.n2l))
+    # pass A reads this shard's k1 block of each transposed-order row
+    row_len, w = p.n1l * p.n2, batch // shards
+    y = x.view(batch, shards, row_len)[:, d].contiguous().view(-1)
+    launches = p.pass_a_launches(shards, w * row_len, w, row_len, d)
+    assert len(launches) == p.ax2.plan.num_passes == (2 if ln == 25 else 1)
+    for launch in launches:
+        y = both(launch, y, (shards, w, p.n1l, p.n2))
+    both(p.pass_b_launch(w), x[:w].contiguous().view(w, p.n1, p.n2),
+         (w, p.n1, p.n2))
+
+
 def test_plan_fft_launches_one_kernel_per_pass(cuda):
     """Under torch.profiler, one plan.fft call at 2^20 runs exactly two CUDA
     kernels, both block_fft: nothing else touches the data."""
