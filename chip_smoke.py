@@ -191,10 +191,32 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   all-gather calls and bytes held to the plan's; one case's pass-1
   (the offset twiddle) and pass-2 launches held to ``block_fft_plain`` on
   every rank; the local passes' device ms from a primed trace and each
-  call's host ms. Then one rank on NCCL in this process:
+  call's host ms. Then, on the same four ranks, the grouped two-side
+  ABFT (``ft_distributed_fft``, ``SHARD_FT_CASES``: complex64 2^20 x 256
+  with G = 4 on the 1-D mesh through the whole fault matrix: clean in
+  both orders, four SEUs one on each rank, ``correct=False``, a double
+  hit and its recompute, cs2- and cs3-row faults, ``chunks=2`` bitwise;
+  clean and four SEUs on the 2 x 2 mesh, at 2^25 x 8 and at complex128
+  2^20 x 16, threshold 1e-10), each SEU sized from the score formula to
+  ``SHARD_FT_SCORE`` times the threshold: every verdict the scenario's,
+  the corrected rows within ATOL * max|torch.fft|, the launches (pass 1
+  two a transaction: the data rows and the checksum rows) and the
+  collectives (all-to-all, data all-gather, one verdict all-reduce a
+  transaction, the telemetry gathers) the plan's, host ms beside the
+  plain transposed transform's and a primed trace of the local passes
+  and the verdict's kernels; and the spectral consumers
+  (``SHARD_SPECTRAL``: ``fft_convolve``/``correlate`` of (256, 2^19)
+  complex64 signals with a (1, 2^19) kernel, nfft 2^20, ``chunks=2``
+  bitwise, the packed real float32 convolution, ``power_spectrum`` in
+  transposed order) on both meshes against ``torch.fft`` on the rank's
+  rows, their launches and ``spectral_volume``'s collectives. The
+  checked cases also hold the checksum-row launch at its row offset to
+  ``block_fft_plain``. Then one rank on NCCL in this process:
   ``make_fft_mesh(1)`` plans the local transform, whose ``fft`` launches
   the same two passes as ``plan.fft``, bitwise, timed beside it and
-  ``torch.fft``.
+  ``torch.fft``; its ft plan is the local one (one ``abft_fft`` launch,
+  the same result as without the mesh) and ``fft_convolve(mesh=...)``
+  the local convolution.
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -3793,6 +3815,17 @@ SHARD_CHECKED_CASES = (1, 2)            # their launches against the plain one
 SHARD_INGEST_CASE = 2                   # its input through shard_signals
 SHARD_TIMEOUT = 300                     # seconds the four ranks may take
 SHARD_ONE_RANK = ("complex64", 20, 256)
+# the grouped two-side ABFT: (dtype, log2 N, batch, G, threshold, meshes,
+# the whole fault matrix); an SEU's score over the threshold
+SHARD_FT_CASES = (("complex64", 20, 256, 4, 1e-4, ((4, 1), (2, 2)), True),
+                  ("complex64", 25, 8, 4, 1e-4, ((4, 1),), False),
+                  ("complex128", 20, 16, 4, 1e-10, ((4, 1),), False))
+SHARD_FT_SCORE = 300.0
+# the spectral consumers: (dtype, log2 L, batch): (B, L) signals with a
+# (1, L) kernel, nfft 2L
+SHARD_SPECTRAL = ("complex64", 19, 256)
+SHARD_ONE_RANK_FT = ("complex64", 13, 1024)
+SHARD_ONE_RANK_CONV = ("complex64", 17, 64)
 
 
 def _shard_collectives():
@@ -3801,8 +3834,10 @@ def _shard_collectives():
     all-gather's output) land in the returned dict."""
     import torch.distributed as dist
 
-    seen = {"all_to_all": [0, 0], "all_gather": [0, 0]}
+    seen = {"all_to_all": [0, 0], "all_gather": [0, 0],
+            "all_reduce": [0, 0], "telemetry_gather": [0, 0]}
     a2a, gather = dist.all_to_all_single, dist.all_gather_into_tensor
+    reduce_ = dist.all_reduce
 
     def spy_a2a(out, inp, *a, **k):
         seen["all_to_all"][0] += 1
@@ -3810,12 +3845,20 @@ def _shard_collectives():
         return a2a(out, inp, *a, **k)
 
     def spy_gather(out, inp, *a, **k):
-        seen["all_gather"][0] += 1
-        seen["all_gather"][1] += out.numel() * out.element_size()
+        # the ABFT's telemetry gathers are the real-valued ones
+        kind = "all_gather" if out.is_complex() else "telemetry_gather"
+        seen[kind][0] += 1
+        seen[kind][1] += out.numel() * out.element_size()
         return gather(out, inp, *a, **k)
+
+    def spy_reduce(t, *a, **k):
+        seen["all_reduce"][0] += 1
+        seen["all_reduce"][1] += t.numel()        # reals
+        return reduce_(t, *a, **k)
 
     dist.all_to_all_single = spy_a2a
     dist.all_gather_into_tensor = spy_gather
+    dist.all_reduce = spy_reduce
     return seen
 
 
@@ -3842,10 +3885,10 @@ def shard_drive(rank, trace):
     def fail(msg):
         out["failures"].append(msg)
 
-    def call(fn):
+    def call(fn, what=None):
         """(result, launches, collectives, host ms) of one call, every
         rank starting together."""
-        print(f"{time.perf_counter():.3f} {label} {fn}", file=trace,
+        print(f"{time.perf_counter():.3f} {what or label} {fn}", file=trace,
               flush=True)
         dist.barrier()
         torch.cuda.synchronize()
@@ -3903,7 +3946,8 @@ def shard_drive(rank, trace):
                 want = {"all_to_all": [vol["all_to_all_count"],
                                        int(vol["all_to_all_bytes"])],
                         "all_gather": [vol["all_gather_count"],
-                                       int(vol["gather_hlo"])]}
+                                       int(vol["gather_hlo"])],
+                        "all_reduce": [0, 0], "telemetry_gather": [0, 0]}
                 if extra:
                     want["all_to_all"][0] += 1
                     want["all_to_all"][1] += extra
@@ -3932,7 +3976,8 @@ def shard_drive(rank, trace):
             res = call(lambda: pt.ifft(yt))
             xb = res[0]
             record("ifft transposed-in", res, tail + 1,
-                   {"all_to_all": [1, inv_bytes], "all_gather": [0, 0]})
+                   {"all_to_all": [1, inv_bytes], "all_gather": [0, 0],
+                    "all_reduce": [0, 0], "telemetry_gather": [0, 0]})
             del res
             w = rows // shards
             mine = x[r0 + d * w:r0 + (d + 1) * w]
@@ -3943,7 +3988,8 @@ def shard_drive(rank, trace):
                                                      yt.to_local()))
             res2 = call(lambda: pc.ifft(res[0]))
             record("ifft transposed-in chunks=2", res2, 2 * (tail + 1),
-                   {"all_to_all": [2, inv_bytes], "all_gather": [0, 0]})
+                   {"all_to_all": [2, inv_bytes], "all_gather": [0, 0],
+                    "all_reduce": [0, 0], "telemetry_gather": [0, 0]})
             row["chunks_bitwise"] &= bool(torch.equal(res2[0].to_local(),
                                                       xb.to_local()))
             if not row["chunks_bitwise"]:
@@ -3989,16 +4035,370 @@ def shard_drive(rank, trace):
             out["cases"].append(row)
             del x, ref, yt
             torch.cuda.empty_cache()
+    out["ft"] = shard_ft_drive(rank, call, fail, err_ratio, gen, trace)
+    out["spectral"] = shard_spectral_drive(call, fail, err_ratio, gen)
     # the main path's launches: those of the calls held to the plan, not
     # the checks' direct ones nor the traced repeats
-    out["launches"] = sum(c["launches"] for row in out["cases"]
-                          for c in row["calls"].values())
+    out["launches_fft"] = sum(c["launches"] for row in out["cases"]
+                              for c in row["calls"].values())
+    out["launches_ft"] = sum(c["launches"] for row in out["ft"]
+                             for c in row["calls"].values())
+    out["launches_spectral"] = sum(c["launches"] for row in out["spectral"]
+                                   for c in row["calls"].values())
+    out["launches"] = (out["launches_fft"] + out["launches_ft"]
+                       + out["launches_spectral"])
     return out
+
+
+def _transposed_block(ref, pen, r0, rows, d):
+    """Rank ``d``'s block of the transposed order of ``ref`` (B, N)'s
+    rows ``r0 .. r0+rows``: y[k1*N2 + k2] = X[k1 + N1*k2]."""
+    b, n = ref.shape
+    span = n // pen.shards
+    return ref.view(b, pen.n2, pen.n1).transpose(1, 2).reshape(b, n)[
+        r0:r0 + rows, d * span:(d + 1) * span]
+
+
+def _ft_scenarios(b, g, n1, n, thr, shards, matrix):
+    """The fault matrix of one ft case: (name, inject rows, keywords,
+    expected verdict), each SEU's |eps| from the verdict's score formula
+    (score ~ |eps| / (sqrt(n1) sqrt(s N)) for unit-variance complex
+    normal inputs) at ``SHARD_FT_SCORE`` times ``thr``. The four SEUs sit
+    in four groups on fft ranks j mod ``shards``: one a rank on either
+    mesh of four."""
+    s = b // g
+    eps = SHARD_FT_SCORE * thr * math.sqrt(n1) * math.sqrt(s * n)
+
+    def seu(dev, sig, row, col):
+        return [dev, sig, row, col, 1, eps, -0.5 * eps]
+
+    four = [seu(j % shards, j * s + (j + 1) % s, 3 + j, j)
+            for j in range(g)]
+    locs = [j * s + (j + 1) % s for j in range(g)]
+    t = dict(natural_order=False)
+    cases = [("clean transposed", None, t, "clean"),
+             ("four SEUs transposed", four, t, ("four", locs))]
+    if matrix:
+        double = [seu(0, 2 * s, 5, 1), seu(1, 2 * s + 1, 6, 2)]
+        cases += [("clean natural", None, {}, "clean"),
+                  ("correct=False", four, dict(t, correct=False),
+                   "nocorrect"),
+                  ("double hit", double, t, "double"),
+                  ("double hit, recompute", double,
+                   dict(t, recompute_uncorrectable=True), "recompute"),
+                  ("cs2 row", [seu(1, b + 1, 4, 2)], t, ("checksum", 1)),
+                  ("cs3 row", [seu(2, b + g + 2, 4, 2)], t,
+                   ("checksum", 2)),
+                  ("four SEUs transposed chunks=2", four,
+                   dict(t, chunks=2), ("four", locs))]
+    return cases
+
+
+def _ft_verdict_failures(res, want, g, correct_err):
+    """What in ``res``'s telemetry is not the scenario ``want``'s."""
+    fl = res.flagged.tolist()
+    fix = res.correctable.tolist()
+    csf = res.checksum_fault.tolist()
+    bad = res.uncorrectable.tolist()
+    kind = want if isinstance(want, str) else want[0]
+    out = []
+    if kind == "clean":
+        if any(fl):
+            out.append(f"flagged {fl}")
+    elif kind == "four":
+        if not (all(fl) and all(fix)) or res.location.tolist() != want[1] \
+                or int(res.corrected) != g:
+            out.append(f"flagged {fl} correctable {fix} location "
+                       f"{res.location.tolist()} corrected "
+                       f"{int(res.corrected)}")
+    elif kind == "nocorrect":
+        if not all(fl) or int(res.corrected) != 0:
+            out.append(f"flagged {fl} corrected {int(res.corrected)}")
+    elif kind == "double":
+        if bad != [j == 2 for j in range(g)] or any(fix) \
+                or int(res.corrected) != 0:
+            out.append(f"uncorrectable {bad} correctable {fix}")
+    elif kind == "recompute":
+        if int(res.recomputed) != 1:
+            out.append(f"recomputed {int(res.recomputed)}")
+    elif kind == "checksum":
+        want_csf = [j == want[1] for j in range(g)]
+        if csf != want_csf or fl != want_csf or any(fix):
+            out.append(f"checksum_fault {csf} flagged {fl}")
+    if kind in ("nocorrect", "double"):
+        if correct_err < 50:
+            out.append(f"the error persists at only {correct_err:.3f} x "
+                       f"tol")
+    elif correct_err > 1:
+        out.append(f"error {correct_err:.3f} x tol")
+    return out
+
+
+def shard_ft_drive(rank, call, fail, err_ratio, gen, trace):
+    """One rank's drive of the grouped two-side ABFT at ``SHARD_FT_CASES``:
+    each scenario's verdicts, its rows against torch.fft (the largest
+    error over the ranks, an all-reduce outside the call), its launches
+    and collectives against the plan's; host ms beside the plain
+    transposed transform's; a primed trace of one clean call on the 1-D
+    mesh (the block_fft passes and the verdict's other kernels)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.fft import FFTSpec, FTConfig, plan
+    from repro_torch.core.fft.distributed import ft_distributed_fft
+    from repro_torch.kernels.trace_age import PRIMER, prime
+    from repro_torch.launch.mesh import make_fft_mesh
+
+    dev = torch.device("cuda", 0)
+    rows_out = []
+    for ci, (dtype, logn, b, g, thr, meshes, matrix) in enumerate(
+            SHARD_FT_CASES):
+        n = 1 << logn
+        gen.manual_seed(SEED + 7 + logn + b)
+        x = torch.randn((b, n), dtype=getattr(torch, dtype), device=dev,
+                        generator=gen)
+        ref = torch.fft.fft(x)
+        for shards, data in meshes:
+            mesh = make_fft_mesh(shards, data)
+            d = mesh.get_local_rank("fft")
+            md = mesh.get_local_rank("data") if data > 1 else 0
+            rows = b // data
+            r0 = md * rows
+            gl = g // data
+            ft = FTConfig(threshold=thr, groups=g)
+            pft = plan(FFTSpec((b, n), dtype=dtype, mesh=mesh, ft=ft,
+                               natural_order=False))
+            pen = pft.pencil
+            tail = pen.launches - 1
+            label = f"ft {dtype} 2^{logn}x{b} G={g} on ({data}, {shards})"
+            row = {"case": label, "n1": pen.n1, "n2": pen.n2, "calls": {},
+                   "errors": {}}
+            real = x.real.element_size()
+            tel = [1, shards * real] if data == 1 else \
+                [2, shards * real + data * (gl * 5 + shards) * real]
+            want_t = _transposed_block(ref, pen, r0, rows, d)
+            # the whole matrix on the 1-D mesh, clean and four SEUs on 2 x 2
+            for name, inj, kw, want in _ft_scenarios(
+                    b, g, pen.n1, n, thr, shards, matrix and data == 1):
+                kw = dict(kw)
+                ce = min(kw.get("chunks", 1), gl)
+                nat = kw.get("natural_order", True)
+                res = call(lambda: ft_distributed_fft(
+                    x, mesh, threshold=thr, groups=g, inject=inj, **kw),
+                    f"{label} {name}")
+                out, launches, coll, ms = res
+                del res
+                blk = out.y.to_local()
+                err = err_ratio(blk, ref[r0:r0 + rows] if nat else want_t)
+                del blk
+                emax = torch.tensor([err], device=dev)
+                dist.all_reduce(emax, op=dist.ReduceOp.MAX)
+                err = float(emax)
+                row["errors"][name] = err
+                for msg in _ft_verdict_failures(out, want, g, err):
+                    fail(f"{label} {name}: {msg}")
+                recomputed = int(out.recomputed)
+                # this data shard reruns the uncorrectable groups it owns
+                mine = sum(out.uncorrectable.tolist()[md * gl:(md + 1) * gl]) \
+                    if kw.get("recompute_uncorrectable") else 0
+                vol = plan(FFTSpec((b, n), dtype=dtype, mesh=mesh, ft=ft,
+                                   chunks=ce, natural_order=nat)).volume
+                want_l = ce * (2 + tail) + mine * (1 + tail)
+                want_c = {"all_to_all": [vol["all_to_all_count"],
+                                         int(vol["all_to_all_bytes"])],
+                          "all_gather": [vol["all_gather_count"],
+                                         int(vol["gather_hlo"])],
+                          "all_reduce": [ce, 3 * gl + ce],
+                          "telemetry_gather": tel}
+                if mine:            # the plain pipeline's, a group
+                    want_c["all_to_all"][0] += mine
+                    want_c["all_to_all"][1] += mine * (
+                        b // g) * n // shards * x.element_size()
+                row["calls"][name] = {
+                    "launches": launches, "collectives": coll,
+                    "host_ms": ms, "flagged": out.flagged.tolist(),
+                    "location": out.location.tolist(),
+                    "group_score": out.group_score.tolist(),
+                    "shard_delta": max(out.shard_delta.tolist()),
+                    "corrected": int(out.corrected),
+                    "recomputed": recomputed}
+                if launches != want_l:
+                    fail(f"{label} {name}: {launches} block_fft launches, "
+                         f"not {want_l}")
+                if coll != want_c:
+                    fail(f"{label} {name}: collectives {coll}, not "
+                         f"{want_c}")
+                if name == "four SEUs transposed":
+                    four_y = out.y.to_local().clone()
+                if name.endswith("chunks=2") and not torch.equal(
+                        out.y.to_local(), four_y):
+                    fail(f"{label}: chunks=2 is not bitwise chunks=1")
+                del out
+            del four_y, want_t
+            # the plain transposed transform of the same input, beside
+            pt = plan(FFTSpec((b, n), dtype=dtype, mesh=mesh,
+                              natural_order=False))
+            res = call(lambda: pt.fft(x), f"{label} plain transposed")
+            row["plain_transposed_host_ms"] = res[3]
+            del res
+            if ci == 0 and data == 1:
+                dist.barrier()
+                ft_distributed_fft(x, mesh, threshold=thr, groups=g,
+                                   natural_order=False)
+                torch.cuda.synchronize()
+                acts = [torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    prime()
+                    ft_distributed_fft(x, mesh, threshold=thr, groups=g,
+                                       natural_order=False)
+                    torch.cuda.synchronize()
+                kern = [(e.name, e.time_range.elapsed_us() / 1e3)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and PRIMER not in e.name]
+                # the local passes; gloo's collectives and their staging
+                # copies and fills; the rest: the checks', the verdict's
+                # and the relayouts' torch kernels, the five largest
+                parts = {"block_fft": [], "gloo": [], "torch": []}
+                by_name = {}
+                for k, t in kern:
+                    part = "block_fft" if "block_fft" in k else \
+                        "gloo" if k.startswith(("Memcpy", "Memset",
+                                                "gloo:")) else "torch"
+                    parts[part].append(t)
+                    if part == "torch":
+                        by_name.setdefault(k[:60], []).append(t)
+                row["trace"] = {f"{k}_ms": sum(v) for k, v in parts.items()}
+                row["trace"].update({k: len(v) for k, v in parts.items()})
+                row["trace"]["torch_top"] = sorted(
+                    ([k, sum(v), len(v)] for k, v in by_name.items()),
+                    key=lambda r: -r[1])[:5]
+            print(f"{time.perf_counter():.3f} {label} done", file=trace,
+                  flush=True)
+            rows_out.append(row)
+        del x, ref
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def shard_spectral_drive(call, fail, err_ratio, gen):
+    """One rank's drive of the spectral consumers on both meshes
+    (``SHARD_SPECTRAL``): convolve and correlate against torch.fft on the
+    rank's rows, ``chunks=2`` bitwise, the packed real convolution,
+    ``power_spectrum`` in transposed order; launches and collectives
+    against the plan's and ``spectral_volume``'s."""
+    import torch
+
+    from repro_torch.core.fft import plan
+    from repro_torch.core.fft import spectral
+    from repro_torch.core.fft.distributed import pencil, spectral_volume
+    from repro_torch.kernels.stockham import device_key
+    from repro_torch.launch.mesh import make_fft_mesh
+
+    dev = torch.device("cuda", 0)
+    dtype, logl, b = SHARD_SPECTRAL
+    la = lv = 1 << logl
+    nfft = 2 * la
+    gen.manual_seed(SEED + 11)
+    cdt = getattr(torch, dtype)
+    a = torch.randn((b, la), dtype=cdt, device=dev, generator=gen)
+    v = torch.randn((1, lv), dtype=cdt, device=dev, generator=gen)
+    ar = torch.randn((b, la), dtype=torch.float32, device=dev, generator=gen)
+    vr = torch.randn((1, lv), dtype=torch.float32, device=dev, generator=gen)
+    xs = torch.randn((b, nfft), dtype=cdt, device=dev, generator=gen)
+    fv = torch.fft.fft(v, n=nfft)
+    fvr = torch.fft.fft(vr.to(cdt), n=nfft)
+    rows_out = []
+    for shards, data in SHARD_MESHES:
+        mesh = make_fft_mesh(shards, data)
+        d = mesh.get_local_rank("fft")
+        md = mesh.get_local_rank("data") if data > 1 else 0
+        per = b // data
+        w = per // shards
+        r0 = md * per + d * w           # this rank's result rows
+        pen = pencil(nfft, shards, cdt, device_key(dev))
+        tail = pen.launches - 1
+        label = f"spectral {dtype} ({b}, 2^{logl}) on ({data}, {shards})"
+        row = {"case": label, "calls": {}, "errors": {}}
+        fa = torch.fft.fft(a[r0:r0 + w], n=nfft)
+        want = {"convolve": torch.fft.ifft(fa * fv)[:, :la + lv - 1],
+                "correlate": torch.roll(torch.fft.ifft(fa * fv.conj()),
+                                        lv - 1, dims=-1)[:, :la + lv - 1]}
+        del fa
+        fr = torch.fft.fft(ar[r0:r0 + w].to(cdt), n=nfft)
+        want["real convolve"] = torch.fft.ifft(fr * fvr).real[
+            :, :la + lv - 1]
+        del fr
+        item = a.element_size()
+        calls = [("convolve", lambda: spectral.fft_convolve(a, v, mesh),
+                  1, False, 1),
+                 ("correlate", lambda: spectral.correlate(a, v, mesh),
+                  1, False, 1),
+                 ("convolve chunks=2", lambda: plan(spectral.conv_spec(
+                     a, v, mesh, chunks=2)).convolve(a, v), 2, False, 1),
+                 ("real convolve", lambda: spectral.fft_convolve(ar, vr,
+                                                                 mesh),
+                  1, True, 0)]
+        bulk = None
+        for name, fn, ce, real, kv in calls:
+            y, launches, coll, ms = call(fn, f"{label} {name}")
+            vol = spectral_volume(nfft, b, shards, kernel_batch=1,
+                                  itemsize=item, data_shards=data,
+                                  real=real, chunks=ce)
+            want_c = {"all_to_all": [vol["all_to_all_count"],
+                                     int(vol["all_to_all_bytes"])],
+                      "all_gather": [0, 0], "all_reduce": [0, 0],
+                      "telemetry_gather": [0, 0]}
+            want_l = ce * (2 + 2 * tail) + kv
+            row["calls"][name] = {"launches": launches, "collectives": coll,
+                                  "host_ms": ms}
+            if launches != want_l:
+                fail(f"{label} {name}: {launches} block_fft launches, not "
+                     f"{want_l}")
+            if coll != want_c:
+                fail(f"{label} {name}: collectives {coll}, not {want_c}")
+            loc = y.to_local()
+            key = name.replace(" chunks=2", "")
+            row["errors"][name] = err_ratio(loc, want[key])
+            if name == "convolve":
+                bulk = loc.clone()
+            elif name == "convolve chunks=2" and not torch.equal(loc, bulk):
+                fail(f"{label}: chunks=2 is not bitwise chunks=1")
+            del y, loc
+        del bulk, want
+        # the periodogram in transposed order: ONE all-to-all
+        y, launches, coll, ms = call(
+            lambda: spectral.power_spectrum(xs, mesh), f"{label} power")
+        rows_ps = per
+        ref = torch.fft.fft(xs[md * per:(md + 1) * per]).abs().square_() \
+            / nfft
+        row["errors"]["power_spectrum"] = err_ratio(
+            y.to_local(), _transposed_block(ref, pen, 0, rows_ps, d))
+        del ref, y
+        want_c = {"all_to_all": [1, per * nfft * item // shards],
+                  "all_gather": [0, 0], "all_reduce": [0, 0],
+                  "telemetry_gather": [0, 0]}
+        row["calls"]["power_spectrum"] = {"launches": launches,
+                                          "collectives": coll,
+                                          "host_ms": ms}
+        if launches != 1 + tail:
+            fail(f"{label} power_spectrum: {launches} launches, not "
+                 f"{1 + tail}")
+        if coll != want_c:
+            fail(f"{label} power_spectrum: collectives {coll}, not "
+                 f"{want_c}")
+        for key, e in row["errors"].items():
+            if e > 1:
+                fail(f"{label} {key}: error {e:.3f} x tol")
+        rows_out.append(row)
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 SHARD_ERRORS = ("fft", "ifft", "fft_transposed", "ifft_transposed_in",
                 "fft_shard_signals", "pass1_vs_plain", "pass2_vs_plain",
-                "passA_vs_plain", "passB_vs_plain")
+                "passA_vs_plain", "passB_vs_plain", "checksum_rows_vs_plain")
 
 
 def shard_launch_checks(pen, x, yt_local, d, err_ratio):
@@ -4007,8 +4407,10 @@ def shard_launch_checks(pen, x, yt_local, d, err_ratio):
     twiddle of the rank's global columns) on ``x``, every pass of the N2
     tail in its layout on pass 1's output, pass A's launches (two on a
     two-pass tail, the second reading the first's output) on this rank's
-    transposed-order block ``yt_local`` (B, N/D), and pass B. Returns the
-    largest error over tolerance of each step."""
+    transposed-order block ``yt_local`` (B, N/D), pass B, and the ABFT's
+    second pass-1 launch: 2G = 8 checksum rows into a send buffer of B +
+    8 rows at row offset B. Returns the largest error over tolerance of
+    each step."""
     import torch
 
     from repro_torch.core.fft import distributed as sd
@@ -4054,6 +4456,22 @@ def shard_launch_checks(pen, x, yt_local, d, err_ratio):
     _, rec["passB_vs_plain"] = both(
         pen.pass_b_launch(w), y.transpose(0, 1).reshape(w, pen.n1, pen.n2),
         (w, pen.n1, pen.n2))
+    del y
+    cs = torch.randn((8, pen.n1, pen.n2l), dtype=x.dtype, device=x.device,
+                     generator=torch.Generator(device=x.device).manual_seed(
+                         SEED + d))
+    nrow = b + 8
+    launch = pen.pass1_launch(sd.Source(cs.view(-1), 0, pen.n1 * pen.n2l,
+                                        pen.n2l), 8, d, inverse=False,
+                              out_rows=nrow)
+    got, want = (torch.zeros((shards, pen.n1l, nrow, pen.n2l),
+                             dtype=x.dtype, device=x.device)
+                 for _ in range(2))
+    launch(cs.view(-1), got.view(-1)[b * pen.n2l:])
+    launch(cs.view(-1), want.view(-1)[b * pen.n2l:], plain=True)
+    rec["checksum_rows_vs_plain"] = err_ratio(got, want)
+    if got[:, :, :b].any():
+        rec["checksum_rows_vs_plain"] = float("inf")   # wrote a data row
     return rec
 
 
@@ -4141,8 +4559,35 @@ def sharded_phase(dev, cuda_ms):
             f"launches {calls}; local passes "
             f"{row.get('local_passes_device_ms', float('nan')):.4f} device "
             f"ms")
+    for i, row in enumerate(ranks[0]["ft"]):
+        host = {r: {k: round(c["host_ms"], 1) for k, c in
+                    res["ft"][i]["calls"].items() if "transposed" in k}
+                for r, res in enumerate(ranks)}
+        plain = [round(res["ft"][i]["plain_transposed_host_ms"], 1)
+                 for res in ranks]
+        four = row["calls"]["four SEUs transposed"]
+        errs = {k: round(e, 4) for k, e in row["errors"].items()}
+        launches = {k: c["launches"] for k, c in row["calls"].items()}
+        log(f"  {row['case']} (n1 {row['n1']}, n2 {row['n2']}): err/tol "
+            f"{errs}; launches {launches}; four SEUs scores "
+            f"{[f'{v:.3g}' for v in four['group_score']]}, clean "
+            f"{max(row['calls']['clean transposed']['group_score']):.3g}, "
+            f"shard_delta {four['shard_delta']:.3g}; gloo host-staged ms a "
+            f"rank {host}, the plain transposed transform {plain}"
+            + (f"; traced: {row['trace']}" if "trace" in row else ""))
+    for i, row in enumerate(ranks[0]["spectral"]):
+        errs = {k: round(max(res["spectral"][i]["errors"][k]
+                             for res in ranks), 4)
+                for k in row["errors"]}
+        calls = {k: (round(c["host_ms"], 1), c["launches"])
+                 for k, c in row["calls"].items()}
+        log(f"  {row['case']}: err/tol (worst rank) {errs}; host ms and "
+            f"launches {calls}")
     rec["ranks"] = ranks
     rec["launches"] = sum(res["launches"] for res in ranks)
+    rec["launches_ft"] = sum(res["launches_ft"] for res in ranks)
+    rec["launches_spectral"] = sum(res["launches_spectral"]
+                                   for res in ranks)
 
     # (a) one rank on NCCL: make_fft_mesh(1) plans the local transform
     with socket.socket() as s:
@@ -4177,6 +4622,52 @@ def sharded_phase(dev, cuda_ms):
                                lambda: torch.fft.fft(x))}
         rec["launches"] += one
         del x, y1
+        # the ft plan on the one-rank mesh is the local one: the fused
+        # kernel, the same result as without the mesh
+        from repro_torch.core.fft import FTConfig, spectral
+        from repro_torch.kernels.stockham_abft import abft_fft
+        dtype, logn, b = SHARD_ONE_RANK_FT
+        n = 1 << logn
+        x = torch.randn((b, n), dtype=getattr(torch, dtype), device=dev,
+                        generator=gen)
+        pf1 = plan(FFTSpec((b, n), dtype=dtype, ft=FTConfig(), mesh=mesh))
+        pf0 = plan(FFTSpec((b, n), dtype=dtype, ft=FTConfig()))
+        check(pf1.decomp == "local", f"phase 13: the one-rank ft plan is "
+              f"{pf1!r}")
+        b0, a0 = block_fft.launches, abft_fft.launches
+        r1 = pf1.ft_fft(x)
+        torch.cuda.synchronize()
+        ft_launches = (block_fft.launches - b0, abft_fft.launches - a0)
+        r0 = pf0.ft_fft(x)
+        check(ft_launches == (1, 1), f"phase 13: the one-rank ft plan "
+              f"launched {ft_launches} (block_fft, abft_fft)")
+        check(torch.equal(r1.y, r0.y) and torch.equal(r1.flagged,
+                                                      r0.flagged),
+              "phase 13: the one-rank ft plan is not the local one")
+        # fft_convolve on the one-rank mesh is the local convolution
+        dtype, logl, b = SHARD_ONE_RANK_CONV
+        a = torch.randn((b, 1 << logl), dtype=getattr(torch, dtype),
+                        device=dev, generator=gen)
+        v = torch.randn((1, 1 << logl), dtype=getattr(torch, dtype),
+                        device=dev, generator=gen)
+        b1 = block_fft.launches
+        c1 = spectral.fft_convolve(a, v, mesh)
+        torch.cuda.synchronize()
+        conv_launches = block_fft.launches - b1
+        check(torch.equal(c1, spectral.fft_convolve(a, v)),
+              "phase 13: fft_convolve on the one-rank mesh is not the "
+              "local one")
+        rec["one_rank"]["ft_fft"] = {
+            "case": f"{SHARD_ONE_RANK_FT[0]} 2^{SHARD_ONE_RANK_FT[1]}x"
+                    f"{SHARD_ONE_RANK_FT[2]}",
+            "launches": {"block_fft": ft_launches[0],
+                         "abft_fft": ft_launches[1]}}
+        rec["one_rank"]["convolve"] = {
+            "case": f"{dtype} ({b}, 2^{logl}) with a (1, 2^{logl}) kernel",
+            "launches": conv_launches}
+        rec["launches"] += ft_launches[0] + conv_launches
+        rec["abft_launches"] = ft_launches[1]
+        del x, r1, r0, a, v, c1
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -5071,7 +5562,9 @@ def main() -> int:
     one = sharded["one_rank"]
     log(f"sharded FFT: four gloo ranks on one card took "
         f"{sharded['four_ranks_seconds']:.1f} s ({sharded['launches']} "
-        f"block_fft launches in all); one NCCL rank, make_fft_mesh(1), "
+        f"block_fft launches in all, {sharded['launches_ft']} of the ABFT "
+        f"and {sharded['launches_spectral']} of the spectral consumers); "
+        f"one NCCL rank, make_fft_mesh(1), "
         f"{one['case']}: plan.fft on the mesh {one['mesh_ms']:.4f} ms, "
         f"plan.fft {one['plan_ms']:.4f} ms, torch.fft "
         f"{one['torch_fft_ms']:.4f} ms ({smi})")
@@ -5092,7 +5585,10 @@ def main() -> int:
          "launches_by_path": {"fft": launches["block_fft"],
                               "extensions": ext_launches["block_fft"],
                               "serve": serve["launches"]["block_fft"],
-                              "sharded": sharded["launches"]},
+                              "sharded": sharded["launches"],
+                              "sharded_ft": sharded["launches_ft"],
+                              "sharded_spectral":
+                                  sharded["launches_spectral"]},
          "shapes": fft_shapes, "extensions": ext_rows,
          "axis_layouts": axis_rows, "serve": serve, "sharded": sharded},
         {"name": "abft_fft", "route": "cuda",
@@ -5101,7 +5597,8 @@ def main() -> int:
          "launches": launches["abft_fft"],
          "launches_by_path": {"fft": launches["abft_fft"],
                               "extensions": ext_launches["abft_fft"],
-                              "serve": serve["launches"]["abft_fft"]},
+                              "serve": serve["launches"]["abft_fft"],
+                              "sharded_one_rank": sharded["abft_launches"]},
          "launches_per_call": per_call["abft_fft"],
          "max_abs_err": kerr["abft_fft"], "max_abs_err_parts": abft_parts,
          "max_err_over_tol": kratio["abft_fft"], "ms": abft_ms,

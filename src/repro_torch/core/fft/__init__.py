@@ -1,6 +1,7 @@
 """TurboFFT core: plans, factor/twiddle tables, Stockham FFT, large-N passes,
 the local extensions (real-input, 2-D/n-D, spectral consumers), the sharded
-1-D transform on torch.distributed and the plan/execute front door."""
+1-D transform, its grouped ABFT and spectral round trip on
+torch.distributed, and the plan/execute front door."""
 from . import factors
 from .plan import (Plan, StagePlan, make_plan, block_radices,
                    plan_from_reference)
@@ -25,12 +26,14 @@ __all__ += ["fft_convolve", "correlate", "power_spectrum", "conv_spec"]
 
 from .distributed import (DistPlan, make_dist_plan,  # noqa: E402
                           distributed_fft, distributed_ifft,
+                          DistFFTResult, ft_distributed_fft,
                           resolve_abft_groups, resolve_chunks,
                           choose_chunks, collective_volume, spectral_volume,
                           FFT_AXIS, DATA_AXIS)
 
 __all__ += ["DistPlan", "make_dist_plan", "distributed_fft",
-            "distributed_ifft", "resolve_abft_groups", "resolve_chunks",
+            "distributed_ifft", "DistFFTResult", "ft_distributed_fft",
+            "resolve_abft_groups", "resolve_chunks",
             "choose_chunks", "collective_volume", "spectral_volume",
             "FFT_AXIS", "DATA_AXIS"]
 

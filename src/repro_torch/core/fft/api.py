@@ -12,11 +12,13 @@ on those stage plans and tables.
 A spec with a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with an
 ``fft`` dimension of size > 1) plans the sharded rank-1 transform of
 ``core.fft.distributed``: ``fft``/``ifft`` (natural or transposed order,
-``chunks`` transactions, the batch over a ``data`` dimension) and the
-packed ``rfft``/``irfft``, each rank running the pencil pipeline's local
-passes on the block-FFT kernel. Still to port, and raising
-``NotImplementedError``: the sharded ABFT (``ft`` on a mesh, ROADMAP queue 1
-item 10.2) and the n-D, real rank-2 and spectral mesh paths (item 10.3).
+``chunks`` transactions, the batch over a ``data`` dimension), the packed
+``rfft``/``irfft``, the grouped two-side ABFT ``ft_fft`` and the spectral
+consumers ``convolve``/``correlate``/``power_spectrum`` (the transposed
+round trip), each rank running the pencil pipeline's local passes on the
+block-FFT kernel. Still to port, and raising ``NotImplementedError``: the
+n-D and real rank-2 mesh paths, ``ft`` at rank 2 among them (ROADMAP
+queue 1 item 10.3).
 """
 from __future__ import annotations
 
@@ -37,7 +39,6 @@ __all__ = ["FFTSpec", "FTConfig", "FFTPlan", "plan", "spec_for",
 
 _COMPLEX_DTYPES = {"complex64": torch.complex64,
                    "complex128": torch.complex128}
-_ITEM_10_2 = distributed._ITEM_10_2
 _ITEM_10_3 = distributed._ITEM_10_3
 
 
@@ -67,11 +68,14 @@ class FFTSpec:
     ``data_axis`` (auto-detected ``"data"``; None replicates it),
     ``natural_order=False`` is the FFTW-MPI transposed pairing, and
     ``chunks`` splits the batch into that many overlapped transactions (0 =
-    auto from the modelled all-to-all bytes; results are bitwise the same
-    for every count). ``decomp`` is the n-D slab/pencil knob (rank >= 2).
-    On a mesh of one ``fft`` rank the plan is the local one. ``ft``, rank
-    2/3 and real rank 2 on a sharded mesh raise ``NotImplementedError``
-    (ROADMAP queue 1 items 10.2 and 10.3).
+    auto from the modelled all-to-all bytes, or ``ft.transactions`` on an
+    ft spec; results are bitwise the same for every count). ``ft`` on a
+    sharded rank-1 spec is the grouped two-side ABFT (``ft.groups`` /
+    ``ft.group_size`` checksum groups, their transactions whole groups).
+    ``decomp`` is the n-D slab/pencil knob (rank >= 2). On a mesh of one
+    ``fft`` rank the plan is the local one. Rank 2/3 and real rank 2 on a
+    sharded mesh raise ``NotImplementedError`` (ROADMAP queue 1 item
+    10.3).
     """
 
     shape: tuple[int, ...]
@@ -126,13 +130,11 @@ class FFTSpec:
                 f"bulk-synchronous, k = k transactions), got "
                 f"{self.chunks!r}")
         if sharded and self.decomp != "local":
-            if self.ft is not None:
-                raise NotImplementedError(
-                    f"fault-tolerant transforms on a mesh (FFTSpec.ft with "
-                    f"a sharded mesh) are not ported yet: {_ITEM_10_2}")
             if self.rank != 1:
                 raise NotImplementedError(
-                    f"rank-{self.rank} {'real ' if self.real else ''}"
+                    f"rank-{self.rank} "
+                    f"{'fault-tolerant ' if self.ft is not None else ''}"
+                    f"{'real ' if self.real else ''}"
                     f"transforms on a mesh are not ported yet: "
                     f"{_ITEM_10_3}")
             if len(self.shape) != 2:
@@ -282,10 +284,13 @@ class FFTPlan(planbase.Plan):
 
     On a sharded mesh a rank-1 plan is ``decomp="pencil"``: it resolves
     the split (``dist_plan``), the batch's data dimension (``daxis``,
-    ``dsize``), the transaction count (``chunks``), the per-rank
+    ``dsize``), an ft plan's checksum groups (``groups``), the transaction
+    count (``chunks``; whole groups on an ft plan), the per-rank
     collective volume (``volume``, the reference's ``collective_volume``)
     and the placements of its operands, and binds the pencil pipeline's
-    per-shard steps (``pencil``: stage and twiddle tables on the device).
+    per-shard steps (``pencil``: stage and twiddle tables on the device;
+    ``spectral_pencil``, the full-length one its spectral consumers run,
+    which a real plan keeps beside its half-length ``pencil``).
     """
 
     def __init__(self, spec: FFTSpec):
@@ -307,8 +312,15 @@ class FFTPlan(planbase.Plan):
         self.daxis = (distributed._resolve_data_axis(mesh, spec.data_axis)
                       if self.sharded else None)
         self.dsize = mesh_size(mesh, self.daxis) if self.daxis else 1
+        if spec.ft is not None and self.sharded:
+            # groups are a mesh-path knob; the local fused-kernel path
+            # groups by ``transactions`` instead
+            self.groups = distributed.resolve_abft_groups(
+                self.batch, groups=spec.ft.groups,
+                group_size=spec.ft.group_size, data_shards=self.dsize)
         self.chunks = 1
         self.dist_plan = self.volume = self.pencil = None
+        self.spectral_pencil = None
         self._rdtype = multidim._real_of(spec.torch_dtype)
         self._fwd = self._inv = None      # C2C executors (None: none bound)
         if spec.real:
@@ -329,38 +341,50 @@ class FFTPlan(planbase.Plan):
             for inv in (False, True))
 
     def _model_dsize(self) -> int:
-        """The data-shard count the pipeline uses: the batch must divide
-        over the data dimension, else it replicates."""
+        """The data-shard count the pipeline uses: the batch (and an ft
+        plan's groups) must divide over the data dimension, else it
+        replicates."""
         if self.dsize <= 1 or self.batch % self.dsize:
+            return 1
+        if self.groups is not None and self.groups % self.dsize:
             return 1
         return self.dsize
 
     def _resolve_sharded(self, n: int, *, real: bool = False):
         """Resolve the pencil split of an ``n``-point transform (the packed
         half length of a real one): ``dist_plan``, ``chunks`` (auto from
-        the modelled all-to-all bytes when 0), ``volume`` and the
-        per-shard steps. The real transforms themselves run as one
+        the modelled all-to-all bytes when 0, ``ft.transactions`` on an ft
+        plan, whose transactions carry whole checksum groups), ``volume``
+        and the per-shard steps. The real transforms themselves run as one
         transaction: their ``volume`` models one, and ``chunks`` is kept
         for the spectral consumers, as the reference does."""
         spec = self.spec
+        ft = spec.ft
         self.decomp = "pencil"
         m = n // 2 if real else n
         self.dist_plan = distributed.make_dist_plan(m, self.shards,
                                                     spec.axis)
         dsz = self._model_dsize()
         kw = dict(itemsize=spec.torch_dtype.itemsize, data_shards=dsz,
-                  natural_order=spec.natural_order, real=real)
+                  natural_order=spec.natural_order, real=real,
+                  ft=ft is not None, groups=self.groups or 1)
         batch = max(self.batch, 1)
-        rows = batch // dsz
-        requested = spec.chunks or distributed.choose_chunks(
-            distributed.collective_volume(n, batch, self.shards,
-                                          **kw)["all_to_all_bytes"], rows)
-        self.chunks = distributed.resolve_chunks(rows, requested)
+        rows = (self.groups if ft is not None else batch) // dsz
+        requested = spec.chunks
+        if requested == 0:
+            requested = ft.transactions if ft is not None else \
+                distributed.choose_chunks(distributed.collective_volume(
+                    n, batch, self.shards, **kw)["all_to_all_bytes"], rows)
+        self.chunks = distributed.resolve_chunks(rows, max(1, requested)) \
+            if rows else 1
         self.volume = distributed.collective_volume(
             n, batch, self.shards, chunks=1 if real else self.chunks, **kw)
         from repro_torch.kernels.stockham import device_key
+        key = device_key(self.device)
         self.pencil = distributed.pencil(m, self.shards, spec.torch_dtype,
-                                         device_key(self.device))
+                                         key)
+        self.spectral_pencil = self.pencil if not real else \
+            distributed.pencil(n, self.shards, spec.torch_dtype, key)
 
     def _mesh_view(self):
         return distributed._Mesh.of(self.mesh, self.spec.axis, self.daxis)
@@ -443,6 +467,13 @@ class FFTPlan(planbase.Plan):
             self._rinv = self._sharded_irfft
             return
         half = self._axis(ops, cc // 2) if cc % 2 == 0 else None
+        if self.rank == 1 and self.sharded and _feasible_1d(cc, self.shards):
+            # the half length does not split, the spectral consumers' full
+            # length does: they run on the mesh, the rfft locally
+            from repro_torch.kernels.stockham import device_key
+            self.spectral_pencil = distributed.pencil(
+                cc, self.shards, self.spec.torch_dtype,
+                device_key(self.device))
         if self.rank == 1:
             self.axes = (half,)
             full = self._axis(ops, cc)
@@ -508,11 +539,6 @@ class FFTPlan(planbase.Plan):
         from repro_torch.parallel.fft_sharding import shard_signals
         return shard_signals(x, self.mesh, self.spec.axis,
                              data_axis=self.daxis)
-
-    def _local_only(self, what: str):
-        if self.decomp == "pencil":
-            raise NotImplementedError(
-                f"{what} on a mesh is not ported yet: {_ITEM_10_3}")
 
     def _c2c_only(self):
         if self.spec.real:
@@ -598,9 +624,12 @@ class FFTPlan(planbase.Plan):
 
     def ft_fft(self, x, *, inject=None, bs=None):
         """Fault-tolerant forward transform (requires ``spec.ft``, which
-        only a rank-1 complex spec takes): the fused ABFT kernel pipeline
-        (:class:`~repro_torch.kernels.ops.FTFFTResult`); ``bs`` is its
-        per-call tile-size override."""
+        only a rank-1 complex spec takes). On a mesh: the sharded grouped
+        two-side ABFT (:class:`~repro_torch.core.fft.distributed
+        .DistFFTResult`; ``inject`` its 7-field rows). Locally: the fused
+        ABFT kernel pipeline (:class:`~repro_torch.kernels.ops
+        .FTFFTResult`; ``inject`` the kernel's 6-field descriptor, ``bs``
+        its per-call tile-size override)."""
         ft = self.spec.ft
         if ft is None:
             raise ValueError("this plan has no FTConfig — set FFTSpec.ft")
@@ -610,7 +639,16 @@ class FFTPlan(planbase.Plan):
         if b != self.batch:
             raise ValueError(
                 f"operand batch {b} does not match the planned {self.batch} "
-                f"— build a new FFTSpec")
+                f"— the ABFT group layout (G={self.groups}) was resolved "
+                f"for the spec's batch; build a new FFTSpec")
+        if self.decomp == "pencil":
+            return distributed.ft_sharded(
+                x, self.pencil, self._mesh_view(), groups=self.groups,
+                threshold=float(ft.threshold), correct=bool(ft.correct),
+                natural_order=self.spec.natural_order, chunks=self.chunks,
+                inject=distributed._inject_rows(inject, x.dtype,
+                                                self.device),
+                recompute=bool(ft.recompute_uncorrectable))
         from repro_torch.kernels import ops as _ops
         return _ops._ft_fft_local(
             x.reshape(b, self.n), self.local_plan, self.tables[False][0],
@@ -623,10 +661,10 @@ class FFTPlan(planbase.Plan):
     def _operands(self, a, v):
         """``a`` and ``v`` on the plan's device, in its real precision when
         both are real (the packed path) and its complex one otherwise;
-        and whether they are both real."""
-        self._local_only("the spectral consumers (convolve, correlate)")
-        a = torch.as_tensor(a)
-        v = torch.as_tensor(v)
+        and whether they are both real. On a mesh a DTensor operand is
+        replicated first: the round trip reads global rows."""
+        a, v = (self._replicated_local(t) if _is_dtensor(t)
+                else torch.as_tensor(t) for t in (a, v))
         _, real = spectral._result_dtypes(a, v)
         if not real and self.spec.real:
             raise ValueError(
@@ -638,9 +676,10 @@ class FFTPlan(planbase.Plan):
 
     def convolve(self, a, v, *, mode: str = "full"):
         """Linear convolution at the planned transform size: 1-D through
-        the spectral pair (padded to the plan's N), 2-D through the round
-        trip over the planned (nr, nc) grid. The planned size(s) must be
-        the padded FFT size of the operands (``spectral.conv_spec``,
+        the spectral pair (padded to the plan's N; on a mesh the
+        transposed round trip), 2-D through the round trip over the
+        planned (nr, nc) grid. The planned size(s) must be the padded FFT
+        size of the operands (``spectral.conv_spec``,
         ``multidim.fft_convolve2``)."""
         if self.rank == 1:
             return self._spectral_pair(a, v, conj_kernel=False, mode=mode)
@@ -671,32 +710,48 @@ class FFTPlan(planbase.Plan):
     def _spectral_pair(self, a, v, *, conj_kernel: bool, mode: str):
         a, v, real = self._operands(a, v)
         la, lv = a.shape[-1], v.shape[-1]
-        nfft = spectral._conv_nfft(la, lv)
+        nfft = spectral._conv_nfft(la, lv, self.shards)
         if nfft != self.tshape[0]:
             raise ValueError(
                 f"operand lengths ({la}, {lv}) need an nfft={nfft} plan, "
                 f"but this plan is for {self.tshape[0]} — build the spec "
                 f"with spectral.conv_spec / fft_convolve")
         out_len = nfft if conj_kernel else la + lv - 1
-        pair = spectral._spectral_real if real else spectral._spectral_pair
-        full = pair(spectral._pad_tail(a, nfft), spectral._pad_tail(v, nfft),
-                    conj_kernel=conj_kernel, out_len=out_len,
-                    fwd=self._fwd, inv=self._inv)
+        a, v = spectral._pad_tail(a, nfft), spectral._pad_tail(v, nfft)
+        on_mesh = self.spectral_pencil is not None
+        if on_mesh:
+            full, like = spectral._on_mesh(
+                a, v, self.spectral_pencil, self._mesh_view(),
+                conj_kernel=conj_kernel, real=real, out_len=out_len,
+                chunks=self.chunks)
+        else:
+            pair = spectral._spectral_real if real \
+                else spectral._spectral_pair
+            full = pair(a, v, conj_kernel=conj_kernel, out_len=out_len,
+                        fwd=self._fwd, inv=self._inv)
         if conj_kernel:
             full = torch.roll(full, lv - 1, dims=-1)[..., :la + lv - 1]
-        return spectral._crop(full, la, lv, mode)
+        out = spectral._crop(full, la, lv, mode)
+        return like(out) if on_mesh else out
 
     def power_spectrum(self, x):
-        """Periodogram ``|X|^2 / N`` over the planned axes (natural
-        order). A real plan returns the one-sided ``N/2+1``-bin spectrum
-        via the packed rfft."""
-        self._local_only("power_spectrum")
+        """Periodogram ``|X|^2 / N`` over the planned axes; on a sharded
+        transposed-order plan the bins stay in the transposed digit order
+        (one all-to-all, no all-gather). A real plan returns the one-sided
+        ``N/2+1``-bin spectrum via the packed rfft (natural order)."""
         if self.spec.real:
             y = self.rfft(x)
         else:
             x = self._coerce(x)
             self._check_tshape(x)
             y = self._fwd(x)
+        if _is_dtensor(y):
+            from torch.distributed.tensor import DTensor
+
+            return DTensor.from_local(
+                y.to_local().abs().square_().div_(self.n), y.device_mesh,
+                y.placements, run_check=False, shape=y.shape,
+                stride=y.stride())
         return y.abs().square_().div_(self.n)
 
     def __repr__(self):

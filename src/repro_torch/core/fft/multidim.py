@@ -266,9 +266,12 @@ def fft_convolve2(a, v, mesh=None, *, mode: str = "full",
     item 10.3 and raises.
     """
     from . import api
-    from .spectral import _no_mesh, _result_dtypes
+    from .distributed import _ITEM_10_3
+    from .spectral import _result_dtypes
 
-    _no_mesh(mesh, "fft_convolve2")
+    if mesh is not None:
+        raise NotImplementedError(f"fft_convolve2 on a mesh is not ported "
+                                  f"yet: {_ITEM_10_3}")
     a = torch.as_tensor(a)
     v = torch.as_tensor(v)
     if a.dim() < 2 or v.dim() < 2:

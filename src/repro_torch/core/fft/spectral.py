@@ -8,24 +8,25 @@ circular convolution is ``imag(.) / 2`` of one self-product, with the kernel
 riding the imaginary part. Correlation of real operands is the same trick
 on the circularly reversed kernel.
 
-The reference's mesh pipelines (transposed digit order, two all-to-alls)
-are ROADMAP queue 1 item 10.3: ``mesh=`` raises there.
+On a mesh (a ``DeviceMesh`` with an ``fft`` dimension of more than one
+rank) the round trip stays in the FFTW-MPI transposed digit order: the
+forward's pass 1 of the signal rows and of the kernel's rows go into one
+send buffer, ONE all-to-all, pass 2, the pointwise product on each rank's
+k1 block, then the TRANSPOSED_IN inverse, whose ONE all-to-all splits the
+batch: exactly two all-to-alls (``2 * chunks``) and no all-gather
+(``distributed.spectral_volume``), each signal's result whole on one rank
+(a ``DTensor``, ``Shard(0)`` over ``data`` then over ``fft``). The real
+pair rides one packed operand there too, so no kernel rows are sent. The
+mesh path takes (B, L) signals.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .distributed import _ITEM_10_3
+from .distributed import _AUTO, FFT_AXIS, _resolve_mesh, mesh_size
 
 __all__ = ["fft_convolve", "correlate", "power_spectrum", "conv_spec"]
-
-
-def _no_mesh(mesh, what: str) -> None:
-    """The spectral consumers run locally: a ``mesh`` raises."""
-    if mesh is not None:
-        raise NotImplementedError(f"{what} on a mesh is not ported yet: "
-                                  f"{_ITEM_10_3}")
 
 
 def _next_pow2(n: int) -> int:
@@ -90,75 +91,151 @@ def _spectral_real(a: torch.Tensor, v: torch.Tensor, *, conj_kernel: bool,
     return inv(fp.mul_(fp)).imag[..., :out_len] * 0.5
 
 
-def _conv_nfft(la: int, lv: int) -> int:
-    """FFT length for a linear result: power of two >= la + lv - 1."""
-    return _next_pow2(la + lv - 1)
+def _on_mesh(a: torch.Tensor, v: torch.Tensor, p, m, *, conj_kernel: bool,
+             real: bool, out_len: int, chunks: int):
+    """The circular product of padded (B, N) ``a`` and (BK, N) ``v`` (BK 1
+    or B; a 1-D ``v`` is one kernel) on this rank of the mesh ``m``, with
+    ``p`` the N-point pencil: the length ``out_len`` head of this rank's
+    rows of the natural-order result (the imaginary half of the packed
+    self-product, halved, for two real operands), and a function that
+    makes a DTensor of the global (B, L) value from this rank's rows cut
+    to L."""
+    from . import distributed
+
+    if a.dim() != 2:
+        raise ValueError(f"the spectral consumers on a mesh take (B, L) "
+                         f"signals, got {tuple(a.shape)}")
+    v = v.reshape(-1, v.shape[-1])
+    b, bk = a.shape[0], v.shape[0]
+    if real:
+        if conj_kernel:
+            v = v.flip(-1).roll(1, -1)
+        pk = torch.complex(a, v.expand_as(a))   # the kernel rides imag
+        rows, spec = distributed._spectral_round_trip(
+            pk, None, p, m, conj_kernel=False, chunks=chunks)
+        rows = rows.imag * 0.5
+    else:
+        if bk not in (1, b):
+            raise ValueError(
+                f"kernel batch must be 1 or match the signal batch ({b}), "
+                f"got {bk}")
+        rows, spec = distributed._spectral_round_trip(
+            a, v, p, m, conj_kernel=conj_kernel, chunks=chunks)
+
+    def like(local: torch.Tensor):
+        shape = (b, local.shape[-1])
+        return distributed._dtensor(local.contiguous(), spec, m, shape)
+
+    return rows[..., :out_len], like
 
 
-def conv_spec(a, v, mesh=None, *, device="cuda"):
+def _conv_nfft(la: int, lv: int, shards: int = 1) -> int:
+    """FFT length for a linear result: power of two >= la + lv - 1, raised
+    to the mesh's least pencil size (shards^2) on ``shards`` ranks."""
+    return max(_next_pow2(la + lv - 1), shards * shards)
+
+
+def _shards(mesh, axis: str) -> int:
+    mesh = _resolve_mesh(mesh, axis)
+    return mesh_size(mesh, axis) if mesh is not None else 1
+
+
+def _device(device, mesh):
+    """``device``, by default the mesh's device type, else the card."""
+    if device is not None:
+        return str(device)
+    return getattr(mesh, "device_type", None) or "cuda"
+
+
+def conv_spec(a, v, mesh=None, *, axis: str = FFT_AXIS,
+              data_axis: str | None = _AUTO, chunks: int = 1, device=None):
     """The :class:`~repro_torch.core.fft.api.FFTSpec` of the padded
     transform one convolution/correlation of ``a`` with ``v`` runs: last
-    axis padded to :func:`_conv_nfft`, batch dims from ``a``, compute dtype
-    promoted across both operands, ``real`` when both are real. Build it
-    once and reuse ``plan(spec).convolve/correlate``."""
+    axis padded to :func:`_conv_nfft` (at least shards^2 on a mesh),
+    batch dims from ``a``, compute dtype promoted across both operands,
+    ``real`` when both are real. Build it once and reuse
+    ``plan(spec).convolve/correlate``. ``chunks`` splits the mesh round
+    trip into that many transactions."""
     from . import api
 
-    _no_mesh(mesh, "conv_spec")
     a = torch.as_tensor(a)
     v = torch.as_tensor(v)
     cdtype, real = _result_dtypes(a, v)
-    nfft = _conv_nfft(a.shape[-1], v.shape[-1])
+    nfft = _conv_nfft(a.shape[-1], v.shape[-1], _shards(mesh, axis))
     return api.FFTSpec(shape=tuple(a.shape[:-1]) + (nfft,), dtype=cdtype,
-                       rank=1, mesh=mesh, real=real, device=str(device))
+                       rank=1, mesh=mesh, axis=axis, data_axis=data_axis,
+                       real=real, chunks=chunks,
+                       device=_device(device, mesh))
 
 
 def fft_convolve(a, v, mesh=None, *, mode: str = "full",
-                 device="cuda") -> torch.Tensor:
-    """Linear convolution along the last axis on ``device``.
+                 axis: str = FFT_AXIS, data_axis: str | None = _AUTO,
+                 device=None) -> torch.Tensor:
+    """Linear convolution along the last axis on ``device`` (by default
+    the mesh's device type, else ``"cuda"``).
 
     Matches ``np.convolve`` (modes full/same/valid) batched over leading
     dims; ``v`` is one kernel ``(Lv,)`` shared by the whole batch or a
     per-signal batch matching ``a``'s leading dims. Real inputs give a real
-    result through one packed transform pair. Sugar over
-    ``plan(conv_spec(a, v)).convolve``; ``mesh`` is ROADMAP queue 1 item
-    10.3 and raises."""
+    result through one packed transform pair. On a mesh (every rank
+    calling it with the global operands) the whole op is two all-to-alls
+    and no all-gather, and the result a DTensor of (B, L) signals whole on
+    their ranks. Sugar over ``plan(conv_spec(a, v, mesh)).convolve``."""
     from . import api
 
-    return api.plan(conv_spec(a, v, mesh, device=device)).convolve(
-        a, v, mode=mode)
+    return api.plan(conv_spec(a, v, mesh, axis=axis, data_axis=data_axis,
+                              device=device)).convolve(a, v, mode=mode)
 
 
-def correlate(a, v, mesh=None, *, mode: str = "full",
-              device="cuda") -> torch.Tensor:
+def correlate(a, v, mesh=None, *, mode: str = "full", axis: str = FFT_AXIS,
+              data_axis: str | None = _AUTO, device=None) -> torch.Tensor:
     """Cross-correlation along the last axis: ``c[m] = sum_k a[m+k] *
     conj(v[k])``, ``np.correlate`` conventions (modes full/same/valid),
-    batched over leading dims. Sugar over
+    batched over leading dims; the same collectives as
+    :func:`fft_convolve` on a mesh. Sugar over
     ``plan(conv_spec(...)).correlate``."""
     from . import api
 
-    return api.plan(conv_spec(a, v, mesh, device=device)).correlate(
-        a, v, mode=mode)
+    return api.plan(conv_spec(a, v, mesh, axis=axis, data_axis=data_axis,
+                              device=device)).correlate(a, v, mode=mode)
 
 
-def power_spectrum(x, mesh=None, *, real: bool = False,
-                   device="cuda") -> torch.Tensor:
+def power_spectrum(x, mesh=None, *, axis: str = FFT_AXIS,
+                   data_axis: str | None = _AUTO,
+                   natural_order: bool | None = None, real: bool = False,
+                   device=None) -> torch.Tensor:
     """Periodogram ``|X[k]|^2 / N`` along the last axis (real output), on
-    ``device``, in natural bin order.
+    ``device`` (by default the mesh's device type, else ``"cuda"``).
+
+    On a mesh the bins stay in the transposed digit order by default
+    (``natural_order=None`` -> False there): the ``|.|^2`` is
+    elementwise, so the whole op is ONE all-to-all and no all-gather;
+    ``natural_order=True`` pays the all-gather for numpy bin order. The
+    local path is natural order.
 
     ``real=True`` (opt-in: it changes the output SHAPE) takes a real input
     through the packed rfft and returns the one-sided ``N/2 + 1``-bin
-    spectrum ``|X[k]|^2 / N`` for ``k <= N/2``."""
+    spectrum ``|X[k]|^2 / N`` for ``k <= N/2`` (natural order only)."""
     from . import api
 
-    _no_mesh(mesh, "power_spectrum")
     x = torch.as_tensor(x)
-    if real and x.is_complex():
-        raise ValueError(f"power_spectrum(real=True) takes a real input, "
-                         f"got {x.dtype}")
+    on_mesh = _shards(mesh, axis) > 1
+    device = _device(device, mesh)
     if real:
-        dt = torch.complex128 if x.dtype == torch.float64 else torch.complex64
-    else:
-        dt = x.dtype if x.is_complex() else torch.complex64
-    spec = api.FFTSpec(shape=tuple(x.shape), dtype=dt, mesh=mesh, real=real,
-                       device=str(device))
+        if x.is_complex():
+            raise ValueError(f"power_spectrum(real=True) takes a real input, "
+                             f"got {x.dtype}")
+        if natural_order is False:
+            raise ValueError(
+                "the one-sided real spectrum is natural-order only — the "
+                "Hermitian unpack indexes bins by k")
+        spec = api.spec_for(x, rank=1, mesh=mesh, axis=axis,
+                            data_axis=data_axis, real=True, device=device)
+        return api.plan(spec).power_spectrum(x)
+    if natural_order is None:
+        natural_order = not on_mesh
+    dt = x.dtype if x.is_complex() else torch.complex64
+    spec = api.FFTSpec(shape=tuple(x.shape), dtype=dt, rank=1, mesh=mesh,
+                       axis=axis, data_axis=data_axis,
+                       natural_order=natural_order, device=device)
     return api.plan(spec).power_spectrum(x)

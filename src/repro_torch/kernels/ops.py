@@ -242,19 +242,34 @@ class FTFFTResult:
 def ft_fft(x, *, transactions: int = 4, bs: int | None = None,
            per_signal: bool = False, encoding: str = "wang",
            threshold: float = 1e-4, correct: bool = True, inject=None,
-           device="cuda") -> FTFFTResult:
+           groups: int | None = None, group_size: int | None = None,
+           natural_order: bool = True,
+           recompute_uncorrectable: bool = False, device="cuda"):
     """Fault-tolerant forward FFT with online detection and correction.
 
     ``per_signal=False`` is the threadblock/multi-transaction scheme of the
     paper (detection via group checksums, location via the e3 encoding);
     ``per_signal=True`` additionally computes thread-level per-signal
-    checksums. ``inject`` is the fused kernel's 6-field SEU descriptor.
+    checksums. Locally ``inject`` is the fused kernel's 6-field SEU
+    descriptor and the result an :class:`FTFFTResult`.
+
+    A ``DTensor`` on a mesh with an ``fft`` dimension of more than one
+    rank (``parallel.shard_signals``) runs the sharded grouped two-side
+    ABFT (``core.fft.distributed.ft_distributed_fft``) and returns its
+    ``DistFFTResult``: ``groups``/``group_size`` pick the checksum groups
+    (auto: one a data shard), ``natural_order=False`` keeps the
+    transposed digit order, ``recompute_uncorrectable`` reruns multi-fault
+    groups, and ``inject`` takes the 7-field rows. Locally those knobs
+    are no-ops and ``transactions`` groups instead.
     """
     x = _as_complex(x)
     ft = fft_api.FTConfig(threshold=threshold, correct=correct,
+                          groups=groups, group_size=group_size,
+                          recompute_uncorrectable=recompute_uncorrectable,
                           transactions=transactions, per_signal=per_signal,
                           encoding=encoding)
-    spec = fft_api.spec_for(x, rank=1, ft=ft, device=device)
+    spec = fft_api.spec_for(x, rank=1, ft=ft, natural_order=natural_order,
+                            device=device)
     return fft_api.plan(spec).ft_fft(x, inject=inject, bs=bs)
 
 

@@ -228,6 +228,75 @@ def test_pencil_launches_match_plain(cuda, dtype, ln, batch):
          (w, p.n1, p.n2))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ft_on_shards_on_card_fault_matrix(cuda, dtype):
+    """The sharded ABFT's loop on 4 shards in one process (threads,
+    ``torch_shards.ft_on_shards``) at 2^14 x 8, G = 4: the catalogue's
+    four-SEU case corrected (natural and transposed order, chunks=2
+    bitwise), its double hit uncorrectable and then recomputed, a clean
+    run unflagged; y against torch.fft."""
+    from repro_torch.core.fft.distributed import make_dist_plan
+    from torch_shards import (FT_SCENARIOS, INJ2, INJ4, expected_verdicts,
+                              ft_on_shards, inject_rows, telemetry)
+
+    n = 1 << 14
+    sp = make_dist_plan(n, 4)
+    name = str(dtype).split(".")[1]
+    x = _rand(8, n, dtype, 5).to(cuda)
+    ref = torch.fft.fft(x).cpu().numpy()
+    thr = FT_SCENARIOS["threshold"][name]
+    mag = FT_SCENARIOS["mag"][name]
+    tol = ATOL[dtype]
+    runs = {}
+    for case, inj, kw in (("clean", None, {}), ("four", INJ4, {}),
+                          ("four_t", INJ4, dict(natural_order=False)),
+                          ("four_t_c2", INJ4, dict(natural_order=False,
+                                                   chunks=2)),
+                          ("double", INJ2, {}),
+                          ("recompute", INJ2, dict(recompute=True))):
+        res = ft_on_shards(x, 4, groups=4, threshold=thr,
+                           inject=inject_rows(inj, mag), **kw)
+        y = res.y
+        if not kw.get("natural_order", True):     # back to natural order
+            y = y.view(8, sp.n1, sp.n2).transpose(1, 2).reshape(8, n)
+        expected_verdicts(case, telemetry(res), y.cpu().numpy(), ref, tol)
+        runs[case] = res
+    assert torch.equal(runs["four_t_c2"].y, runs["four_t"].y)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ln,rows,groups", [(20, 64, 4), (4, 3, 1)],
+                         ids=["2^20", "2^4-odd-offset"])
+def test_checksum_row_launch_at_its_offset_matches_plain(cuda, dtype, ln,
+                                                         rows, groups):
+    """Pass 1 of a transaction's 2G checksum rows, the second launch into
+    the send buffer, at row offset ``rows`` (shard 3 of 4), against its
+    plain version on the same card tensors: the data rows' part of the
+    buffer untouched. At 2^4 the offset is 3 points (24 bytes at
+    complex64), so the launch must leave its 16-byte stores."""
+    from repro_torch.core.fft import distributed as sd
+    from repro_torch.kernels.stockham import device_key
+
+    n, shards, d = 1 << ln, 4, 3
+    p = sd.Pencil(n, shards, dtype, device_key(cuda))
+    nrow = rows + 2 * groups
+    gen = torch.Generator(device=cuda).manual_seed(ln)
+    cs = torch.randn((2 * groups, p.n1, p.n2l), dtype=dtype, device=cuda,
+                     generator=gen)
+    src = sd.Source(cs.view(-1), 0, p.n1 * p.n2l, p.n2l)
+    got, want = (torch.zeros((shards, p.n1l, nrow, p.n2l), dtype=dtype,
+                             device=cuda) for _ in range(2))
+    launch = p.pass1_launch(src, 2 * groups, d, inverse=False,
+                            out_rows=nrow)
+    off = rows * p.n2l
+    if ln == 4 and dtype == torch.complex64:
+        assert got.view(-1)[off:].data_ptr() % 16 != 0
+    launch(cs.view(-1), got.view(-1)[off:])
+    launch(cs.view(-1), want.view(-1)[off:], plain=True)
+    assert not got[:, :, :rows].any()
+    _close(got, want)
+
+
 def test_plan_fft_launches_one_kernel_per_pass(cuda):
     """Under torch.profiler, one plan.fft call at 2^20 runs exactly two CUDA
     kernels, both block_fft: nothing else touches the data."""

@@ -216,11 +216,11 @@ class _FftMesh:
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=_FftMesh(), ft=api.FTConfig()), "item 10.2"),
+    (dict(mesh=_FftMesh(), rank=2, ft=api.FTConfig()), "item 10.3"),
     (dict(mesh=_FftMesh(), rank=2), "item 10.3")])
 def test_spec_rejects_unported_paths_naming_the_roadmap_item(kw, item):
-    """The sharded ABFT (item 10.2) and the n-D mesh paths (item 10.3) are
-    still to port; a spec that asks for them says which item ports it."""
+    """The n-D mesh paths, the 2-D ABFT among them (item 10.3), are still
+    to port; a spec that asks for them says which item ports it."""
     with pytest.raises(NotImplementedError, match=item):
         api.FFTSpec(shape=(8, 64), device="cpu", **kw)
 

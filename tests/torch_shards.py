@@ -1,18 +1,23 @@
 """D shards of the sharded 1-D FFT in one process, for the tests.
 
 Each shard is a thread that runs the mesh pipelines of
-``repro_torch.core.fft.distributed`` (``_dist_fft``, ``_dist_ifft_t``) on
-the global input as a plain tensor, as a rank of a mesh does; their
-exchange (:class:`PermuteExchange`) copies the shards' tensors into each
-other in place of ``dist.all_to_all_single`` and
-``dist.all_gather_into_tensor``. So the loops under test are the ones a
+``repro_torch.core.fft.distributed`` (``_dist_fft``, ``_dist_ifft_t``,
+the ABFT's ``_ft_dist_fft``) on the global input as a plain tensor, as a
+rank of a mesh does; their exchange (:class:`PermuteExchange`) copies the
+shards' tensors into each other in place of ``dist.all_to_all_single``
+and ``dist.all_gather_into_tensor``, and sums them in place of
+``dist.all_reduce``. So the loops under test are the ones a
 mesh runs, on the tensors' own device: plain versions on the CPU, the
 kernels on the card. ``tail`` splits the N2 tail into other local passes
 than ``make_plan``'s, which reaches the two-pass tail at small sizes.
 
-Imported by ``test_torch_distributed_fft.py`` and the card tests of
+It also holds the grouped ABFT's scenario catalogue (``FT_SCENARIOS``,
+``expected_verdicts``), which the thread runs, the four-process spawn and
+the card tests share. Imported by ``test_torch_distributed_fft.py``,
+``test_torch_distributed_abft.py`` and the card tests of
 ``test_torch_gpu.py``; it imports neither JAX nor ``repro``.
 """
+import dataclasses
 import itertools
 import threading
 
@@ -33,7 +38,8 @@ class _Handle:
 
 
 class PermuteExchange:
-    """The all-to-all and all-gather of ``shards`` threads. Every thread
+    """The all-to-all, all-gather and all-reduce of ``shards`` threads.
+    Every thread
     makes the same calls in the same order; call k of a thread posts its
     buffer, and waiting on it meets the other threads twice: once all have
     posted call k, each copies its slices, and once all have copied, a
@@ -45,7 +51,8 @@ class PermuteExchange:
         self.posted = {}
 
     def member(self, rank: int):
-        """(all_to_all, all_gather) of the thread of shard ``rank``."""
+        """(all_to_all, all_gather, all_reduce) of the thread of shard
+        ``rank``."""
         calls = itertools.count()
         d = self.shards
 
@@ -74,7 +81,14 @@ class PermuteExchange:
                 out.view(d, -1)[e].copy_(self.posted[k, e].view(-1))
             self.barrier.wait()
 
-        return all_to_all, all_gather
+        def all_reduce(t):
+            k = next(calls)
+            self.posted[k, rank] = t.clone()
+            self.barrier.wait()
+            t.copy_(sum(self.posted[k, e] for e in range(d)))
+            self.barrier.wait()
+
+        return all_to_all, all_gather, all_reduce
 
 
 def pencil(n: int, shards: int, dtype: torch.dtype, device,
@@ -90,14 +104,17 @@ def pencil(n: int, shards: int, dtype: torch.dtype, device,
 
 
 def run_shards(fn, shards: int):
-    """``fn(rank, all_to_all, all_gather)`` on ``shards`` threads, one a
-    shard; their results in rank order (the first error raised)."""
+    """``fn(rank, mesh)`` on ``shards`` threads, one a shard, ``mesh`` the
+    shard's ``_Mesh`` over the threads' exchange; their results in rank
+    order (the first error raised)."""
     ex = PermuteExchange(shards)
     results, errors = [None] * shards, []
 
     def body(rank):
         try:
-            results[rank] = fn(rank, *ex.member(rank))
+            m = sd._Mesh(None, sd.FFT_AXIS, None, shards, 1, rank, 0,
+                         *ex.member(rank))
+            results[rank] = fn(rank, m)
         except BaseException as e:        # noqa: BLE001 - re-raised below
             errors.append(e)
             ex.barrier.abort()
@@ -126,9 +143,7 @@ def fft_on_shards(x: torch.Tensor, shards: int, *, inverse: bool = False,
     if p is None:
         p = pencil(n, shards, x.dtype, x.device, tail)
 
-    def one(rank, all_to_all, all_gather):
-        m = sd._Mesh(None, sd.FFT_AXIS, None, shards, 1, rank, 0,
-                     all_to_all, all_gather)
+    def one(rank, m):
         if inverse and not natural_order:
             return sd._dist_ifft_t(x, p, m, chunks=chunks)[0]
         return sd._dist_fft(x, p, m, inverse=inverse,
@@ -139,3 +154,129 @@ def fft_on_shards(x: torch.Tensor, shards: int, *, inverse: bool = False,
         assert all(torch.equal(o, outs[0]) for o in outs[1:])
         return outs[0]
     return torch.cat(outs, dim=0 if inverse else 1)
+
+
+def ft_on_shards(x: torch.Tensor, shards: int, *, groups: int,
+                 threshold: float = 1e-4, correct: bool = True,
+                 natural_order: bool = True, chunks: int = 1, inject=None,
+                 recompute: bool = False,
+                 tail: tuple[int, ...] | None = None,
+                 p: sd.Pencil | None = None):
+    """The sharded ABFT of ``x`` (B, N) over ``shards`` in-process shards:
+    the :class:`~repro_torch.core.fft.distributed.DistFFTResult` of shard
+    0 (every shard's telemetry must be the same) with ``y`` the global
+    result, in natural or transposed order."""
+    b, n = x.shape
+    if p is None:
+        p = pencil(n, shards, x.dtype, x.device, tail)
+    inj = sd._inject_rows(inject, x.dtype, x.device)
+
+    def one(rank, m):
+        return sd._ft_dist_fft(x, p, m, groups=groups, threshold=threshold,
+                               correct=correct, natural_order=natural_order,
+                               chunks=chunks, inject=inj,
+                               recompute=recompute)[0]
+
+    outs = run_shards(one, shards)
+    for o in outs[1:]:
+        for f in ("shard_delta", "group_score", "flagged", "location",
+                  "correctable", "checksum_fault", "corrected",
+                  "recomputed"):
+            assert torch.equal(getattr(o, f), getattr(outs[0], f)), f
+    if natural_order:
+        assert all(torch.equal(o.y, outs[0].y) for o in outs[1:])
+        y = outs[0].y
+    else:
+        y = torch.cat([o.y for o in outs], dim=1)
+    return dataclasses.replace(outs[0], y=y)
+
+
+# The grouped ABFT's scenario catalogue (tests/test_abft_groups.py:113-182,
+# with the chunked matrix of tests/test_fft_overlap.py:219-262): b = 8
+# signals of 2^12 points in G = 4 groups of 2; each inject row's eps in
+# units of ``mag``. ``ref``: the reference runs the case too (on its 1-D
+# mesh of 4).
+FT_N, FT_GROUPS = 1 << 12, 4
+INJ4 = [[0, 1, 3, 1, 1, 1.0, 0.25], [1, 2, 5, 2, 1, -0.5, 1.0],
+        [1, 5, 7, 3, 1, 1.0, -1 / 3], [0, 6, 2, 0, 1, 0.5, 0.5]]
+INJ2 = [[0, 4, 3, 1, 1, 1.0, 0.25], [1, 5, 5, 2, 1, -0.5, 1.0]]
+_FT_BASE = [
+    ("clean", None, {}, True),
+    ("four", INJ4, {}, True),
+    ("four_t", INJ4, {"natural_order": False}, True),
+    ("clean_t", None, {"natural_order": False}, False),
+    ("nocorrect", INJ4, {"correct": False}, True),
+    ("double", INJ2, {}, True),
+    ("recompute", INJ2, {"recompute_uncorrectable": True}, True),
+    ("recompute_t", INJ2, {"recompute_uncorrectable": True,
+                           "natural_order": False}, False),
+    ("cs2", [[1, 9, 4, 2, 1, 1.0, -1.0]], {}, True),
+    ("cs3", [[1, 14, 4, 2, 1, 1.0, -1.0]], {}, True),
+    ("last", [[1, 6, 5, 2, 1, -0.5, 1.0]], {}, False)]
+CHUNKED = ("clean", "four", "four_t", "double", "cs2", "last")
+FT_SCENARIOS = {
+    "threshold": {"complex64": 1e-4, "complex128": 1e-10},
+    "mag": {"complex64": 60.0, "complex128": 1e-6},
+    "cases": [dict(name=nm, inject=inj, kw=kw, ref=ref)
+              for nm, inj, kw, ref in _FT_BASE]
+    + [dict(name=f"{nm}_c{c}", inject=inj, kw=dict(kw, chunks=c), ref=False)
+       for nm, inj, kw, _ in _FT_BASE if nm in CHUNKED for c in (2, 4)]}
+
+
+def inject_rows(inject, mag: float, shards: int = 0):
+    """A catalogue case's inject rows with eps times ``mag`` (and, given
+    ``shards``, its fft rank taken mod ``shards``, so that every SEU lands
+    on a mesh of fewer ranks)."""
+    if inject is None:
+        return None
+    return [[r[0] % shards if shards else r[0]] + r[1:5]
+            + [r[5] * mag, r[6] * mag] for r in inject]
+
+
+def expected_verdicts(name: str, tele: dict, y, ref, tol: float) -> None:
+    """Assert the catalogue's verdicts of case ``name`` on its telemetry
+    (lists) and its natural-order output ``y`` against the FFT ``ref``:
+    the error relative to max|ref| under ``tol`` where the data ends clean
+    and over 50 * ``tol`` where it does not."""
+    import numpy as np
+
+    base = name.split("_c")[0] if "_c" in name else name
+    base = base[:-2] if base.endswith("_t") else base
+    err = float(np.abs(np.asarray(y) - np.asarray(ref)).max()
+                / np.abs(np.asarray(ref)).max())
+    if base == "clean":
+        assert not any(tele["flagged"]), tele["group_score"]
+        assert err < tol, err
+    elif base == "four":
+        assert all(tele["flagged"]) and all(tele["correctable"])
+        assert tele["location"] == [1, 2, 5, 6], tele["location"]
+        assert tele["corrected"] == 4 and err < tol, err
+    elif base == "nocorrect":
+        assert all(tele["flagged"]) and tele["corrected"] == 0
+        assert err > 50 * tol, err
+    elif base == "double":
+        assert tele["uncorrectable"] == [False, False, True, False]
+        assert not any(tele["correctable"])
+        assert tele["corrected"] == 0 and err > 50 * tol, err
+    elif base == "recompute":
+        assert tele["recomputed"] == 1 and err < tol, err
+    elif base in ("cs2", "cs3"):
+        want = [False, True, False, False] if base == "cs2" \
+            else [False, False, True, False]
+        assert tele["checksum_fault"] == want, tele["checksum_fault"]
+        assert tele["flagged"] == want
+        assert not any(tele["correctable"]) and err < tol, err
+    elif base == "last":
+        assert tele["flagged"] == [False, False, False, True]
+        assert tele["location"][3] == 6 and err < tol, err
+    else:
+        raise AssertionError(f"no verdicts for {name!r}")
+
+
+def telemetry(res) -> dict:
+    """A result's telemetry as lists, ``uncorrectable`` included."""
+    out = {f: getattr(res, f).tolist() for f in (
+        "shard_delta", "group_score", "flagged", "location", "correctable",
+        "checksum_fault", "corrected", "recomputed")}
+    out["uncorrectable"] = res.uncorrectable.tolist()
+    return out
