@@ -176,7 +176,7 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   detected=0 corrected=0`` (its blocks take no fault descriptor, as the
   reference's).
 
-* the sharded 1-D FFT (phase 13, ``sharded_phase``): four processes on
+* the sharded FFT (phase 13, ``sharded_phase``): four processes on
   the one card, a gloo group over a file store (gloo takes CUDA tensors
   and stages them through the host, so its collective times are host
   copies, not NVLink), each driving ``plan(FFTSpec(..., mesh=...))`` on a
@@ -211,12 +211,36 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   transposed order) on both meshes against ``torch.fft`` on the rank's
   rows, their launches and ``spectral_volume``'s collectives. The
   checked cases also hold the checksum-row launch at its row offset to
-  ``block_fft_plain``. Then one rank on NCCL in this process:
+  ``block_fft_plain``. Then, on the same four ranks, the n-D drive
+  (``shard_nd_drive``, its own timing line; each global grid over the 50
+  MB L2): the slab ``fft2``/``ifft2`` of complex64 (4, 4096, 4096) on
+  both meshes, complex128 (2, 4096, 4096) and the slab ``fftn`` of
+  complex64 (1, 512, 512, 512) on the 1-D mesh; the pencil ``fft2`` of
+  complex64 (1, 8192, 8192) on 2 x 2 in natural and transposed order and
+  its TRANSPOSED_IN inverse, and the pencil ``fftn`` of (1, 512, 512,
+  512) on 2 x 2 with ``chunks=2`` (the leading axis) bitwise
+  ``chunks=1``; the real slab ``rfft2``/``irfft2`` of float32 (4, 4096,
+  4096) on both meshes and the composed pencil path on the 1-D mesh;
+  ``fft_convolve2`` of (4, 2048, 2048) float32 and complex64 pairs with a
+  (33, 33) kernel on both meshes; the 2-D grouped ABFT
+  (``SHARD_ND_FT``): complex64 (8, 4096, 4096), G = 4, through the whole
+  fault matrix on the 1-D mesh and clean and four SEUs on 2 x 2, the real
+  ABFT of float32 (8, 4096, 4096) clean and four SEUs, complex128 (4,
+  2048, 2048) with G = 2 at threshold 1e-10. Each rank's block against
+  ``torch.fft`` at ATOL * max|ref|, every call's launches and collectives
+  the plan's (``plan.launches``, ``plan.volume``), every verdict the
+  scenario's, host ms a call and rank, the local passes' device ms of a
+  primed trace of the slab fft2 and the pencil's transposed fft2 beside
+  their byte bound, every launch of one slab fft2 and one ifft2 (the
+  received blocks read in place, the inverse's send buffer written
+  by its R pass) and the checksum-grid launch at its row offset held
+  to ``block_fft_plain`` on clones of their operands. Then one rank on NCCL in this process:
   ``make_fft_mesh(1)`` plans the local transform, whose ``fft`` launches
   the same two passes as ``plan.fft``, bitwise, timed beside it and
   ``torch.fft``; its ft plan is the local one (one ``abft_fft`` launch,
-  the same result as without the mesh) and ``fft_convolve(mesh=...)``
-  the local convolution.
+  the same result as without the mesh), ``fft_convolve(mesh=...)`` the
+  local convolution and its rank-2 plan the local plan (bitwise, the
+  same launches).
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -3802,7 +3826,7 @@ def rm_cli_finish(proc, out, t0):
             "steps": [[int(s), float(loss)] for s, loss, _ in lines]}
 
 
-# ---- phase 13: the sharded 1-D FFT on torch.distributed. Four ranks on the
+# ---- phase 13: the sharded FFT on torch.distributed. Four ranks on the
 # one card over gloo (which stages CUDA tensors through the host, so its
 # collective times are host copies, not NVLink), on a 1-D mesh of 4 and a
 # 2 x 2 data x fft mesh, at turbofft_bench's corners; then one rank on NCCL
@@ -3826,6 +3850,7 @@ SHARD_FT_SCORE = 300.0
 SHARD_SPECTRAL = ("complex64", 19, 256)
 SHARD_ONE_RANK_FT = ("complex64", 13, 1024)
 SHARD_ONE_RANK_CONV = ("complex64", 17, 64)
+SHARD_ONE_RANK_2D = (4, 4096, 4096)
 
 
 def _shard_collectives():
@@ -4037,6 +4062,9 @@ def shard_drive(rank, trace):
             torch.cuda.empty_cache()
     out["ft"] = shard_ft_drive(rank, call, fail, err_ratio, gen, trace)
     out["spectral"] = shard_spectral_drive(call, fail, err_ratio, gen)
+    t_nd = time.perf_counter()
+    out["nd"] = shard_nd_drive(rank, call, fail, err_ratio, gen, trace)
+    out["nd_seconds"] = time.perf_counter() - t_nd
     # the main path's launches: those of the calls held to the plan, not
     # the checks' direct ones nor the traced repeats
     out["launches_fft"] = sum(c["launches"] for row in out["cases"]
@@ -4045,8 +4073,10 @@ def shard_drive(rank, trace):
                              for c in row["calls"].values())
     out["launches_spectral"] = sum(c["launches"] for row in out["spectral"]
                                    for c in row["calls"].values())
+    out["launches_nd"] = sum(c["launches"] for row in out["nd"]
+                             for c in row["calls"].values())
     out["launches"] = (out["launches_fft"] + out["launches_ft"]
-                       + out["launches_spectral"])
+                       + out["launches_spectral"] + out["launches_nd"])
     return out
 
 
@@ -4396,6 +4426,481 @@ def shard_spectral_drive(call, fail, err_ratio, gen):
     return rows_out
 
 
+# the n-D drive (shard_nd_drive): the users' grids, each global grid over
+# the 50 MB L2. (label, dtype, global shape, rank, meshes as (fft, data))
+SHARD_ND_SLAB = (("fft2", "complex64", (4, 4096, 4096), 2, ((4, 1), (2, 2))),
+                 ("fft2", "complex128", (2, 4096, 4096), 2, ((4, 1),)),
+                 ("fftn", "complex64", (1, 512, 512, 512), 3, ((4, 1),)))
+SHARD_ND_PENCIL = (("fft2", "complex64", (1, 8192, 8192), 2, (2, 2), False),
+                   ("fftn", "complex64", (1, 512, 512, 512), 3, (2, 2), True))
+SHARD_ND_REAL = ("float32", (4, 4096, 4096), ((4, 1), (2, 2)))
+SHARD_ND_CONV = (((4, 2048, 2048), (33, 33)), ("float32", "complex64"),
+                 ((4, 1), (2, 2)))
+# the 2-D ABFT: (dtype, shape, G, threshold, meshes, the whole matrix, real)
+SHARD_ND_FT = (("complex64", (8, 4096, 4096), 4, 1e-4, ((4, 1),), True,
+                False),
+               ("complex64", (8, 4096, 4096), 4, 1e-4, ((2, 2),), False,
+                False),
+               ("float32", (8, 4096, 4096), 4, 1e-4, ((4, 1),), False, True),
+               ("complex128", (4, 2048, 2048), 2, 1e-10, ((4, 1),), False,
+                False))
+
+
+def _nd_block(ref, y):
+    """This rank's block of the global ``ref`` as the DTensor ``y`` lays
+    its value out (``torch.chunk`` blocks of each sharded dimension)."""
+    idx = [slice(None)] * ref.dim()
+    mesh = y.device_mesh
+    for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names, y.placements)):
+        if pl.is_shard():
+            n, c = mesh.size(i), mesh.get_local_rank(name)
+            per = -(-ref.shape[pl.dim] // n)
+            lo = min(c * per, ref.shape[pl.dim])
+            idx[pl.dim] = slice(lo, min(lo + per, ref.shape[pl.dim]))
+    return ref[tuple(idx)]
+
+
+def _nd_transposed(ref, gp):
+    """The pencil's transposed digit order of ``ref`` (..., R, C): y[..,
+    kr1*r2 + kr2, kc1*c2 + kc2] = X[.., kr1 + r1*kr2, kc1 + c1*kc2]."""
+    shape = ref.shape
+    nl = ref.dim() - 2
+    z = ref.reshape(shape[:-2] + (gp.r2, gp.r1, gp.pc.n2, gp.pc.n1))
+    perm = list(range(nl)) + [nl + 1, nl, nl + 3, nl + 2]
+    return z.permute(perm).reshape(shape)
+
+
+def _nd_coll(vol=None, *, a2a=None, gather=(0, 0), reduce_=(0, 0),
+             tel=(0, 0)):
+    """The collectives dict a call must show: ``plan.volume``'s all-to-all
+    and all-gather when ``vol`` is given."""
+    if vol is not None:
+        a2a = (vol["all_to_all_count"], int(vol["all_to_all_bytes"]))
+        gather = (vol["all_gather_count"], int(vol["gather_hlo"]))
+    return {"all_to_all": list(a2a), "all_gather": list(gather),
+            "all_reduce": list(reduce_), "telemetry_gather": list(tel)}
+
+
+def _nd_seu_eps(thr, s, rr, cw, cc):
+    """An SEU's |eps| whose group score is ``SHARD_FT_SCORE`` times ``thr``:
+    score ~ |eps| / (sqrt(Cw) sqrt(s R C)) for unit-variance inputs (Cw
+    the pass-1 width: C, or Cp on the real path)."""
+    return SHARD_FT_SCORE * thr * math.sqrt(cw) * math.sqrt(s * rr * cc)
+
+
+ND_VS_PLAIN = ("fft_launches_vs_plain", "ifft_launches_vs_plain",
+               "checksum_grids_vs_plain")
+
+
+def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
+    """One rank's drive of the n-D FFT on the mesh (``SHARD_ND_*``):
+    every call's rank block against torch.fft, its ``block_fft`` launches
+    against ``plan.launches`` (``ft_fft``'s and ``convolve``'s entries for
+    the ABFT and the convolution, ``fft``'s a recomputed group),
+    its collectives against ``plan.volume`` (the model's), chunks=2
+    bitwise, the ABFT's verdicts; the host ms of each call; a primed
+    trace of the slab fft2 and of the pencil's transposed fft2 (the local
+    passes' device ms beside their byte bound); every launch of one slab
+    fft2 and one ifft2, and the checksum-grid launch, held to
+    block_fft_plain."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.fft import FFTSpec, FTConfig, multidim, plan
+    from repro_torch.kernels.trace_age import PRIMER, prime
+    from repro_torch.launch.mesh import make_fft_mesh
+
+    dev = torch.device("cuda", 0)
+    rows_out = []
+
+    def record(row, label, name, res, want_l, want_c):
+        y, launches, coll, ms = res
+        row["calls"][name] = {"launches": launches, "collectives": coll,
+                              "host_ms": ms}
+        if launches != want_l:
+            fail(f"{label} {name}: {launches} block_fft launches, not "
+                 f"{want_l}")
+        if coll != want_c:
+            fail(f"{label} {name}: collectives {coll}, not {want_c}")
+        return y
+
+    def check_err(row, label, name, got, want):
+        e = err_ratio(got, want)
+        row["errors"][name] = e
+        if e > 1:
+            fail(f"{label} {name}: error {e:.3f} x tol")
+
+    def traced_local(fn):
+        """The block_fft kernels' device ms of one primed call."""
+        dist.barrier()
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            prime()
+            fn()
+            torch.cuda.synchronize()
+        kern = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "block_fft" in e.name and PRIMER not in e.name]
+        return sum(kern), len(kern)
+
+    meshes = {}
+
+    def mesh_of(d, dd):
+        if (d, dd) not in meshes:
+            meshes[d, dd] = make_fft_mesh(d, dd)
+        return meshes[d, dd]
+
+    # -- slab fft2 / fftn (and ifft) ------------------------------------
+    for ci, (kind, dtype, shape, nd, mlist) in enumerate(SHARD_ND_SLAB):
+        gen.manual_seed(SEED + 101 + ci)
+        x = torch.randn(shape, dtype=getattr(torch, dtype), device=dev,
+                        generator=gen)
+        ref = torch.fft.fftn(x, dim=tuple(range(-nd, 0)))
+        for d, dd in mlist:
+            mesh = mesh_of(d, dd)
+            label = f"nd slab {kind} {dtype} {shape} on ({dd}, {d})"
+            row = {"case": label, "calls": {}, "errors": {}}
+            p = plan(FFTSpec(shape, rank=nd, mesh=mesh, decomp="slab",
+                             dtype=dtype))
+            res = call(lambda: p.fft(x), f"{label} fft")
+            y = record(row, label, "fft", res, p.launches["fft"],
+                       _nd_coll(p.volume))
+            del res
+            check_err(row, label, "fft", y.to_local(), _nd_block(ref, y))
+            if kind == "fft2" and dtype == "complex64":
+                res = call(lambda: p.ifft(y), f"{label} ifft")
+                xb = record(row, label, "ifft", res, p.launches["ifft"],
+                            _nd_coll(p.volume))
+                del res
+                check_err(row, label, "ifft", xb.to_local(),
+                          _nd_block(x, xb))
+                del xb
+            if ci == 0 and (d, dd) == (4, 1):
+                blk = y.to_local().numel() * y.to_local().element_size()
+                ms, n = traced_local(lambda: p.fft(x))
+                row["local_passes_device_ms"] = ms
+                row["local_passes_traced"] = n
+                row["local_passes_bound_ms"] = 4 * blk / HBM_BYTES_PER_S * 1e3
+                row.update(shard_nd_launch_checks(x, p, err_ratio))
+                for key in ND_VS_PLAIN:
+                    if row[key] > 1:
+                        fail(f"{label} {key}: error {row[key]:.3f} x tol")
+            del y
+            rows_out.append(row)
+        del x, ref
+        torch.cuda.empty_cache()
+    # -- pencil: natural, transposed, TRANSPOSED_IN; chunks --------------
+    for ci, (kind, dtype, shape, nd, (d, dd), chunked) in enumerate(
+            SHARD_ND_PENCIL):
+        gen.manual_seed(SEED + 111 + ci)
+        x = torch.randn(shape, dtype=getattr(torch, dtype), device=dev,
+                        generator=gen)
+        mesh = mesh_of(d, dd)
+        label = f"nd pencil {kind} {dtype} {shape} on ({dd}, {d})"
+        row = {"case": label, "calls": {}, "errors": {}}
+        spec = dict(rank=nd, mesh=mesh, decomp="pencil", dtype=dtype)
+        ref = torch.fft.fftn(x, dim=tuple(range(-nd, 0)))
+        pt = plan(FFTSpec(shape, natural_order=False, **spec))
+        gp = pt.grid_pencil
+        if not chunked:
+            p = plan(FFTSpec(shape, **spec))
+            res = call(lambda: p.fft(x), f"{label} fft natural")
+            y = record(row, label, "fft natural", res, p.launches["fft"],
+                       _nd_coll(p.volume))
+            del res
+            check_err(row, label, "fft natural", y.to_local(), ref)
+            del y
+        res = call(lambda: pt.fft(x), f"{label} fft transposed")
+        yt = record(row, label, "fft transposed", res, pt.launches["fft"],
+                    _nd_coll(pt.volume))
+        del res
+        want_t = _nd_transposed(ref, gp)
+        del ref
+        check_err(row, label, "fft transposed", yt.to_local(),
+                  _nd_block(want_t, yt))
+        del want_t
+        if chunked:
+            p2 = plan(FFTSpec(shape, natural_order=False, chunks=2, **spec))
+            row["chunks"] = p2.chunks
+            res = call(lambda: p2.fft(x), f"{label} fft transposed chunks=2")
+            y2 = record(row, label, "fft transposed chunks=2", res,
+                        p2.launches["fft"], _nd_coll(p2.volume))
+            del res
+            row["chunks_bitwise"] = bool(torch.equal(y2.to_local(),
+                                                     yt.to_local()))
+            if not row["chunks_bitwise"] or p2.chunks != 2:
+                fail(f"{label}: chunks=2 ({p2.chunks}) is not bitwise "
+                     f"chunks=1")
+            del y2
+        else:
+            res = call(lambda: pt.ifft(yt), f"{label} ifft transposed-in")
+            xi = record(row, label, "ifft transposed-in", res,
+                        pt.launches["ifft"], _nd_coll(pt.volume))
+            del res
+            check_err(row, label, "ifft transposed-in", xi.to_local(),
+                      _nd_block(x.reshape(xi.shape), xi))
+            del xi
+            blk = yt.to_local().numel() * yt.to_local().element_size()
+            ms, n = traced_local(lambda: pt.fft(x))
+            row["local_passes_device_ms"] = ms
+            row["local_passes_traced"] = n
+            row["local_passes_bound_ms"] = 8 * blk / HBM_BYTES_PER_S * 1e3
+        del yt, x
+        rows_out.append(row)
+        torch.cuda.empty_cache()
+    # -- the real slab and the composed pencil path -----------------------
+    dtype, shape, mlist = SHARD_ND_REAL
+    gen.manual_seed(SEED + 121)
+    xr = torch.randn(shape, dtype=getattr(torch, dtype), device=dev,
+                     generator=gen)
+    refr = torch.fft.rfft2(xr)
+    for d, dd, dec in [m + ("slab",) for m in mlist] + [(4, 1, "pencil")]:
+        mesh = mesh_of(d, dd)
+        label = f"nd real {dec} rfft2 {dtype} {shape} on ({dd}, {d})"
+        row = {"case": label, "calls": {}, "errors": {}}
+        p = plan(FFTSpec(shape, rank=2, real=True, decomp=dec, mesh=mesh))
+        if dec == "slab":
+            res = call(lambda: p.rfft2(xr), f"{label} rfft2")
+            y = record(row, label, "rfft2", res, p.launches["fft"],
+                       _nd_coll(p.volume))
+            del res
+            check_err(row, label, "rfft2", y.to_local(), _nd_block(refr, y))
+            res = call(lambda: p.irfft2(y), f"{label} irfft2")
+            xb = record(row, label, "irfft2", res, p.launches["ifft"],
+                        _nd_coll(p.volume))
+            del res
+            check_err(row, label, "irfft2", xb.to_local(),
+                      _nd_block(xr, xb))
+        else:
+            # the composed path runs 1-D plans: their launches and
+            # collectives are recorded, not held to an n-D model
+            for name, fn in (("rfft2", lambda: p.rfft2(xr)),
+                             ("irfft2", lambda: p.irfft2(y))):
+                res = call(fn, f"{label} {name}")
+                row["calls"][name] = {"launches": res[1],
+                                      "collectives": res[2],
+                                      "host_ms": res[3]}
+                if name == "rfft2":
+                    y = res[0]
+                    check_err(row, label, name, y.to_local(), refr)
+                else:
+                    xb = res[0]
+                    check_err(row, label, name, xb.to_local(), xr)
+                del res
+        del y, xb
+        rows_out.append(row)
+    del xr, refr
+    torch.cuda.empty_cache()
+    # -- fft_convolve2 ------------------------------------------------------
+    (sa, sv), dts, mlist = SHARD_ND_CONV
+    for di, dtype in enumerate(dts):
+        gen.manual_seed(SEED + 131 + di)
+        a = torch.randn(sa, dtype=getattr(torch, dtype), device=dev,
+                        generator=gen)
+        v = torch.randn(sv, dtype=getattr(torch, dtype), device=dev,
+                        generator=gen)
+        s = (sa[-2] + sv[-2] - 1, sa[-1] + sv[-1] - 1)
+        full = torch.fft.ifft2(torch.fft.fft2(a, s=s) * torch.fft.fft2(v,
+                                                                       s=s))
+        if dtype == "float32":
+            full = full.real
+        want = full[:, 16:16 + sa[-2], 16:16 + sa[-1]]     # mode "same"
+        del full
+        for d, dd in mlist:
+            mesh = mesh_of(d, dd)
+            label = f"nd fft_convolve2 {dtype} {sa} * {sv} on ({dd}, {d})"
+            row = {"case": label, "calls": {}, "errors": {}}
+            nr, nc = multidim._conv2_shape(sa[-2:], sv, d)
+            real = dtype == "float32"
+            cw = nc // 2 + d if real else nc
+            ba = sa[0] // dd
+            item = 8
+            res = call(lambda: multidim.fft_convolve2(a, v, mesh,
+                                                      mode="same"),
+                       f"{label}")
+            pc = plan(multidim.conv2_spec(a, v, mesh))
+            y = record(row, label, "convolve same", res,
+                       pc.launches["convolve"], _nd_coll(
+                a2a=(2, (ba + 1) * nr * cw // d * item
+                     + ba * sa[-2] * cw // d * item)))
+            del res
+            check_err(row, label, "convolve same", y.to_local(),
+                      _nd_block(want, y))
+            del y
+            rows_out.append(row)
+        del a, v, want
+        torch.cuda.empty_cache()
+    # -- the 2-D grouped ABFT -------------------------------------------
+    for ci, (dtype, shape, g, thr, mlist, matrix, real) in enumerate(
+            SHARD_ND_FT):
+        gen.manual_seed(SEED + 141 + ci)
+        x = torch.randn(shape, dtype=getattr(torch, dtype), device=dev,
+                        generator=gen)
+        ref = torch.fft.rfft2(x) if real else torch.fft.fft2(x)
+        b, rr, cc = shape
+        s = b // g
+        for d, dd in mlist:
+            mesh = mesh_of(d, dd)
+            md = mesh.get_local_rank("data") if dd > 1 else 0
+            gl = g // dd
+            cw = cc // 2 + d if real else cc
+            eps = _nd_seu_eps(thr, s, rr, cw, cc)
+
+            def seu(dev_, sig, row_, col):
+                return [dev_ % d, sig, row_, col, 1, eps, -0.5 * eps]
+
+            if g == 4:
+                four = [seu(j, j * s + (j + 1) % s, 3 + j, j) for j in
+                        range(g)]
+                locs = [j * s + (j + 1) % s for j in range(g)]
+            else:           # two groups: one SEU each
+                four = [seu(j, j * s + 1, 3 + j, j) for j in range(g)]
+                locs = [j * s + 1 for j in range(g)]
+            cases = [("clean", None, {}, "clean"),
+                     ("SEUs", four, {}, ("four", locs))]
+            if matrix:
+                double = [seu(0, 2 * s, 5, 1), seu(1, 2 * s + 1, 6, 2)]
+                cases += [("correct=False", four, dict(correct=False),
+                           "nocorrect"),
+                          ("double hit", double, {}, "double"),
+                          ("double hit, recompute", double,
+                           dict(recompute_uncorrectable=True), "recompute"),
+                          ("cs2 grid", [seu(1, b + 1, 4, 2)], {},
+                           ("checksum", 1)),
+                          ("cs3 grid", [seu(2, b + g + 2, 4, 2)], {},
+                           ("checksum", 2))]
+            label = (f"nd ft {'rfft2' if real else 'fft2'} {dtype} {shape} "
+                     f"G={g} on ({dd}, {d})")
+            row = {"case": label, "calls": {}, "errors": {}}
+            real_b = x.real.element_size() if not real else x.element_size()
+            tel = (1, d * real_b) if dd == 1 else \
+                (2, d * real_b + dd * (gl * 5 + d) * real_b)
+            for name, inj, kw, want in cases:
+                ft = FTConfig(threshold=thr, groups=g, **kw)
+                p = plan(FFTSpec(shape, rank=2, real=real, mesh=mesh, ft=ft,
+                                 dtype="complex128" if dtype in (
+                                     "complex128", "float64")
+                                 else "complex64"))
+                res = call(lambda: p.ft_fft(x, inject=inj),
+                           f"{label} {name}")
+                out = res[0]
+                mine = sum(out.uncorrectable.tolist()[md * gl:(md + 1) * gl]) \
+                    if kw.get("recompute_uncorrectable") else 0
+                grp = s * rr * cw // d * (x.element_size() * (2 if real
+                                                              else 1))
+                record(row, label, name, res, p.launches["ft_fft"]
+                       + mine * p.launches["fft"], _nd_coll(
+                    a2a=(1 + mine, int(p.volume["all_to_all_bytes"])
+                         + mine * grp),
+                    reduce_=(1, 3 * gl + 1), tel=tel))
+                del res
+                blk = out.y.to_local()
+                err = err_ratio(blk, _nd_block(ref, out.y))
+                emax = torch.tensor([err], device=dev)
+                dist.all_reduce(emax, op=dist.ReduceOp.MAX)
+                err = float(emax)
+                row["errors"][name] = err
+                row["calls"][name].update(
+                    flagged=out.flagged.tolist(),
+                    location=out.location.tolist(),
+                    group_score=out.group_score.tolist(),
+                    shard_delta=max(out.shard_delta.tolist()),
+                    corrected=int(out.corrected),
+                    recomputed=int(out.recomputed))
+                for msg in _ft_verdict_failures(out, want, g, err):
+                    fail(f"{label} {name}: {msg}")
+                del out, blk
+            rows_out.append(row)
+        del x, ref
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+@contextlib.contextmanager
+def _held_to_plain(err_ratio):
+    """Every ``block_fft`` launch inside the block (``stockham``'s and
+    ``ops``' name for it) runs on the card and, on clones of its operands,
+    on ``block_fft_plain``: yields ``{"launches", "worst"}``, the launches
+    held and the largest error over tolerance. The kernel counts these
+    launches on the wrapper, not on the main path's counter."""
+    from repro_torch.kernels import ops, stockham
+
+    kernel, by_ops = stockham.block_fft, ops.block_fft
+    rec = {"launches": 0, "worst": 0.0}
+
+    def checked(x, stages, *, out=None, tables=None, **kw):
+        x0 = x.clone()
+        o0 = None if out is None else (
+            x0 if out.data_ptr() == x.data_ptr() else out.clone())
+        got = kernel(x, stages, out=out, tables=tables, **kw)
+        want = stockham.block_fft_plain(x0, stages, out=o0, **kw)
+        rec["worst"] = max(rec["worst"], err_ratio(got, want))
+        rec["launches"] += 1
+        return got
+
+    checked.launches = 0
+    stockham.block_fft = ops.block_fft = checked
+    try:
+        yield rec
+    finally:
+        stockham.block_fft, ops.block_fft = kernel, by_ops
+
+
+def shard_nd_launch_checks(x, p, err_ratio):
+    """On every rank, at the slab fft2 case's shapes: one ``p.fft`` and one
+    ``p.ifft`` with every launch held to block_fft_plain on clones of its
+    card operands (the forward's pass 1 reading the rank's rows of the
+    global grids in place and its R pass reading the all-to-all's
+    received blocks; the inverse's R pass writing the send buffer's
+    blocks and its last-axis pass), each call's launch count against
+    ``p.launches``; and the ABFT's checksum-grid launch — 2G = 8 grids of
+    the rank's rows into the pass-1 buffer at row offset B, the data rows
+    untouched. Returns each one's error over tolerance and the launches
+    held."""
+    import torch
+
+    from repro_torch.core.fft import multidim as md
+    from repro_torch.kernels import stockham
+
+    rec = {}
+    with _held_to_plain(err_ratio) as fwd:
+        y = p.fft(x)
+    with _held_to_plain(err_ratio) as inv:
+        p.ifft(y)
+    del y
+    rec["fft_launches_vs_plain"] = fwd["worst"]
+    rec["ifft_launches_vs_plain"] = inv["worst"]
+    rec["launches_held"] = [fwd["launches"], inv["launches"]]
+    if rec["launches_held"] != [p.launches["fft"], p.launches["ifft"]]:
+        rec["fft_launches_vs_plain"] = float("inf")    # a launch unheld
+    xv, _, _ = md._grid_rows(x, p._mesh_view(), 2, 0)
+    rows = xv.shape[0]
+    cs = xv[:min(rows, 8)].repeat(-(-8 // rows), 1, 1)[:8].contiguous()
+    buf = torch.zeros((rows + 8,) + tuple(xv.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+
+    def grids():
+        buf.zero_()
+        md._last_axis(cs, p.axes[-1], buf[rows:], inverse=False)
+        return buf.clone()
+
+    got = grids()
+    real = stockham.block_fft
+    stockham.block_fft = lambda *a, tables=None, **k: \
+        stockham.block_fft_plain(*a, **k)
+    try:
+        want = grids()
+    finally:
+        stockham.block_fft = real
+    rec["checksum_grids_vs_plain"] = err_ratio(got, want)
+    if got[:rows].any():
+        rec["checksum_grids_vs_plain"] = float("inf")   # wrote a data row
+    return rec
+
+
 SHARD_ERRORS = ("fft", "ifft", "fft_transposed", "ifft_transposed_in",
                 "fft_shard_signals", "pass1_vs_plain", "pass2_vs_plain",
                 "passA_vs_plain", "passB_vs_plain", "checksum_rows_vs_plain")
@@ -4583,11 +5088,27 @@ def sharded_phase(dev, cuda_ms):
                  for k, c in row["calls"].items()}
         log(f"  {row['case']}: err/tol (worst rank) {errs}; host ms and "
             f"launches {calls}")
+    nd_keys = ("local_passes_device_ms", "local_passes_bound_ms",
+               "local_passes_traced", "chunks", "chunks_bitwise",
+               "launches_held") + ND_VS_PLAIN
+    for i, row in enumerate(ranks[0]["nd"]):
+        errs = {k: round(max(res["nd"][i]["errors"][k] for res in ranks), 4)
+                for k in row["errors"]}
+        calls = {k: [round(res["nd"][i]["calls"][k]["host_ms"], 1)
+                     for res in ranks] + [c["launches"]]
+                 for k, c in row["calls"].items()}
+        extra = {k: row[k] for k in nd_keys if k in row}
+        log(f"  {row['case']}: err/tol (worst rank) {errs}; host ms of "
+            f"ranks 0-3 and launches {calls}"
+            + (f"; rank 0 {extra}" if extra else ""))
+    rec["nd_seconds"] = max(res["nd_seconds"] for res in ranks)
+    log(f"  the n-D drive took {rec['nd_seconds']:.1f} s (slowest rank)")
     rec["ranks"] = ranks
     rec["launches"] = sum(res["launches"] for res in ranks)
     rec["launches_ft"] = sum(res["launches_ft"] for res in ranks)
     rec["launches_spectral"] = sum(res["launches_spectral"]
                                    for res in ranks)
+    rec["launches_nd"] = sum(res["launches_nd"] for res in ranks)
 
     # (a) one rank on NCCL: make_fft_mesh(1) plans the local transform
     with socket.socket() as s:
@@ -4668,6 +5189,29 @@ def sharded_phase(dev, cuda_ms):
         rec["launches"] += ft_launches[0] + conv_launches
         rec["abft_launches"] = ft_launches[1]
         del x, r1, r0, a, v, c1
+        # a rank-2 plan on the one-rank mesh is the local one: bitwise,
+        # with the same launches
+        x = torch.randn(SHARD_ONE_RANK_2D, dtype=torch.complex64,
+                        device=dev, generator=gen)
+        q1 = plan(FFTSpec(x.shape, rank=2, mesh=mesh))
+        q0 = plan(FFTSpec(x.shape, rank=2))
+        check(q1.decomp == "local", f"phase 13: the one-rank rank-2 plan "
+              f"is {q1!r}")
+        counts = []
+        for q in (q1, q0):
+            b1 = block_fft.launches
+            y = q.fft(x)
+            torch.cuda.synchronize()
+            counts.append(block_fft.launches - b1)
+            if q is q1:
+                y1 = y
+        check(counts[0] == counts[1] and torch.equal(y1, y),
+              f"phase 13: the one-rank rank-2 plan is not the local one "
+              f"(launches {counts})")
+        rec["one_rank"]["fft2"] = {"case": f"complex64 {SHARD_ONE_RANK_2D}",
+                                   "launches": counts[0]}
+        rec["launches"] += counts[0]
+        del x, y, y1
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -5562,8 +6106,10 @@ def main() -> int:
     one = sharded["one_rank"]
     log(f"sharded FFT: four gloo ranks on one card took "
         f"{sharded['four_ranks_seconds']:.1f} s ({sharded['launches']} "
-        f"block_fft launches in all, {sharded['launches_ft']} of the ABFT "
-        f"and {sharded['launches_spectral']} of the spectral consumers); "
+        f"block_fft launches in all, {sharded['launches_ft']} of the ABFT, "
+        f"{sharded['launches_spectral']} of the spectral consumers and "
+        f"{sharded['launches_nd']} of the n-D drive in "
+        f"{sharded['nd_seconds']:.1f} s); "
         f"one NCCL rank, make_fft_mesh(1), "
         f"{one['case']}: plan.fft on the mesh {one['mesh_ms']:.4f} ms, "
         f"plan.fft {one['plan_ms']:.4f} ms, torch.fft "
@@ -5588,7 +6134,8 @@ def main() -> int:
                               "sharded": sharded["launches"],
                               "sharded_ft": sharded["launches_ft"],
                               "sharded_spectral":
-                                  sharded["launches_spectral"]},
+                                  sharded["launches_spectral"],
+                              "sharded_nd": sharded["launches_nd"]},
          "shapes": fft_shapes, "extensions": ext_rows,
          "axis_layouts": axis_rows, "serve": serve, "sharded": sharded},
         {"name": "abft_fft", "route": "cuda",

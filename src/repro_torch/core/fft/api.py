@@ -10,15 +10,16 @@ executors (``fft/ifft``, ``fft2/ifft2``, ``rfft/irfft``, ``rfft2/irfft2``,
 on those stage plans and tables.
 
 A spec with a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with an
-``fft`` dimension of size > 1) plans the sharded rank-1 transform of
-``core.fft.distributed``: ``fft``/``ifft`` (natural or transposed order,
+``fft`` dimension of size > 1) plans the sharded transforms, each rank
+running the pipeline's local passes on the block-FFT kernel. Rank 1
+(``core.fft.distributed``): ``fft``/``ifft`` (natural or transposed order,
 ``chunks`` transactions, the batch over a ``data`` dimension), the packed
 ``rfft``/``irfft``, the grouped two-side ABFT ``ft_fft`` and the spectral
 consumers ``convolve``/``correlate``/``power_spectrum`` (the transposed
-round trip), each rank running the pencil pipeline's local passes on the
-block-FFT kernel. Still to port, and raising ``NotImplementedError``: the
-n-D and real rank-2 mesh paths, ``ft`` at rank 2 among them (ROADMAP
-queue 1 item 10.3).
+round trip). Rank 2 and 3 (``core.fft.multidim``): the slab or pencil
+``fft``/``ifft`` (``decomp``, chosen by the volume model when ``"auto"``),
+the real slab (or composed pencil) ``rfft2``/``irfft2``, the 2-D grouped
+ABFT ``ft_fft`` (C2C and real) and ``convolve``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,6 @@ __all__ = ["FFTSpec", "FTConfig", "FFTPlan", "plan", "spec_for",
 
 _COMPLEX_DTYPES = {"complex64": torch.complex64,
                    "complex128": torch.complex128}
-_ITEM_10_3 = distributed._ITEM_10_3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,19 +63,21 @@ class FFTSpec:
     direct DFT.
 
     ``mesh`` (a ``DeviceMesh`` with an ``axis`` dimension; build it with
-    ``launch.mesh.make_fft_mesh``) selects the sharded pipeline of a rank-1
-    spec when that dimension has more than one rank: the batch shards over
-    ``data_axis`` (auto-detected ``"data"``; None replicates it),
-    ``natural_order=False`` is the FFTW-MPI transposed pairing, and
-    ``chunks`` splits the batch into that many overlapped transactions (0 =
-    auto from the modelled all-to-all bytes, or ``ft.transactions`` on an
-    ft spec; results are bitwise the same for every count). ``ft`` on a
-    sharded rank-1 spec is the grouped two-side ABFT (``ft.groups`` /
-    ``ft.group_size`` checksum groups, their transactions whole groups).
-    ``decomp`` is the n-D slab/pencil knob (rank >= 2). On a mesh of one
-    ``fft`` rank the plan is the local one. Rank 2/3 and real rank 2 on a
-    sharded mesh raise ``NotImplementedError`` (ROADMAP queue 1 item
-    10.3).
+    ``launch.mesh.make_fft_mesh``) selects the sharded pipelines when that
+    dimension has more than one rank: the batch shards over ``data_axis``
+    (auto-detected ``"data"``; None replicates it), ``natural_order=False``
+    is the FFTW-MPI transposed pairing, and ``chunks`` splits the batch
+    (a pencil: or the first leading axis of one rank-3 grid) into that
+    many overlapped transactions (0 = auto from the modelled all-to-all
+    bytes, or ``ft.transactions`` on a rank-1 ft spec; results are bitwise
+    the same for every count). ``ft`` on a sharded spec is the grouped
+    two-side ABFT (``ft.groups`` / ``ft.group_size`` checksum groups; rank
+    2 on the slab). ``decomp`` is the n-D slab/pencil knob (rank >= 2):
+    ``"auto"`` is :func:`~repro_torch.core.fft.multidim.choose_decomp`,
+    ``"local"`` the local plan on every rank. A sharded plan takes
+    ``(B, N)`` operands at rank 1 and a batch of at most one leading
+    dimension (or one grid) at rank 2 and 3. On a mesh of one ``fft`` rank
+    the plan is the local one.
     """
 
     shape: tuple[int, ...]
@@ -129,18 +131,15 @@ class FFTSpec:
                 f"FFTSpec.chunks must be a non-negative int (0 = auto, 1 = "
                 f"bulk-synchronous, k = k transactions), got "
                 f"{self.chunks!r}")
-        if sharded and self.decomp != "local":
-            if self.rank != 1:
-                raise NotImplementedError(
-                    f"rank-{self.rank} "
-                    f"{'fault-tolerant ' if self.ft is not None else ''}"
-                    f"{'real ' if self.real else ''}"
-                    f"transforms on a mesh are not ported yet: "
-                    f"{_ITEM_10_3}")
-            if len(self.shape) != 2:
-                raise ValueError(
-                    f"a sharded rank-1 plan takes (B, N) operands, got "
-                    f"shape {self.shape} — flatten the batch dims")
+        sharded = sharded and self.decomp != "local"
+        if sharded and self.rank == 1 and len(self.shape) != 2:
+            raise ValueError(
+                f"a sharded rank-1 plan takes (B, N) operands, got "
+                f"shape {self.shape} — flatten the batch dims")
+        if sharded and len(self.shape) > self.rank + 1:
+            raise ValueError(
+                f"a sharded rank-{self.rank} plan takes (B, *grid) or one "
+                f"grid, got shape {self.shape} — flatten the batch dims")
         if self.real:
             if not self.natural_order:
                 raise ValueError(
@@ -159,11 +158,12 @@ class FFTSpec:
         if self.ft is not None and self.rank == 3:
             raise ValueError("fault-tolerant transforms are 1-D and 2-D "
                              "(slab) only; rank=3 has no ft pipeline yet")
-        if self.ft is not None and self.rank == 2:
+        if self.ft is not None and self.rank == 2 and not sharded:
             raise ValueError(
-                f"fault-tolerant 2-D transforms run the sharded grouped ABFT "
-                f"on the slab transpose: the spec needs a mesh, which is "
-                f"{_ITEM_10_3}")
+                f"fault-tolerant "
+                f"{'rfft2 runs' if self.real else '2-D transforms run'} "
+                f"the sharded grouped ABFT on the slab transpose: the spec "
+                f"needs a mesh with an '{self.axis}' axis of >= 2 devices")
 
     def _check_mesh(self) -> bool:
         """Validate ``mesh``, ``axis`` and ``data_axis``; whether the mesh
@@ -290,7 +290,14 @@ class FFTPlan(planbase.Plan):
     and the placements of its operands, and binds the pencil pipeline's
     per-shard steps (``pencil``: stage and twiddle tables on the device;
     ``spectral_pencil``, the full-length one its spectral consumers run,
-    which a real plan keeps beside its half-length ``pencil``).
+    which a real plan keeps beside its half-length ``pencil``). A sharded
+    rank-2/3 plan resolves ``decomp`` (slab or pencil; a real plan the
+    real slab, or the composed pencil path), ``chunks`` (pencil),
+    ``volume`` (``multidim.collective_volume_nd``; None on the composed
+    real path, which runs 1-D plans), ``launches`` (block_fft launches of
+    one ``fft`` and one ``ifft`` call; at rank 2 also of one ``convolve``
+    and, on an ft plan, one ``ft_fft``) and binds its axes (``axes``) and,
+    for a pencil, its per-rank steps (``grid_pencil``).
     """
 
     def __init__(self, spec: FFTSpec):
@@ -320,7 +327,7 @@ class FFTPlan(planbase.Plan):
                 group_size=spec.ft.group_size, data_shards=self.dsize)
         self.chunks = 1
         self.dist_plan = self.volume = self.pencil = None
-        self.spectral_pencil = None
+        self.spectral_pencil = self.grid_pencil = self.launches = None
         self._rdtype = multidim._real_of(spec.torch_dtype)
         self._fwd = self._inv = None      # C2C executors (None: none bound)
         if spec.real:
@@ -397,23 +404,12 @@ class FFTPlan(planbase.Plan):
                                    natural_order=self.spec.natural_order,
                                    chunks=self.chunks)
 
-    def _replicated_local(self, x):
-        """``x``'s global value on this rank (a DTensor is replicated
-        first): the real executors pack and unpack whole rows."""
-        from torch.distributed.tensor import Replicate
-
-        if _is_dtensor(x):
-            x = x.redistribute(x.device_mesh,
-                               [Replicate()] * x.device_mesh.ndim)
-            x = x.to_local()
-        return x
-
     def _sharded_rfft(self, x):
         """Packed rfft on the mesh: the half-length C2C rides the pencil
         pipeline (natural order), the Hermitian unpack is local on the
         gathered rows."""
         cc = x.shape[-1]
-        z = multidim._pack(self._replicated_local(x))
+        z = multidim._pack(multidim._replicated(x))
         zf = distributed.sharded(z, self.pencil, self._mesh_view(),
                                  inverse=False, natural_order=True, chunks=1)
         return _with_local(zf, multidim._unpack_half(zf.to_local(), cc))
@@ -423,7 +419,7 @@ class FFTPlan(planbase.Plan):
         half-length inverse on the pencil pipeline (natural order, 1/h in
         its first pass); the interleave of each rank's rows is a view."""
         h = y.shape[-1] - 1
-        z = multidim._combine(self._replicated_local(y), 2 * h,
+        z = multidim._combine(multidim._replicated(y), 2 * h,
                               inverse=True)
         zt = distributed.sharded(z, self.pencil, self._mesh_view(),
                                  inverse=True, natural_order=True, chunks=1)
@@ -432,6 +428,9 @@ class FFTPlan(planbase.Plan):
             loc.shape[:-1] + (2 * h,)))
 
     def _build_c2c(self, ops):
+        if self.rank > 1 and self.sharded:
+            self._build_nd(ops)
+            return
         if self.rank == 1 and self.sharded:
             self._resolve_sharded(self.tshape[0])
             self._fwd = functools.partial(self._sharded_c2c, inverse=False)
@@ -459,6 +458,9 @@ class FFTPlan(planbase.Plan):
         (plus the full-length C2C of the spectral consumers), rank 2
         ``multidim._local_rfft2/_local_irfft2``."""
         cc = self.tshape[-1]
+        if self.rank == 2 and self.sharded:
+            self._build_nd_real(ops)
+            return
         if self.rank == 1 and self.sharded and cc % 2 == 0 \
                 and _feasible_1d(cc // 2, self.shards):
             self._resolve_sharded(cc, real=True)
@@ -490,6 +492,183 @@ class FFTPlan(planbase.Plan):
         self._rinv = functools.partial(multidim._local_irfft2, rows=rows,
                                        half=half, cc=cc)
 
+    def _build_nd(self, ops):
+        """Bind the sharded rank-2/3 C2C executors: resolve ``decomp``
+        (``choose_decomp`` when ``"auto"``; an ft spec rides the slab),
+        raise the reference's errors on an infeasible one, resolve a
+        pencil's ``chunks``, and model ``volume``."""
+        from repro_torch.kernels.stockham import device_key
+
+        spec = self.spec
+        ft = spec.ft
+        decomp = spec.decomp
+        if decomp == "auto":
+            decomp = multidim.choose_decomp(
+                self.tshape, self.mesh, batch=self.batch, ft=ft is not None,
+                natural_order=spec.natural_order, axis=spec.axis,
+                data_axis=spec.data_axis)
+        if ft is not None and decomp != multidim.DECOMP_SLAB:
+            raise ValueError(
+                "grouped ABFT rides the slab inter-axis transpose: an ft "
+                f"spec needs decomp='slab' (or 'auto'), got {decomp!r}")
+        if decomp == multidim.DECOMP_SLAB \
+                and not multidim.slab_feasible(self.tshape, self.shards):
+            raise ValueError(
+                f"infeasible decomp: slab needs power-of-two axes with "
+                f"{self.shards} | {self.tshape[0]} and "
+                f"{self.shards} | {self.tshape[-1]}, got {self.tshape} — "
+                f"use decomp='pencil' or a smaller fft axis")
+        if decomp == multidim.DECOMP_PENCIL and not multidim.pencil_feasible(
+                self.tshape, self.shards, self.dsize):
+            raise ValueError(
+                f"infeasible decomp: pencil needs "
+                f"{self.tshape[-1]} >= fft^2={self.shards ** 2} and "
+                f"{self.tshape[-2]} >= data^2={self.dsize ** 2} "
+                f"(power-of-two axes), got {self.tshape} — use "
+                f"decomp='slab' or a smaller mesh")
+        self.decomp = decomp
+        self.axes = tuple(self._axis(ops, n) for n in self.tshape)
+        self._full_axis = self.axes[-1]
+        kw = dict(decomp=decomp, itemsize=spec.torch_dtype.itemsize,
+                  natural_order=spec.natural_order)
+        if decomp == multidim.DECOMP_PENCIL:
+            base = multidim.collective_volume_nd(
+                self.tshape, max(self.batch, 1), self.shards,
+                data_shards=self.dsize, **kw)
+            requested = spec.chunks
+            if requested == 0:
+                requested = distributed.choose_chunks(
+                    base["all_to_all_bytes"], self._nd_chunk_rows())
+            self.chunks = self._effective_nd_chunks(max(1, requested))
+            self.grid_pencil = multidim.grid_pencil(
+                self.tshape, self.shards, self.dsize, spec.torch_dtype,
+                device_key(self.device))
+            if not spec.natural_order:
+                self.grid_pencil.check_transposed_in()
+            self.launches = {
+                "fft": self.grid_pencil.launches(self.chunks),
+                "ifft": self.grid_pencil.launches(
+                    self.chunks, transposed_in=not spec.natural_order)}
+        else:
+            n = sum(ax.plan.num_passes for ax in self.axes)
+            self.launches = {"fft": n, "ifft": n}
+        if self.rank == 2:
+            self._rank2_launches()
+        self.volume = multidim.collective_volume_nd(
+            self.tshape, max(self.batch, 1), self.shards, ft=ft is not None,
+            groups=self.groups or 1,
+            data_shards=(self._model_dsize()
+                         if decomp == multidim.DECOMP_SLAB else self.dsize),
+            chunks=self.chunks, **kw)
+        self._fwd = functools.partial(self._sharded_nd, inverse=False)
+        self._inv = functools.partial(self._sharded_nd, inverse=True)
+
+    def _conv_axes(self):
+        """``(axes, rpair)``: the (rows, cols) axes of the mesh convolution's
+        round trip and whether it is the packed real pair — a real plan
+        whose grid the real slab tiles; else the full-width complex
+        pair."""
+        rpair = (self.spec.real
+                 and multidim.rslab_feasible(self.tshape, self.shards))
+        return (self.axes if rpair
+                else (self.axes[0], self._full_axis)), rpair
+
+    def _rank2_launches(self) -> None:
+        """Add a sharded rank-2 plan's other calls to ``launches``:
+        ``convolve``, :func:`multidim.conv2_local` on a rank that holds
+        rows of the cropped result (pass 1 of both operands, the R axis
+        forward and inverse, the inverse of the columns; a rank the crop
+        leaves no rows skips the last), and on an ft plan ``ft_fft``
+        (pass 1 of the data grids, pass 1 of the checksum grids, pass 2;
+        each group it recomputes adds ``fft``'s count)."""
+        rows = self.axes[0].plan.num_passes
+        cols = self._conv_axes()[0][1].plan.num_passes
+        self.launches["convolve"] = 3 * cols + 2 * rows
+        if self.spec.ft is not None:
+            self.launches["ft_fft"] = 2 * self.axes[1].plan.num_passes + rows
+
+    def _nd_chunk_rows(self) -> int:
+        """The size of the axis pencil transactions split: the batch when
+        it has rows, else the first leading transform axis (one rank-3
+        grid)."""
+        for size in (max(self.batch, 1),) + tuple(self.tshape[:-2]):
+            if size > 1:
+                return size
+        return 1
+
+    def _effective_nd_chunks(self, requested: int) -> int:
+        """The first candidate axis (the batch, then the leading transform
+        axes) that carries more than one transaction decides the count."""
+        for size in (max(self.batch, 1),) + tuple(self.tshape[:-2]):
+            ce = distributed.resolve_chunks(size, requested)
+            if ce > 1:
+                return ce
+        return 1
+
+    def _sharded_nd(self, x, *, inverse: bool):
+        """The slab or pencil pipeline on this rank; a DTensor result."""
+        m = self._mesh_view()
+        if self.decomp == multidim.DECOMP_SLAB:
+            out = multidim.slab_local(x, self.axes, m, inverse=inverse)
+        else:
+            out = multidim.pencil_local(
+                x, self.grid_pencil, m, inverse=inverse,
+                natural_order=self.spec.natural_order, chunks=self.chunks)
+        return multidim._as_dtensor(out, m)
+
+    def _build_nd_real(self, ops):
+        """Bind the sharded rank-2 real executors: the real slab when the
+        grid tiles (``rslab_feasible``; ``"auto"`` picks it), else — or
+        with ``decomp="pencil"`` — the composed path, the 1-D mesh rfft
+        over the columns and the 1-D mesh transform over the rows."""
+        spec = self.spec
+        ft = spec.ft
+        cc = self.tshape[-1]
+        decomp = spec.decomp
+        feasible = multidim.rslab_feasible(self.tshape, self.shards)
+        if decomp == "auto":
+            decomp = (multidim.DECOMP_SLAB if feasible
+                      else multidim.DECOMP_PENCIL)
+        if ft is not None and decomp != multidim.DECOMP_SLAB:
+            raise ValueError(
+                "grouped ABFT rides the slab inter-axis transpose: an ft "
+                f"real spec needs decomp='slab' (or 'auto'), got {decomp!r}")
+        if decomp == multidim.DECOMP_SLAB and not feasible:
+            raise ValueError(
+                f"infeasible decomp: the real slab needs power-of-two axes "
+                f"with {self.shards} | {self.tshape[0]} and "
+                f"{self.shards} | {self.tshape[-1]}//2, got {self.tshape} — "
+                f"use decomp='pencil' (the composed real path) or a smaller "
+                f"fft axis")
+        self.decomp = decomp
+        rows = self._axis(ops, self.tshape[0])
+        half = self._axis(ops, cc // 2) if cc % 2 == 0 else None
+        self.axes = (rows, half)
+        self._full_axis = self._axis(ops, cc)
+        if decomp == multidim.DECOMP_SLAB:
+            self.volume = multidim.collective_volume_nd(
+                self.tshape, max(self.batch, 1), self.shards, decomp=decomp,
+                itemsize=spec.torch_dtype.itemsize, ft=ft is not None,
+                groups=self.groups or 1, data_shards=self._model_dsize(),
+                natural_order=True, real=True)
+            n = rows.plan.num_passes + half.plan.num_passes
+            self.launches = {"fft": n, "ifft": n}
+            self._rank2_launches()
+            self._rfwd = functools.partial(self._sharded_rslab,
+                                           inverse=False)
+            self._rinv = functools.partial(self._sharded_rslab, inverse=True)
+            return
+        kw = dict(mesh=self.mesh, axis=spec.axis, device=str(self.device))
+        self._rfwd = functools.partial(multidim._composed_rfft2,
+                                       rows_ax=rows, **kw)
+        self._rinv = functools.partial(multidim._composed_irfft2,
+                                       rows_ax=rows, cc=cc, **kw)
+
+    def _sharded_rslab(self, x, *, inverse: bool):
+        m = self._mesh_view()
+        return multidim._as_dtensor(multidim.rslab_local(
+            x, *self.axes, m, inverse=inverse, cc=self.tshape[-1]), m)
+
     def _coerce(self, x):
         """Match the plan's dtype and device: a C2C plan coerces real
         inputs to its complex dtype (the legacy contract); a real plan
@@ -516,8 +695,7 @@ class FFTPlan(planbase.Plan):
                 f"operand transform axes {tuple(x.shape[-self.rank:])} do "
                 f"not match the planned {self.tshape} — build a new "
                 f"FFTSpec (plans are shape-specialized, like cufftPlanMany)")
-        if self.decomp == "pencil" \
-                and tuple(x.shape[:-1]) != self.spec.shape[:-1]:
+        if self.decomp != "local" and tuple(x.shape) != self.spec.shape:
             raise ValueError(
                 f"operand shape {tuple(x.shape)} does not match the "
                 f"sharded plan's {self.spec.shape} — build a new FFTSpec")
@@ -534,11 +712,15 @@ class FFTPlan(planbase.Plan):
         unsharded plan): :func:`~repro_torch.parallel.fft_sharding
         .shard_signals`, a contiguous block of N on each ``fft`` rank."""
         x = self._coerce(x)
-        if self.decomp == "local":
+        if self.decomp == "local" or (self.rank > 1 and self.spec.real
+                                      and self.decomp != "slab"):
             return x
-        from repro_torch.parallel.fft_sharding import shard_signals
-        return shard_signals(x, self.mesh, self.spec.axis,
-                             data_axis=self.daxis)
+        from repro_torch.parallel.fft_sharding import shard_grid, shard_signals
+        if self.rank == 1:
+            return shard_signals(x, self.mesh, self.spec.axis,
+                                 data_axis=self.daxis)
+        return shard_grid(x, self.mesh, self.rank, decomp=self.decomp,
+                          axis=self.spec.axis, data_axis=self.daxis)
 
     def _c2c_only(self):
         if self.spec.real:
@@ -623,13 +805,14 @@ class FFTPlan(planbase.Plan):
         return self.irfft(y)
 
     def ft_fft(self, x, *, inject=None, bs=None):
-        """Fault-tolerant forward transform (requires ``spec.ft``, which
-        only a rank-1 complex spec takes). On a mesh: the sharded grouped
-        two-side ABFT (:class:`~repro_torch.core.fft.distributed
-        .DistFFTResult`; ``inject`` its 7-field rows). Locally: the fused
-        ABFT kernel pipeline (:class:`~repro_torch.kernels.ops
-        .FTFFTResult`; ``inject`` the kernel's 6-field descriptor, ``bs``
-        its per-call tile-size override)."""
+        """Fault-tolerant forward transform (requires ``spec.ft``). On a
+        mesh: the sharded grouped two-side ABFT (:class:`~repro_torch.core
+        .fft.distributed.DistFFTResult`; ``inject`` its 7-field rows), the
+        1-D pencil's or, at rank 2, the slab's (C2C, or real on a real
+        spec: ``y`` the half spectrum). Locally (rank 1): the fused ABFT
+        kernel pipeline (:class:`~repro_torch.kernels.ops.FTFFTResult`;
+        ``inject`` the kernel's 6-field descriptor, ``bs`` its per-call
+        tile-size override)."""
         ft = self.spec.ft
         if ft is None:
             raise ValueError("this plan has no FTConfig — set FFTSpec.ft")
@@ -641,6 +824,18 @@ class FFTPlan(planbase.Plan):
                 f"operand batch {b} does not match the planned {self.batch} "
                 f"— the ABFT group layout (G={self.groups}) was resolved "
                 f"for the spec's batch; build a new FFTSpec")
+        if self.rank == 2:
+            if x.dim() != 3:
+                raise ValueError(
+                    f"ft_distributed_{'r' if self.spec.real else ''}fft2 "
+                    f"expects (B, R, C), got {tuple(x.shape)}")
+            return multidim.ft_sharded2(
+                x, self.axes, self._mesh_view(), groups=self.groups,
+                threshold=float(ft.threshold), correct=bool(ft.correct),
+                inject=distributed._inject_rows(inject, self.spec.torch_dtype,
+                                                self.device),
+                recompute=bool(ft.recompute_uncorrectable),
+                real=self.spec.real)
         if self.decomp == "pencil":
             return distributed.ft_sharded(
                 x, self.pencil, self._mesh_view(), groups=self.groups,
@@ -663,7 +858,7 @@ class FFTPlan(planbase.Plan):
         both are real (the packed path) and its complex one otherwise;
         and whether they are both real. On a mesh a DTensor operand is
         replicated first: the round trip reads global rows."""
-        a, v = (self._replicated_local(t) if _is_dtensor(t)
+        a, v = (multidim._replicated(t) if _is_dtensor(t)
                 else torch.as_tensor(t) for t in (a, v))
         _, real = spectral._result_dtypes(a, v)
         if not real and self.spec.real:
@@ -687,19 +882,45 @@ class FFTPlan(planbase.Plan):
             a, v, real = self._operands(a, v)
             if a.dim() < 2 or v.dim() < 2:
                 raise ValueError("fft_convolve2 needs 2-D operands")
-            grid = multidim._conv2_shape(a.shape[-2:], v.shape[-2:])
+            grid = multidim._conv2_shape(a.shape[-2:], v.shape[-2:],
+                                         self.shards)
             if grid != self.tshape:
                 raise ValueError(
                     f"operand grids {tuple(a.shape[-2:])} and "
                     f"{tuple(v.shape[-2:])} need a {grid} plan, but this "
                     f"plan is for {self.tshape} — build the spec with "
                     f"multidim.fft_convolve2")
+            if self.sharded:
+                return self._sharded_convolve2(a, v, real, mode)
             if real and not self.spec.real:
                 a, v = a.to(self.spec.torch_dtype), v.to(self.spec.torch_dtype)
             out = multidim._convolve2(a, v, mode=mode, axes=self.axes,
                                       real=self.spec.real)
             return out.real if real and out.is_complex() else out
         raise ValueError("convolve supports rank 1 and 2 plans")
+
+    def _sharded_convolve2(self, a, v, real: bool, mode: str):
+        """The slab round trip of :func:`multidim.conv2_local` on this rank:
+        the packed real pair when both operands are real on a real plan
+        whose grid the real slab tiles, else the complex pair; a DTensor
+        result."""
+        if v.dim() == 3 and v.shape[0] not in (1, a.shape[0] if a.dim() == 3
+                                                else 1):
+            raise ValueError(
+                f"kernel batch must be 1 or match the signal batch "
+                f"({a.shape[0] if a.dim() == 3 else 1}), got {v.shape[0]}")
+        nr, nc = self.tshape
+        axes, rpair = self._conv_axes()       # a real plan's operands are real
+        if not rpair:
+            a, v = a.to(self.spec.torch_dtype), v.to(self.spec.torch_dtype)
+        m = self._mesh_view()
+        local, spec, shape = multidim.conv2_local(
+            multidim._pad2(a, nr, nc), multidim._pad2(v, nr, nc), axes, m,
+            sa=tuple(a.shape[-2:]), sv=tuple(v.shape[-2:]), mode=mode,
+            real=rpair)
+        if real and local.is_complex():
+            local = local.real.contiguous()
+        return distributed._dtensor(local, spec, m, shape)
 
     def correlate(self, a, v, *, mode: str = "full"):
         """Cross-correlation (``np.correlate`` conventions), rank-1 only."""

@@ -86,9 +86,6 @@ _AUTO = "auto"
 # group at >= 0.04.
 ID_VAR_TOL = 0.04
 
-_ITEM_10_3 = ("ROADMAP queue 1 item 10.3 (the slab and pencil n-D mesh "
-              "paths, the 2-D ABFT and serving over a mesh)")
-
 
 def mesh_size(mesh, axis: str) -> int:
     """The size of ``mesh`` along its dimension named ``axis``."""
@@ -517,8 +514,11 @@ def _pad_batch_rows(x2d: torch.Tensor, dsize: int, shards: int):
 # ---------------------------------------------------------------------------
 
 
-def _all_to_all(recv, send, *, group, async_op=False):
-    return dist.all_to_all_single(recv, send, group=group, async_op=async_op)
+def _all_to_all(recv, send, *, group, async_op=False, out_splits=None,
+                in_splits=None):
+    return dist.all_to_all_single(recv, send, output_split_sizes=out_splits,
+                                  input_split_sizes=in_splits, group=group,
+                                  async_op=async_op)
 
 
 def _all_gather(out, inp, *, group):
@@ -533,13 +533,15 @@ def _all_reduce(t, *, group):
 class _Mesh:
     """One rank's view of the mesh a transform runs on, and its exchange
     over the ``axis`` dimension: ``all_to_all(recv, send, async_op=...)``
-    (equal splits along the buffers' first dimension; a handle to wait
+    (equal splits along the buffers' first dimension unless
+    ``out_splits``/``in_splits`` give the element counts; a handle to wait
     on when asynchronous), ``all_gather(out, inp)`` and ``all_reduce(t)``
-    (a sum in place), and ``data_gather(out, inp)``, the all-gather over
-    the ``daxis`` dimension (None without one), by :meth:`of` ``dist``'s
-    collectives on the mesh's groups. The pipelines call nothing else of
-    the mesh, so D shards in one process can run them with a permute of
-    their tensors in place of the collectives (``mesh`` None)."""
+    (a sum in place); over the ``daxis`` dimension (None without one)
+    ``data_gather(out, inp)`` and ``data_all_to_all(recv, send, ...)``,
+    by :meth:`of` ``dist``'s collectives on the mesh's groups. The
+    pipelines call nothing else of the mesh, so a grid of shards in one
+    process can run them with a permute of their tensors in place of the
+    collectives (``mesh`` None)."""
 
     mesh: object
     axis: str
@@ -552,6 +554,7 @@ class _Mesh:
     all_gather: Callable
     all_reduce: Callable | None = None
     data_gather: Callable | None = None
+    data_all_to_all: Callable | None = None
 
     @classmethod
     def of(cls, mesh, axis, daxis) -> "_Mesh":
@@ -560,6 +563,7 @@ class _Mesh:
                 f"rank {dist.get_rank()} is not on the mesh {mesh}: only "
                 f"its ranks run the sharded transform")
         group = mesh.get_group(axis)
+        dgroup = mesh.get_group(daxis) if daxis else None
         return cls(mesh, axis, daxis, mesh_size(mesh, axis),
                    mesh_size(mesh, daxis) if daxis else 1,
                    mesh.get_local_rank(axis),
@@ -567,8 +571,9 @@ class _Mesh:
                    functools.partial(_all_to_all, group=group),
                    functools.partial(_all_gather, group=group),
                    functools.partial(_all_reduce, group=group),
-                   functools.partial(_all_gather,
-                                     group=mesh.get_group(daxis))
+                   functools.partial(_all_gather, group=dgroup)
+                   if daxis else None,
+                   functools.partial(_all_to_all, group=dgroup)
                    if daxis else None)
 
 
@@ -1088,16 +1093,6 @@ def _ft_dist_fft(x, p: Pencil, m: _Mesh, *, groups: int, threshold: float,
             else:
                 z[pi * blc:(pi + 1) * blc].copy_(zt[:blc])
         pending = (work, recv, i) if i < ce else None
-    stats = torch.cat(stats)
-    deltas = torch.empty(m.shards, dtype=rdt, device=dev)
-    m.all_gather(deltas, delta.reshape(1))
-    if bsharded:
-        mine = torch.cat([stats.reshape(-1), deltas])
-        every = torch.empty(dl * mine.numel(), dtype=rdt, device=dev)
-        m.data_gather(every, mine)
-        every = every.view(dl, -1)
-        stats = every[:, :gl * 5].reshape(g, 5)
-        deltas = every[:, gl * 5:].reshape(-1)
     if natural_order:
         gath = torch.empty((p.shards,) + tuple(z.shape), dtype=dt,
                            device=dev)
@@ -1105,19 +1100,41 @@ def _ft_dist_fft(x, p: Pencil, m: _Mesh, *, groups: int, threshold: float,
         y = p.natural(gath, rows)
     else:
         y = z.reshape(rows, n // p.shards)
-    correctable = stats[:, 3] > 0.5
-    res = DistFFTResult(
-        y=y, shard_delta=deltas, group_score=stats[:, 0].contiguous(),
-        flagged=stats[:, 1] > 0.5, location=stats[:, 2].to(torch.int32),
-        correctable=correctable, checksum_fault=stats[:, 4] > 0.5,
-        corrected=torch.sum(correctable.to(torch.int32)) * int(correct),
-        recomputed=torch.zeros((), dtype=torch.int32, device=dev))
+    res = _ft_result(y, torch.cat(stats), delta, m, bsharded=bsharded,
+                     correct=correct)
     if recompute:
         _recompute_uncorrectable(res, src, s, gl, md if bsharded else 0,
                                  p, m, natural_order=natural_order)
     spec = signal_specs(m.axis, m.daxis if bsharded else None,
                         natural_order=natural_order)["forward"]
     return res, spec
+
+
+def _ft_result(y: torch.Tensor, stats: torch.Tensor, delta: torch.Tensor,
+               m: _Mesh, *, bsharded: bool, correct: bool) -> DistFFTResult:
+    """The :class:`DistFFTResult` of this rank's ``y`` from its data
+    shard's (G/data, 5) verdict ``stats`` and its left-check residual
+    ``delta``: ONE all-gather over ``fft`` of the residuals and, when the
+    batch shards over ``data``, ONE all-gather over ``data`` of the stats
+    and those residuals, so every rank holds the whole telemetry."""
+    rdt, dev = delta.dtype, delta.device
+    deltas = torch.empty(m.shards, dtype=rdt, device=dev)
+    m.all_gather(deltas, delta.reshape(1))
+    if bsharded:
+        k = stats.numel()
+        mine = torch.cat([stats.reshape(-1), deltas])
+        every = torch.empty(m.dsize * mine.numel(), dtype=rdt, device=dev)
+        m.data_gather(every, mine)
+        every = every.view(m.dsize, -1)
+        stats = every[:, :k].reshape(-1, 5)
+        deltas = every[:, k:].reshape(-1)
+    correctable = stats[:, 3] > 0.5
+    return DistFFTResult(
+        y=y, shard_delta=deltas, group_score=stats[:, 0].contiguous(),
+        flagged=stats[:, 1] > 0.5, location=stats[:, 2].to(torch.int32),
+        correctable=correctable, checksum_fault=stats[:, 4] > 0.5,
+        corrected=torch.sum(correctable.to(torch.int32)) * int(correct),
+        recomputed=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def _recompute_uncorrectable(res: DistFFTResult, src: Source, s: int,

@@ -8,7 +8,8 @@ validated building blocks (no new numerics):
          trick: z = x_even + i*x_odd, a view of the operand's storage),
   irfft: the packed half-length inverse (the same function as the
          reference's full-length inverse, at half the work),
-  fft2:  sugar over a rank-2 plan (``core.fft.api``),
+  fft2:  sugar over a rank-2 plan (``core.fft.api``); with ``mesh`` the
+         slab or pencil decomposition (``core.fft.multidim``),
   ft_ifft: ifft(x) = conj(fft(conj(x))) / N — it runs the *forward*
          protected kernel, so the two-sided ABFT covers the inverse too.
 
@@ -133,48 +134,64 @@ def irfft(y, n: int | None = None, *, mesh=None, axis: str = FFT_AXIS,
     return out if n == full else out[..., :n]
 
 
-def fft2(x, *, device="cuda") -> torch.Tensor:
+def fft2(x, *, mesh=None, axis: str = FFT_AXIS, natural_order: bool = True,
+         decomp: str = "auto", data_axis: str | None = _AUTO,
+         device="cuda") -> torch.Tensor:
     """2-D FFT over the last two axes on ``device``: sugar over a rank-2
     plan. Real inputs promote (float64 to complex128); odd and other
-    non-power-of-two axes run the direct DFT."""
+    non-power-of-two axes run the direct DFT. ``mesh`` (inferred from a
+    DTensor operand when omitted) runs the slab or pencil decomposition
+    (``decomp``; ``natural_order=False`` keeps a pencil result in the
+    transposed digit order)."""
+    return _fft2(x, False, mesh=mesh, axis=axis, natural_order=natural_order,
+                 decomp=decomp, data_axis=data_axis, device=device)
+
+
+def ifft2(x, *, mesh=None, axis: str = FFT_AXIS, natural_order: bool = True,
+          decomp: str = "auto", data_axis: str | None = _AUTO,
+          device="cuda") -> torch.Tensor:
+    """Inverse of :func:`fft2` (normalized by 1/(R*C)); on a mesh with
+    ``natural_order=False`` it consumes the pencil's transposed order."""
+    return _fft2(x, True, mesh=mesh, axis=axis, natural_order=natural_order,
+                 decomp=decomp, data_axis=data_axis, device=device)
+
+
+def _fft2(x, inverse: bool, **kw) -> torch.Tensor:
     from . import api
 
-    x = torch.as_tensor(x)
+    x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
     if not x.is_complex():
         x = x.to(_complex_of(x.dtype))
-    return api.plan(api.spec_for(x, rank=2, device=device)).fft(x)
+    p = api.plan(api.spec_for(x, rank=2, **kw))
+    return p.ifft(x) if inverse else p.fft(x)
 
 
-def ifft2(x, *, device="cuda") -> torch.Tensor:
-    """Inverse of :func:`fft2` (normalized by 1/(R*C))."""
-    from . import api
-
-    x = torch.as_tensor(x)
-    if not x.is_complex():
-        x = x.to(_complex_of(x.dtype))
-    return api.plan(api.spec_for(x, rank=2, device=device)).ifft(x)
-
-
-def rfft2(x, *, device="cuda") -> torch.Tensor:
+def rfft2(x, *, mesh=None, axis: str = FFT_AXIS,
+          data_axis: str | None = _AUTO, decomp: str = "auto",
+          device="cuda") -> torch.Tensor:
     """2-D real-input FFT over the last two axes -> (..., R, C/2+1) half
     spectrum, on ``device``: sugar over a rank-2 *real* plan (the packed
     rfft over the columns, then one launch over the C/2+1 strided
-    columns of the rows' axis)."""
+    columns of the rows' axis). On ``mesh`` the real slab (about half the
+    all-to-all bytes of :func:`fft2`), or the composed pencil path."""
     from . import api
 
-    x = torch.as_tensor(x)
+    x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
     if x.is_complex():
         raise ValueError(f"rfft2 takes a real input, got {x.dtype}")
-    return api.plan(api.spec_for(x, rank=2, real=True,
+    return api.plan(api.spec_for(x, rank=2, real=True, mesh=mesh, axis=axis,
+                                 data_axis=data_axis, decomp=decomp,
                                  device=device)).rfft2(x)
 
 
-def irfft2(y, *, device="cuda") -> torch.Tensor:
+def irfft2(y, *, mesh=None, axis: str = FFT_AXIS,
+           data_axis: str | None = _AUTO, decomp: str = "auto",
+           device="cuda") -> torch.Tensor:
     """Inverse of :func:`rfft2`: (..., R, C/2+1) half spectrum ->
     (..., R, C) real grid with ``C = 2*(bins-1)`` (even columns only)."""
     from . import api
 
-    y = torch.as_tensor(y)
+    y = y if isinstance(y, torch.Tensor) else torch.as_tensor(y)
     if y.dim() < 2:
         raise ValueError(f"irfft2 needs a rank >= 2 spectrum, got "
                          f"{tuple(y.shape)}")
@@ -182,11 +199,16 @@ def irfft2(y, *, device="cuda") -> torch.Tensor:
         raise ValueError(
             "irfft2: a single-bin half spectrum has no default width — "
             "the columns' full length 2*(bins-1) would be 0")
+    if mesh is None:
+        from repro_torch.parallel.fft_sharding import infer_fft_mesh
+        mesh = infer_fft_mesh(y, axis)
     cc = 2 * (y.shape[-1] - 1)
     dtype = (torch.complex128 if y.dtype in (torch.complex128, torch.float64)
              else torch.complex64)
     spec = api.FFTSpec(shape=tuple(y.shape[:-2]) + (y.shape[-2], cc),
-                       dtype=dtype, rank=2, real=True, device=str(device))
+                       dtype=dtype, rank=2, real=True, mesh=mesh, axis=axis,
+                       data_axis=data_axis, decomp=decomp,
+                       device=str(device))
     return api.plan(spec).irfft2(y)
 
 

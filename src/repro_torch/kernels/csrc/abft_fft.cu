@@ -73,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include "fft_tile.cuh"
+#include "smem_limit.cuh"
 
 namespace turbofft {
 namespace abft {
@@ -524,9 +525,8 @@ int launch(const void* x, void* y, void* delta, void* cs, const void* tables,
   if (geo.groups * geo.cluster > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
 
   auto kernel = fast ? &abft_fft_kernel<V, true> : &abft_fft_kernel<V, false>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  {
+    cudaError_t err = allow_smem((const void*)kernel, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   cudaLaunchConfig_t cfg = {};

@@ -61,6 +61,7 @@
 #include <cuda_runtime.h>
 
 #include "fft_tile.cuh"
+#include "smem_limit.cuh"
 
 namespace turbofft {
 namespace blockfft {
@@ -183,11 +184,8 @@ int launch(const void* x, void* y, const void* tables, const void* tw,
   const int threads = tile / kPts > 32 ? tile / kPts : 32;
   const size_t smem = (size_t)tile * sizeof(V);
   auto kernel = block_fft_kernel<V, INV, FAST, DIRECT>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = allow_smem((const void*)kernel, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const long long grid = (d.total + d.sigs - 1) / d.sigs;
   const int log_l = (tw_log_m + 1) / 2;
   const unsigned mask_m =

@@ -64,6 +64,8 @@
 
 #include <type_traits>
 
+#include "smem_limit.cuh"
+
 namespace ftmm {
 
 constexpr int kThreads = 256;   // 8 warps: 4 x 2 warps of 4 x 8 lanes
@@ -498,11 +500,11 @@ struct Args {
 };
 
 // Opt the instance into `smem` bytes of dynamic shared memory (above the
-// default 48 KB) with the carveout that fits the most of them on an SM.
+// default 48 KB; allow_smem) with the carveout that fits the most of them
+// on an SM.
 template <typename Kernel>
 cudaError_t configure(Kernel kernel, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = turbofft::allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,

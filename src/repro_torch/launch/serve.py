@@ -22,7 +22,7 @@ batched FFT endpoint and the multi-tenant serving worker, on one card.
 
 All three run on the card; ``--device cpu`` runs the kernels' plain
 versions instead. Meshes (``--fft-shards``/``--fft-data`` > 1) and chunked
-transactions for the sharded FFT wait for ROADMAP queue 1 item 10.3
+transactions for the sharded FFT wait for ROADMAP queue 1 item 10.4
 (serving over a mesh).
 """
 from __future__ import annotations
@@ -37,7 +37,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.ft import FaultSchedule, FTStats
 from repro_torch.models import Model
-from repro_torch.serve.bucketing import ITEM_10_3
+from repro_torch.serve.bucketing import ITEM_10_4
 from repro_torch.serve.specs import (SPEC_KEYS, _parse_chunks,
                                      apply_fft_spec_arg, build_fft_spec,
                                      serve_plan)
@@ -108,7 +108,7 @@ def _local_mesh(shards: int | None, data: int) -> None:
     if (shards or 1) > 1 or data > 1:
         raise NotImplementedError(
             f"serving over a mesh (shards={shards}, data={data}) is not "
-            f"ported yet: {ITEM_10_3}")
+            f"ported yet: {ITEM_10_4}")
 
 
 def serve_fft(x, *, shards: int | None = None, data: int = 1,
@@ -130,7 +130,7 @@ def serve_fft(x, *, shards: int | None = None, data: int = 1,
     behavior is identical either way thanks to the plan cache. With
     ``ft=True`` the fused two-side ABFT runs online. ``shards``/``data``
     above 1 (a mesh) raise ``NotImplementedError`` (ROADMAP queue 1 item
-    10.3). Returns ``(y, info)``, ``y`` on ``device``.
+    10.4). Returns ``(y, info)``, ``y`` on ``device``.
     """
     from repro_torch.core.fft import api
 
@@ -166,7 +166,7 @@ def _local_args(args) -> None:
     if args.fft_chunks != 1:
         raise NotImplementedError(
             f"--fft-chunks {args.fft_chunks} splits the batch into the "
-            f"sharded FFT's all-to-all transactions: {ITEM_10_3}")
+            f"sharded FFT's all-to-all transactions: {ITEM_10_4}")
 
 
 def _sync(device) -> None:

@@ -7,18 +7,16 @@ name to the :class:`~torch.distributed.tensor.Placement` of that dimension
 "fft")`` on a (B, N) array); :func:`placements` orders one for a mesh,
 Replicate on every dimension it does not name. All helpers understand the
 2-D batch x pencil mesh (``make_fft_mesh(shards, data)``): batch dims
-shard over ``data`` while the signal pencils shard over ``fft``.
-
-The slab and pencil n-D layouts (:func:`slab_specs`,
-:func:`pencil_nd_specs`, :func:`shard_grid`, and :func:`layout_specs` for
-rank >= 2) are ROADMAP queue 1 item 10.3 and raise.
+shard over ``data`` while the signal pencils shard over ``fft``; the n-D
+layouts (:func:`slab_specs`, :func:`pencil_nd_specs`, :func:`shard_grid`)
+are those of ``core.fft.multidim``'s slab and pencil pipelines.
 """
 from __future__ import annotations
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
 
-from repro_torch.core.fft.distributed import (_ITEM_10_3, DATA_AXIS,
+from repro_torch.core.fft.distributed import (DATA_AXIS,
                                               FFT_AXIS, make_dist_plan,
                                               mesh_axes, mesh_size,
                                               resolve_abft_groups,
@@ -132,18 +130,33 @@ def signal_specs(axis: str = FFT_AXIS, data_axis: str | None = None, *,
             "inverse": inv}
 
 
+def _check_ndim(ndim: int) -> None:
+    if ndim < 2 or ndim > 3:
+        raise ValueError(f"ndim must be 2 or 3, got {ndim}")
+
+
 def slab_specs(ndim: int = 2, axis: str = FFT_AXIS,
-               data_axis: str | None = None):
-    """The slab n-D layouts: ROADMAP queue 1 item 10.3."""
-    raise NotImplementedError(f"slab layouts are not ported yet: "
-                              f"{_ITEM_10_3}")
+               data_axis: str | None = None) -> tuple[dict, dict]:
+    """(input, output) specs of the slab n-D transform of a (B, *grid)
+    batch: the FIRST transform axis block-sharded going in, the LAST
+    coming out, the batch over ``data_axis``. Both are true array-axis
+    shardings: the slab's natural order costs nothing."""
+    _check_ndim(ndim)
+    data = {data_axis: Shard(0)} if data_axis else {}
+    return {**data, axis: Shard(1)}, {**data, axis: Shard(ndim)}
 
 
 def pencil_nd_specs(ndim: int = 2, axis: str = FFT_AXIS,
-                    data_axis: str | None = DATA_AXIS):
-    """The pencil n-D layouts: ROADMAP queue 1 item 10.3."""
-    raise NotImplementedError(f"pencil n-D layouts are not ported yet: "
-                              f"{_ITEM_10_3}")
+                    data_axis: str | None = DATA_AXIS) -> tuple[dict, dict]:
+    """(input, transposed-output) specs of the pencil n-D cube ``(B,
+    lead.., r1, r2, c1, c2)``: the fast digits (r2, c2) sharded over
+    (``data_axis``, ``axis``) going in, the slow digits (r1, c1) coming
+    out in the transposed digit order."""
+    _check_ndim(ndim)
+    nl = ndim - 2
+    data_in = {data_axis: Shard(nl + 2)} if data_axis else {}
+    data_out = {data_axis: Shard(nl + 1)} if data_axis else {}
+    return {**data_in, axis: Shard(nl + 4)}, {**data_out, axis: Shard(nl + 3)}
 
 
 def half_spectrum_shape(shape: tuple[int, ...]) -> tuple[int, ...]:
@@ -159,17 +172,56 @@ def layout_specs(rank: int, decomp: str, *, axis: str = FFT_AXIS,
                  ) -> tuple[dict, dict]:
     """(input, output) specs of one planned transform's resident layouts.
     Rank 1 is always the pencil digit split (:func:`pencil_specs`); rank
-    >= 2 is ROADMAP queue 1 item 10.3."""
+    >= 2 dispatches on the resolved ``decomp`` (:func:`slab_specs` /
+    :func:`pencil_nd_specs`). ``real=True`` (rank-2 slab only) is the
+    half-spectrum pipeline: the slab's placements, the output array the
+    :func:`half_spectrum_shape` of the input."""
     if rank == 1:
         return pencil_specs(axis, data_axis)
-    raise NotImplementedError(f"rank-{rank} {decomp!r} layouts are not "
-                              f"ported yet: {_ITEM_10_3}")
+    if real:
+        if rank != 2 or decomp != "slab":
+            raise ValueError(
+                f"the real half-spectrum layout is the rank-2 slab "
+                f"(rfft2); got rank={rank}, decomp={decomp!r}")
+        return slab_specs(rank, axis, data_axis)
+    if decomp == "slab":
+        return slab_specs(rank, axis, data_axis)
+    if decomp == "pencil":
+        return pencil_nd_specs(rank, axis, data_axis)
+    raise ValueError(f"decomp must be slab|pencil for rank {rank}, "
+                     f"got {decomp!r}")
 
 
 def shard_grid(x, mesh, ndim: int = 2, *, decomp: str = "slab",
                axis: str = FFT_AXIS, data_axis: str | None = DATA_AXIS):
-    """Distributing n-D grids: ROADMAP queue 1 item 10.3."""
-    raise NotImplementedError(f"shard_grid is not ported yet: {_ITEM_10_3}")
+    """Distribute a (..., *grid) batch of n-D grids as a ``DTensor``:
+    contiguous blocks of the first (slab) or of the last two (pencil)
+    transform axes, the leading batch dim over ``data_axis`` when it
+    divides. ``x`` is the global value, the same on every rank: each rank
+    keeps its block, with no collective.
+
+    The slab placement is the pipeline's input layout exactly; the pencil
+    wants the fast digits sharded, strided in the flat axes, so the
+    pipeline gathers these blocks once (the ingest)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    x = torch.as_tensor(x)
+    if x.dim() < ndim:
+        raise ValueError(f"input rank {x.dim()} < ndim={ndim}")
+    nlead = x.dim() - ndim
+    daxis = data_mesh_axis(mesh, data_axis) if data_axis else None
+    if decomp == "slab":
+        spec = {axis: Shard(nlead)}
+        if daxis and nlead >= 1 and x.shape[0] % mesh_size(mesh, daxis) == 0:
+            spec[daxis] = Shard(0)
+    elif decomp == "pencil":
+        spec = {axis: Shard(x.dim() - 1)}
+        if daxis and x.shape[-2] % mesh_size(mesh, daxis) == 0:
+            spec[daxis] = Shard(x.dim() - 2)
+    else:
+        raise ValueError(f"decomp must be slab|pencil, got {decomp!r}")
+    return distribute_tensor(x, mesh, placements(mesh, spec),
+                             src_data_rank=None)
 
 
 def shard_signals(x, mesh, axis: str = FFT_AXIS,

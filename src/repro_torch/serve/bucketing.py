@@ -8,7 +8,7 @@ power of two; a handful of buckets then absorbs the whole request
 distribution and the plan cache stays hot. The mesh round-up of
 :func:`pad_transform_shape` (pencil feasibility ``n >= shards^2``) is kept
 as the arithmetic it is; bucket plans themselves are local until ROADMAP
-queue 1 item 10.3 ports serving over a mesh.
+queue 1 item 10.4 ports serving over a mesh.
 
 Padded serving semantics: a request of ``n_req`` points served from an
 ``n``-point bucket receives the ``n``-point transform of its zero-padded
@@ -34,7 +34,7 @@ __all__ = ["BucketKey", "SpecBucketer", "pad_transform_shape", "next_pow2",
 # through serve_plan (admission rejects them with a pointer there).
 BATCHABLE_OPS = ("fft", "spectrum")
 
-ITEM_10_3 = "ROADMAP queue 1 item 10.3 (serving over a mesh)"
+ITEM_10_4 = "ROADMAP queue 1 item 10.4 (serving over a mesh)"
 
 
 def mesh_shards(mesh) -> int:
@@ -51,7 +51,7 @@ def mesh_shards(mesh) -> int:
     if shards > 1:
         raise NotImplementedError(
             f"serving over a mesh of {shards} fft shards is not ported "
-            f"yet: {ITEM_10_3}")
+            f"yet: {ITEM_10_4}")
     return shards
 
 

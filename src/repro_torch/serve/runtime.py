@@ -43,7 +43,7 @@ SEU descriptors (tests / fault-injection campaigns) ride
 indices relative to the request, and the runtime offsets them to batch
 rows; the per-bucket verdict telemetry (injected/detected/corrected)
 aggregates over every batch the bucket executed. Sharded buckets (a mesh)
-are ROADMAP queue 1 item 10.3.
+are ROADMAP queue 1 item 10.4.
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ it; the runtime builds one plan per *bucket* from it.
 The port's plans are local: a mesh with more than one shard, ``chunks >
 1``, a ``decomp`` other than ``auto`` and ``natural_order=False`` (the
 transposed digit order of the pencil) raise ``NotImplementedError`` naming
-ROADMAP queue 1 item 10.3 (serving over a mesh). A local plan's telemetry reports ``shards`` and
-``data`` 1, as the reference's local plans do.
+ROADMAP queue 1 item 10.4 (serving over a mesh). A local plan's telemetry
+reports ``shards`` and ``data`` 1, as the reference's local plans do.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import dtype_name
-from repro_torch.serve.bucketing import ITEM_10_3, mesh_shards
+from repro_torch.serve.bucketing import ITEM_10_4, mesh_shards
 
 __all__ = ["build_fft_spec", "serve_plan", "apply_fft_spec_arg",
            "SPEC_KEYS"]
@@ -73,14 +73,14 @@ def build_fft_spec(shape, *, mesh=None, op: str = "fft",
     if chunks > 1:
         raise NotImplementedError(
             f"chunks={chunks} splits the batch into all-to-all "
-            f"transactions of the sharded FFT: {ITEM_10_3}")
+            f"transactions of the sharded FFT: {ITEM_10_4}")
     if decomp != "auto":
         raise NotImplementedError(
-            f"decomp={decomp!r} chooses a mesh decomposition: {ITEM_10_3}")
+            f"decomp={decomp!r} chooses a mesh decomposition: {ITEM_10_4}")
     if natural_order is False:
         raise NotImplementedError(
             f"natural_order=False (the pencil's transposed digit order) is "
-            f"a mesh layout: {ITEM_10_3}")
+            f"a mesh layout: {ITEM_10_4}")
     ft_cfg = None
     if ft and op == "fft":
         ft_cfg = api.FTConfig(threshold=threshold, groups=groups,

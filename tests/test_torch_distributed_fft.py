@@ -219,8 +219,9 @@ def test_fft_sharding_helpers_match_reference(mesh):
 
 def test_fft_sharding_specs_mirror_the_reference_partition_specs():
     """Each placement names the mesh dimension the reference's
-    PartitionSpec puts on the same array dimension; the n-D layouts raise,
-    naming item 10.3."""
+    PartitionSpec puts on the same array dimension, the n-D layouts'
+    (``slab_specs``, ``pencil_nd_specs``, ``layout_specs`` at rank 2)
+    included; ``shard_grid`` needs a grid of the transform's rank."""
     from torch.distributed.tensor import Shard
 
     from repro.parallel import fft_sharding as rfs
@@ -239,11 +240,15 @@ def test_fft_sharding_specs_mirror_the_reference_partition_specs():
     for shape in ((8, 64), (2, 16, 33)):
         assert tfs.half_spectrum_shape(shape) == rfs.half_spectrum_shape(
             shape)
-    for call in (lambda: tfs.layout_specs(2, "slab"), tfs.slab_specs,
-                 tfs.pencil_nd_specs,
-                 lambda: tfs.shard_grid(torch.zeros(2, 8, 8), None)):
-        with pytest.raises(NotImplementedError, match="item 10.3"):
-            call()
+    for got, want in ((tfs.layout_specs(2, "slab"),
+                       rfs.layout_specs(2, "slab")),
+                      (tfs.slab_specs(), rfs.slab_specs()),
+                      (tfs.pencil_nd_specs(), rfs.pencil_nd_specs())):
+        for g, w in zip(got, want):
+            assert {name: pl.dim for name, pl in g.items()} == {
+                name: dim for dim, name in enumerate(w) if name}
+    with pytest.raises(ValueError, match="input rank 2 < ndim=3"):
+        tfs.shard_grid(torch.zeros(8, 8), None, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +399,8 @@ def test_pencil_launches_one_pass1_and_the_tail(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# what stays to port raises, naming its item
+# the n-D specs plan; what stays to port (serving over a mesh) raises,
+# naming its item
 # ---------------------------------------------------------------------------
 
 
@@ -409,32 +415,39 @@ class _FakeMesh:
         return 4
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(rank=2, shape=(8, 64, 64), ft=FTConfig()), "item 10.3"),
-    (dict(rank=2, shape=(8, 64, 64)), "item 10.3"),
-    (dict(rank=3, shape=(2, 8, 8, 8)), "item 10.3"),
-    (dict(rank=2, real=True, shape=(8, 64, 64)), "item 10.3")],
+@pytest.mark.parametrize("kw,decomp", [
+    (dict(rank=2, shape=(8, 64, 64), ft=FTConfig()), "slab"),
+    (dict(rank=2, shape=(8, 64, 64)), "slab"),
+    (dict(rank=3, shape=(2, 8, 8, 8)), "slab"),
+    (dict(rank=2, real=True, shape=(8, 64, 64)), "slab")],
     ids=["ft", "rank2", "rank3", "real-rank2"])
-def test_unported_mesh_paths_name_their_item(kw, item):
+def test_unported_mesh_paths_name_their_item(kw, decomp):
+    """The n-D specs on a mesh of four fft ranks plan (the n-D half of the
+    sharded library is ported: tests/test_torch_distributed_nd.py runs
+    them), each on the decomposition the reference picks."""
+    from repro_torch.core.fft import api
+
     kw = dict(dict(shape=(8, 64)), **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        FFTSpec(mesh=_FakeMesh(), device=CPU, **kw)
+    p = api.plan(FFTSpec(mesh=_FakeMesh(), device=CPU, **kw))
+    assert p.sharded and p.decomp == decomp and p.volume is not None
 
 
 def test_spectral_consumers_and_serving_on_a_mesh_name_item_10_3():
-    """What stays in item 10.3 raises naming it: the 2-D convolution and
-    serving over a mesh (the rank-1 spectral consumers run in the spawn)."""
-    from repro_torch.core.fft import multidim
+    """The 2-D convolution plans on a mesh; what stays to port, serving
+    over a mesh, raises naming item 10.4 (the rank-1 spectral consumers
+    and the 2-D convolution run in the spawns)."""
+    from repro_torch.core.fft import api, multidim
     from repro_torch.launch import serve as launch
     from repro_torch.serve.bucketing import mesh_shards
 
     a = torch.zeros((2, 64))
-    v = torch.zeros(5)
-    for call in (lambda: multidim.fft_convolve2(a[None], v[None],
-                                                _FakeMesh(), device=CPU),
-                 lambda: mesh_shards(_FakeMesh()),
+    grid = multidim._conv2_shape((20, 24), (5, 7), 4)
+    p = api.plan(FFTSpec(shape=(2,) + grid, rank=2, real=True,
+                         mesh=_FakeMesh(), device=CPU))
+    assert (p.tshape, p.decomp) == ((32, 32), "slab")
+    for call in (lambda: mesh_shards(_FakeMesh()),
                  lambda: launch.serve_fft(a, shards=4, device=CPU)):
-        with pytest.raises(NotImplementedError, match="item 10.3"):
+        with pytest.raises(NotImplementedError, match="item 10.4"):
             call()
 
 

@@ -19,6 +19,7 @@ K = 8192 terms in another order than cuBLAS's: sqrt(K) * 2^-24 is about
 of ``chip_smoke.py``. Its outputs are bitwise the same whichever CTA tile
 runs, and its build has no spills and two CTAs a SM at float32 128 x 128.
 """
+import ctypes
 import importlib.util
 import json
 import math
@@ -297,6 +298,164 @@ def test_checksum_row_launch_at_its_offset_matches_plain(cuda, dtype, ln,
     _close(got, want)
 
 
+class _HeldToPlain:
+    """Runs every ``block_fft`` launch (``stockham`` and ``ops`` take it by
+    name) on the card and, on clones of its operands, on the plain
+    version, keeping the largest error over ``ATOL * max|plain|``; the
+    threads of ``torch_shards`` launch concurrently, so the record takes
+    a lock."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.kernels import ops, stockham
+
+        kernel = stockham.block_fft
+        self.worst, self.launches = 0.0, 0
+        lock = threading.Lock()
+
+        def checked(x, stages, *, out=None, tables=None, **kw):
+            x0 = x.clone()
+            o0 = None if out is None else (
+                x0 if out.data_ptr() == x.data_ptr() else out.clone())
+            got = kernel(x, stages, out=out, tables=tables, **kw)
+            want = block_fft_plain(x0, stages, out=o0, **kw)
+            err = ((got - want).abs().max() / (
+                ATOL[want.dtype] * want.abs().max() + 1e-30)).item()
+            with lock:
+                self.worst = max(self.worst, err)
+                self.launches += 1
+            return got
+
+        checked.launches = 0         # the kernel counts its launches here
+        monkeypatch.setattr(stockham, "block_fft", checked)
+        monkeypatch.setattr(ops, "block_fft", checked)
+
+
+@pytest.mark.parametrize("d,dd", [(4, 1), (2, 2)])
+def test_nd_on_shards_on_card_launches_match_plain(cuda, monkeypatch, d, dd):
+    """The slab (rank 2 and 3), pencil (natural, transposed with chunks=2,
+    TRANSPOSED_IN), real slab and convolution loops of a data x fft grid
+    of threads on the card (``torch_shards.grid_on_shards``), every launch
+    held to ``block_fft_plain`` on the same card tensors, the results to
+    torch.fft."""
+    from repro_torch.core.fft import multidim as md
+    from torch_shards import grid_on_shards
+
+    held = _HeldToPlain(monkeypatch)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    for shape, nd in (((4, 512, 1024), 2), ((2, 64, 128, 256), 3)):
+        x = torch.randn(shape, dtype=torch.complex64, device=cuda,
+                        generator=gen)
+        axes = tuple(ops.axis_fft(n, x.dtype, cuda) for n in shape[-nd:])
+        ref = torch.fft.fftn(x, dim=tuple(range(-nd, 0)))
+        y = grid_on_shards(lambda r, m: md.slab_local(x, axes, m,
+                                                      inverse=False), d, dd)
+        _close(y, ref)
+        _close(grid_on_shards(lambda r, m: md.slab_local(
+            y, axes, m, inverse=True), d, dd), x, factor=2)
+        gp = md.GridPencil(shape[-nd:], d, dd, x.dtype, str(cuda))
+        _close(grid_on_shards(lambda r, m: md.pencil_local(
+            x, gp, m, inverse=False, natural_order=True, chunks=1), d, dd),
+            ref)
+        yt = grid_on_shards(lambda r, m: md.pencil_local(
+            x, gp, m, inverse=False, natural_order=False, chunks=2), d, dd)
+        xi = grid_on_shards(lambda r, m: md.pencil_local(
+            yt, gp, m, inverse=True, natural_order=False, chunks=2), d, dd)
+        _close(xi.reshape(shape), x, factor=2)
+    xr = torch.randn((4, 512, 1024), dtype=torch.float32, device=cuda,
+                     generator=gen)
+    rows, half = (ops.axis_fft(n, torch.complex64, cuda) for n in (512, 512))
+    yr = grid_on_shards(lambda r, m: md.rslab_local(
+        xr, rows, half, m, inverse=False, cc=1024), d, dd)
+    _close(yr, torch.fft.rfft2(xr))
+    _close(grid_on_shards(lambda r, m: md.rslab_local(
+        yr, rows, half, m, inverse=True, cc=1024), d, dd), xr, factor=2)
+    a = torch.randn((4, 200, 240), dtype=torch.float32, device=cuda,
+                    generator=gen)
+    v = torch.randn((33, 33), dtype=torch.float32, device=cuda, generator=gen)
+    nr, nc = md._conv2_shape((200, 240), (33, 33), d)
+    axes = (ops.axis_fft(nr, torch.complex64, cuda),
+            ops.axis_fft(nc // 2, torch.complex64, cuda))
+    got = grid_on_shards(lambda r, m: md.conv2_local(
+        md._pad2(a, nr, nc), md._pad2(v, nr, nc), axes, m, sa=(200, 240),
+        sv=(33, 33), mode="same", real=True), d, dd)
+    s = (232, 272)
+    full = torch.fft.ifft2(torch.fft.fft2(a, s=s) * torch.fft.fft2(v, s=s))
+    _close(got, full.real[:, 16:216, 16:256])
+    assert held.launches > 0 and held.worst <= 1.0, held.worst
+
+
+@pytest.mark.parametrize("real", [False, True], ids=["c2c", "real"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ft2_on_shards_on_card_fault_matrix(cuda, dtype, real):
+    """The 2-D grouped ABFT's loop on 2 x 2 threads at (8, 1024, 2048), G =
+    4: clean unflagged, four SEUs corrected, the double hit
+    uncorrectable and then recomputed, a cs2 grid hit classified; y
+    against torch.fft."""
+    from torch_shards import FT2_SCENARIOS, INJ2, INJ4, ft2_on_shards
+
+    name = str(dtype).split(".")[1]
+    thr = FT2_SCENARIOS["threshold"][name]
+    mag = FT2_SCENARIOS["mag"][name]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    if real:
+        x = torch.randn((8, 1024, 2048), device=cuda, generator=gen,
+                        dtype=torch.float64 if dtype == torch.complex128
+                        else torch.float32)
+        ref = torch.fft.rfft2(x)
+    else:
+        x = torch.randn((8, 1024, 2048), dtype=dtype, device=cuda,
+                        generator=gen)
+        ref = torch.fft.fft2(x)
+    # eps sized for the grid: the score is |eps| / (sqrt(C) sqrt(s R C)),
+    # the catalogue's at 32 x 64
+    scale = mag * (2048 / 64 * 1024 * 2048 / (32 * 64)) ** 0.5
+    tol = ATOL[dtype]
+
+    def rows(inj):
+        return [r[:5] + [r[5] * scale, r[6] * scale] for r in inj]
+
+    def err(res):
+        return ((res.y - ref).abs().max() / ref.abs().max()).item()
+
+    kw = dict(groups=4, threshold=thr, real=real)
+    clean = ft2_on_shards(x, 2, 2, **kw)
+    assert not clean.flagged.any() and err(clean) < tol
+    four = ft2_on_shards(x, 2, 2, inject=rows(INJ4), **kw)
+    assert four.correctable.all() and four.location.tolist() == [1, 2, 5, 6]
+    assert err(four) < tol
+    dbl = ft2_on_shards(x, 2, 2, inject=rows(INJ2), **kw)
+    assert dbl.uncorrectable.tolist() == [False, False, True, False]
+    fixed = ft2_on_shards(x, 2, 2, inject=rows(INJ2), recompute=True, **kw)
+    assert int(fixed.recomputed) == 1 and err(fixed) < tol
+    cs2 = ft2_on_shards(x, 2, 2, inject=rows([[1, 9, 4, 2, 1, 1.0, -1.0]]),
+                        **kw)
+    assert cs2.checksum_fault.tolist() == [False, True, False, False]
+    assert err(cs2) < tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_slab_checksum_grid_launch_at_its_row_offset_matches_plain(cuda,
+                                                                    dtype):
+    """Pass 1 of the 2-D ABFT's 2G checksum grids, the second launch into
+    the pass-1 buffer at row offset bl (one rank's R/4 rows of 8 grids of
+    (1024, 2048), G = 4), against its plain version on the same card
+    tensors: the data rows untouched."""
+    from repro_torch.core.fft import multidim as md
+
+    bl, gl, rl, cc = 8, 4, 256, 2048
+    ax = ops.axis_fft(cc, dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    cs = torch.randn((2 * gl, rl, cc), dtype=dtype, device=cuda,
+                     generator=gen)
+    got, want = (torch.zeros((bl + 2 * gl, rl, cc), dtype=dtype, device=cuda)
+                 for _ in range(2))
+    md._last_axis(cs, ax, got[bl:], inverse=False)
+    want[bl:] = block_fft_plain(cs.view(-1, cc), ax.plan.stages[0]).view(
+        cs.shape)
+    assert not got[:bl].any()
+    _close(got, want)
+
+
 def test_plan_fft_launches_one_kernel_per_pass(cuda):
     """Under torch.profiler, one plan.fft call at 2^20 runs exactly two CUDA
     kernels, both block_fft: nothing else touches the data."""
@@ -411,6 +570,71 @@ def test_abft_kernel_on_reference_stages(cuda, radices, n):
             got = abft_fft(x, stages, inject=inj, **kw)
             want = abft_fft_plain(x, stages, inject=inj, **kw)
             _check_abft(got, want, _delta_noise(clean[1]))
+
+
+# one kernel function at two dynamic shared memory sizes above 48 KB:
+# block_fft at complex128 N = 8192 (128 KiB) and N = 4096 one row (64 KiB);
+# abft_fft at complex64 N = 8192, bs = 16 (a cluster of 8, two tile steps:
+# 98448 bytes) and bs = 1 (65680 bytes)
+_TWO_SIZES = {"block_fft": (torch.complex128, [(4, 8192, 0), (1, 4096, 0)]),
+              "abft_fft": (torch.complex64, [(16, 8192, 16), (1, 8192, 1)])}
+
+
+@pytest.mark.parametrize("kernel", sorted(_TWO_SIZES))
+def test_two_threads_launch_one_kernel_at_two_shared_memory_sizes(cuda,
+                                                                  kernel):
+    """Four host threads, two at each of two shared memory sizes, launch
+    one kernel function, as a serving runtime's workers do with batches of
+    two sizes (abft_fft's threads also ask the card for its clusters, with
+    nothing else in the call). The function's shared memory limit is one
+    per device, so a thread that set it to its own size could lower it
+    under another's launch or cluster query. Every launch and every
+    cluster query succeeds, and each thread's last result is the plain
+    version's."""
+    from repro_torch.kernels import _build, stockham_abft
+
+    dtype, cases = _TWO_SIZES[kernel]
+    rounds, errors, results = 2000, [], {}
+    start = threading.Barrier(2 * len(cases))
+    lib = _build.load("abft_fft", stockham_abft._SIGNATURES)
+
+    def run(k, b, n, bs):
+        try:
+            x = _rand(b, n, dtype).to(cuda)
+            stages = make_plan(n).stages[0]
+            if kernel == "abft_fft":
+                geo = stockham_abft.launch_geometry(stages, dtype, bs, 1)
+                packed = geo.pack(geo.rows)
+                query = lib.abft_fft_clusters_c64
+            start.wait()
+            for _ in range(rounds):
+                if kernel == "block_fft":
+                    got = block_fft(x, stages)
+                else:
+                    clusters = query(ctypes.addressof(packed))
+                    assert clusters >= 1, (geo, clusters)
+                    got = abft_fft(x, stages, bs=bs)
+            torch.cuda.synchronize()
+            want = (block_fft_plain(x.cpu(), stages) if kernel == "block_fft"
+                    else abft_fft_plain(x.cpu(), stages, bs=bs))
+            results[k] = (got, want)
+        except BaseException as exc:          # reported by the main thread
+            errors.append(exc)
+            start.abort()
+
+    threads = [threading.Thread(target=run, args=(k,) + cases[k % 2])
+               for k in range(2 * len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[:4]
+    assert len(results) == len(threads)
+    for got, want in results.values():
+        if kernel == "block_fft":
+            _close(got, want)
+        else:
+            _check_abft(got, want, _delta_noise(want[1]))
 
 
 def _chip_smoke():

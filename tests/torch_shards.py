@@ -1,15 +1,19 @@
-"""D shards of the sharded 1-D FFT in one process, for the tests.
+"""Shards of the sharded FFTs in one process, for the tests.
 
 Each shard is a thread that runs the mesh pipelines of
 ``repro_torch.core.fft.distributed`` (``_dist_fft``, ``_dist_ifft_t``,
-the ABFT's ``_ft_dist_fft``) on the global input as a plain tensor, as a
-rank of a mesh does; their exchange (:class:`PermuteExchange`) copies the
-shards' tensors into each other in place of ``dist.all_to_all_single``
-and ``dist.all_gather_into_tensor``, and sums them in place of
-``dist.all_reduce``. So the loops under test are the ones a
-mesh runs, on the tensors' own device: plain versions on the CPU, the
-kernels on the card. ``tail`` splits the N2 tail into other local passes
-than ``make_plan``'s, which reaches the two-pass tail at small sizes.
+the ABFT's ``_ft_dist_fft``) and of ``repro_torch.core.fft.multidim``
+(the slab, pencil, real slab, 2-D ABFT and convolution ``*_local``
+steps) on the global input as a plain tensor, as a rank of a mesh does;
+their exchange (:class:`PermuteExchange`) copies the shards' tensors into
+each other in place of ``dist.all_to_all_single`` (uneven splits
+included) and ``dist.all_gather_into_tensor``, and sums them in place of
+``dist.all_reduce``. :func:`run_shards` runs a ``data x fft`` grid of
+threads, one exchange a row and one a column, as a 2-D mesh's groups.
+So the loops under test are the ones a mesh runs, on the tensors' own
+device: plain versions on the CPU, the kernels on the card. ``tail``
+splits the N2 tail into other local passes than ``make_plan``'s, which
+reaches the two-pass tail at small sizes.
 
 It also holds the grouped ABFT's scenario catalogue (``FT_SCENARIOS``,
 ``expected_verdicts``), which the thread runs, the four-process spawn and
@@ -56,15 +60,27 @@ class PermuteExchange:
         calls = itertools.count()
         d = self.shards
 
-        def all_to_all(recv, send, async_op=False):
+        def all_to_all(recv, send, async_op=False, out_splits=None,
+                       in_splits=None):
             k = next(calls)
-            self.posted[k, rank] = send
+            self.posted[k, rank] = (send, in_splits)
 
             def finish():
                 self.barrier.wait()
-                for e in range(d):
-                    recv.view(d, -1)[e].copy_(
-                        self.posted[k, e].view(d, -1)[rank])
+                if in_splits is None and out_splits is None:
+                    for e in range(d):
+                        recv.view(d, -1)[e].copy_(
+                            self.posted[k, e][0].view(d, -1)[rank])
+                else:
+                    at = 0
+                    for e in range(d):
+                        src, sp = self.posted[k, e]
+                        lo = sum(sp[:rank])
+                        n = out_splits[e]
+                        assert sp[rank] == n, (sp, out_splits)
+                        recv.view(-1)[at:at + n].copy_(
+                            src.reshape(-1)[lo:lo + n])
+                        at += n
                 self.barrier.wait()
 
             handle = _Handle(finish)
@@ -103,24 +119,33 @@ def pencil(n: int, shards: int, dtype: torch.dtype, device,
     return p
 
 
-def run_shards(fn, shards: int):
-    """``fn(rank, mesh)`` on ``shards`` threads, one a shard, ``mesh`` the
-    shard's ``_Mesh`` over the threads' exchange; their results in rank
-    order (the first error raised)."""
-    ex = PermuteExchange(shards)
-    results, errors = [None] * shards, []
+def run_shards(fn, shards: int, data: int = 1):
+    """``fn(rank, mesh)`` on a ``data x shards`` grid of threads, one a
+    shard, ``mesh`` the shard's ``_Mesh`` over its row's exchange (the
+    ``fft`` group) and its column's (the ``data`` group), as a
+    ``("data", "fft")`` mesh numbers its ranks: rank = md * shards + d.
+    Their results in rank order (the first error raised)."""
+    rows = [PermuteExchange(shards) for _ in range(data)]
+    cols = [PermuteExchange(data) for _ in range(shards)]
+    results, errors = [None] * (shards * data), []
 
     def body(rank):
+        md, d = divmod(rank, shards)
         try:
-            m = sd._Mesh(None, sd.FFT_AXIS, None, shards, 1, rank, 0,
-                         *ex.member(rank))
+            a2a, gather, reduce_ = rows[md].member(d)
+            da2a, dgather, _ = cols[d].member(md)
+            m = sd._Mesh(None, sd.FFT_AXIS, sd.DATA_AXIS if data > 1
+                         else None, shards, data, d, md, a2a, gather,
+                         reduce_, dgather if data > 1 else None,
+                         da2a if data > 1 else None)
             results[rank] = fn(rank, m)
         except BaseException as e:        # noqa: BLE001 - re-raised below
             errors.append(e)
-            ex.barrier.abort()
+            for ex in rows + cols:
+                ex.barrier.abort()
 
     threads = [threading.Thread(target=body, args=(r,))
-               for r in range(shards)]
+               for r in range(shards * data)]
     for t in threads:
         t.start()
     for t in threads:
@@ -128,6 +153,39 @@ def run_shards(fn, shards: int):
     if errors:
         raise errors[0]
     return results
+
+
+def assemble(outs, shards: int, data: int = 1) -> torch.Tensor:
+    """The global tensor of the ranks' ``(local, spec, shape)`` results
+    (rank order as :func:`run_shards`): each local block written where
+    its spec puts it — ``Shard(dim)`` over ``fft`` (``data``) the rank's
+    ``torch.chunk`` block of ``dim`` by its fft (data) coordinate — and
+    every copy of a replicated block checked equal to the first."""
+    local0, _, shape = outs[0]
+    full = torch.zeros(shape, dtype=local0.dtype, device=local0.device)
+    seen = torch.zeros(shape, dtype=torch.bool)
+    for rank, (local, spec, shp) in enumerate(outs):
+        assert tuple(shp) == tuple(shape), (shp, shape)
+        md, d = divmod(rank, shards)
+        idx = [slice(None)] * len(shape)
+        for name, pl in spec.items():
+            coord, count = (d, shards) if name == sd.FFT_AXIS else (md, data)
+            per = -(-shape[pl.dim] // count)
+            lo = min(coord * per, shape[pl.dim])
+            idx[pl.dim] = slice(lo, min(lo + per, shape[pl.dim]))
+        idx = tuple(idx)
+        if seen[idx].any():
+            assert torch.equal(full[idx], local), f"rank {rank} disagrees"
+        full[idx] = local
+        seen[idx] = True
+    assert bool(seen.all()), "a block of the result is missing"
+    return full
+
+
+def grid_on_shards(fn, shards: int, data: int = 1) -> torch.Tensor:
+    """The global result of ``fn(rank, mesh)`` -> ``(local, spec, shape)``
+    on a ``data x shards`` grid of threads (:func:`assemble`)."""
+    return assemble(run_shards(fn, shards, data), shards, data)
 
 
 def fft_on_shards(x: torch.Tensor, shards: int, *, inverse: bool = False,
@@ -280,3 +338,51 @@ def telemetry(res) -> dict:
         "checksum_fault", "corrected", "recomputed")}
     out["uncorrectable"] = res.uncorrectable.tolist()
     return out
+
+
+# The 2-D grouped ABFT's scenario catalogue (tests/test_fft_multidim.py:270-
+# 350): b, R, C, G = 8, 32, 64, 4; eps in units of ``mag``; rows [fft
+# device, signal, local_r, col, enable, eps_re, eps_im]. The real ABFT runs
+# the same rows on its padded half spectrum (col < C/2 + D).
+FT2_SHAPE, FT2_GROUPS = (8, 32, 64), 4
+FT2_SCENARIOS = {
+    "threshold": FT_SCENARIOS["threshold"], "mag": FT_SCENARIOS["mag"],
+    "cases": [dict(name="clean", inject=None, kw={}),
+              dict(name="four", inject=INJ4, kw={}),
+              dict(name="nocorrect", inject=INJ4, kw={"correct": False}),
+              dict(name="double", inject=INJ2, kw={}),
+              dict(name="recompute", inject=INJ2,
+                   kw={"recompute_uncorrectable": True}),
+              dict(name="cs2", inject=[[1, 9, 4, 2, 1, 1.0, -1.0]], kw={}),
+              dict(name="cs3", inject=[[1, 14, 4, 2, 1, 1.0, -1.0]],
+                   kw={})]}
+VERDICTS = ("flagged", "location", "correctable", "checksum_fault",
+            "corrected", "recomputed", "uncorrectable")
+
+
+def ft2_on_shards(x: torch.Tensor, shards: int, data: int = 1, *,
+                  groups: int, threshold: float, real: bool,
+                  correct: bool = True, inject=None, recompute: bool = False):
+    """The 2-D sharded ABFT (``multidim.ft_slab2_local``) of ``x`` (B, R,
+    C) on a ``data x shards`` grid of threads: shard 0's
+    :class:`~repro_torch.core.fft.distributed.DistFFTResult` (every
+    shard's telemetry must be the same) with ``y`` the global result."""
+    from repro_torch.core.fft import multidim
+
+    b, rr, cc = x.shape
+    cdt = x.dtype if x.is_complex() else (
+        torch.complex128 if x.dtype == torch.float64 else torch.complex64)
+    key = device_key(x.device)
+    axes = (axis_fft(rr, cdt, key), axis_fft(cc // 2 if real else cc, cdt,
+                                             key))
+    inj = sd._inject_rows(inject, cdt, x.device)
+    outs = run_shards(lambda r, m: multidim.ft_slab2_local(
+        x, axes, m, groups=groups, threshold=threshold, correct=correct,
+        inject=inj, recompute=recompute, real=real), shards, data)
+    res0 = outs[0][0]
+    for res, _, _ in outs[1:]:
+        for f in VERDICTS + ("shard_delta", "group_score"):
+            assert torch.equal(getattr(res, f), getattr(res0, f)), f
+    y = assemble([(res.y, spec, shape) for res, spec, shape in outs],
+                 shards, data)
+    return dataclasses.replace(res0, y=y)
