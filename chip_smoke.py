@@ -240,7 +240,25 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   ``torch.fft``; its ft plan is the local one (one ``abft_fft`` launch,
   the same result as without the mesh), ``fft_convolve(mesh=...)`` the
   local convolution and its rank-2 plan the local plan (bitwise, the
-  same launches).
+  same launches). Last on the four ranks, serving over the mesh
+  (``shard_serve_drive``): a ``ServeRuntime`` over the mesh of 4
+  (max_batch 16, 2 ms; rank 0 leads with three closed-loop client
+  threads) serving ``SHARD_SERVE_TENANTS`` of ``serve_tenants`` (c64
+  2^20, c128 8192, the real 2^17 bucket, the 2^16 spectrum in the mesh's
+  transposed order, the 1024 x 1024 slab); then, on the mesh of 4 and
+  on 2 x 2, an ft bucket at c64 2^20 with G = 4 through a runtime whose
+  deadline never closes a group early: two closed groups of 16, each one
+  batch, the first with one SEU in each checksum group. Each result
+  against torch.fft of its zero-padded request at ATOL * max|ref| (the
+  spectrum digit-permuted), each batch's launches on each rank
+  ``plan.launches``', its data collectives ``plan.volume``'s and the
+  verdict's, the runtime's own traffic the stated one, the same
+  (command, bucket, fill) sequence on every rank, injected == detected ==
+  located == corrected with no false alarm, every runtime thread ended
+  and its groups destroyed; per bucket p50/p95/p99 host ms,
+  requests/s, batches and mean fill, each rank's device ms of the bucket
+  plan's local passes. The NCCL rank then serves a few requests through
+  ``ServeRuntime(mesh=make_fft_mesh(1))``, bitwise a local runtime's.
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -3932,6 +3950,18 @@ def shard_drive(rank, trace):
         return (got - want).abs().max().item() / tol
 
     block_fft.launches = 0
+    # what a process's first sharded call would pay besides its transform,
+    # timed apart: the import of DTensor's package (with dynamo, fx and
+    # sympy), then gloo's first CUDA collectives, one element a rank
+    t0 = time.perf_counter()
+    import torch.distributed.tensor  # noqa: F401
+    out["dtensor_import_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    one = torch.zeros(SHARD_RANKS, dtype=torch.complex64, device=dev)
+    dist.all_to_all_single(torch.empty_like(one), one)
+    dist.all_gather_into_tensor(torch.empty_like(one), one[:1])
+    torch.cuda.synchronize()
+    out["first_collectives_ms"] = (time.perf_counter() - t0) * 1e3
     for shards, data in SHARD_MESHES:
         mesh = make_fft_mesh(shards, data)
         d = mesh.get_local_rank("fft")
@@ -4065,6 +4095,9 @@ def shard_drive(rank, trace):
     t_nd = time.perf_counter()
     out["nd"] = shard_nd_drive(rank, call, fail, err_ratio, gen, trace)
     out["nd_seconds"] = time.perf_counter() - t_nd
+    t_serve = time.perf_counter()
+    out["serve"] = shard_serve_drive(rank, fail, trace)
+    out["serve_seconds"] = time.perf_counter() - t_serve
     # the main path's launches: those of the calls held to the plan, not
     # the checks' direct ones nor the traced repeats
     out["launches_fft"] = sum(c["launches"] for row in out["cases"]
@@ -4075,8 +4108,11 @@ def shard_drive(rank, trace):
                                    for c in row["calls"].values())
     out["launches_nd"] = sum(c["launches"] for row in out["nd"]
                              for c in row["calls"].values())
+    out["launches_serve"] = sum(b["launches"] for row in out["serve"]
+                                for b in row["batches"])
     out["launches"] = (out["launches_fft"] + out["launches_ft"]
-                       + out["launches_spectral"] + out["launches_nd"])
+                       + out["launches_spectral"] + out["launches_nd"]
+                       + out["launches_serve"])
     return out
 
 
@@ -4901,6 +4937,388 @@ def shard_nd_launch_checks(x, p, err_ratio):
     return rec
 
 
+# serving over a mesh (shard_serve_drive): on the mesh of 4 a ServeRuntime
+# (rank 0 leads) with three closed-loop client threads over these tenants
+# of serve_tenants(), then on each mesh (4 and 2 x 2) the ft campaign
+# through a runtime whose deadline never closes a group early
+SHARD_SERVE_CONFIG = dict(max_batch=16, deadline_ms=2.0, queue_depth=512)
+SHARD_SERVE_FT_DEADLINE_MS = 60000.0
+SHARD_SERVE_TENANTS = ("fft:1048576:c64", "fft:8192:c128",
+                       "fft:131072:c64:real", "spectrum:65536:c64",
+                       "fft:1024x1024:c64")
+SHARD_SERVE_CLIENTS = 3
+# the ft bucket: c64 2^20, G groups, two closed groups of max_batch
+# requests (each one batch), the first with one SEU in each checksum group
+# (rows SHARD_SERVE_SEU_ROWS)
+SHARD_SERVE_FT = dict(threshold=1e-4, groups=4)
+SHARD_SERVE_FT_N = 1 << 20
+SHARD_SERVE_SEU_ROWS = (1, 6, 9, 14)
+SHARD_SERVE_MESHES = (((4, 1), True), ((2, 2), False))   # (mesh, tenants)
+# the one NCCL rank: a runtime over make_fft_mesh(1) against a local one
+SHARD_SERVE_ONE_RANK = (("fft", (700000,), "complex64", {}),
+                        ("fft", (1 << 20,), "complex64", {}),
+                        ("spectrum", (50000,), "complex64",
+                         {"op": "spectrum"}),
+                        ("ft", (8192,), "complex64", {"ft": True}))
+
+
+def _serve_batch_collectives(b):
+    """A served batch's collectives on its mesh's data groups: the plan's
+    modelled all-to-alls and all-gathers; on an ft bucket also the grouped
+    verdict's all-reduce (a transaction) and its telemetry gathers."""
+    p = b["plan"]
+    want = _nd_coll(p["volume"])
+    if p["groups"]:
+        d, dd = p["shards"], p["dsize"]
+        gl = p["groups"] // dd
+        real = p["itemsize"] // 2
+        want["all_reduce"] = [p["chunks"], 3 * gl + p["chunks"]]
+        want["telemetry_gather"] = [1, d * real] if dd == 1 else \
+            [2, d * real + dd * (gl * 5 + d) * real]
+    return want
+
+
+def shard_serve_drive(rank, fail, trace):
+    """One rank's drive of serving over a mesh (``SHARD_SERVE_*``): on the
+    mesh of 4 a ``ServeRuntime`` (rank 0 leads: three closed-loop client
+    threads over ``SHARD_SERVE_TENANTS`` of ``serve_tenants``), then on
+    each mesh the ft campaign through a runtime whose deadline never
+    closes a group early: two closed groups of c64 2^20 at G = 4, each one
+    batch, one SEU a checksum group in the first. Every batch on every
+    rank is held to its bucket plan: ``block_fft`` launches to
+    ``plan.launches``, the plan's collectives to ``plan.volume`` (and the
+    verdict's), the control group's to two flag all-reduces, the
+    runtime's stated traffic (header, SEU rows, payload, result blocks)
+    counted apart. On rank 0 each result against torch.fft of its
+    zero-padded request (the spectrum in the mesh's digit order) at ATOL
+    * max|ref|, the ft verdicts. Each rank's device ms of every bucket
+    plan's local passes from a primed trace of one zero batch. One record
+    a runtime."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.fft import FTConfig
+    from repro_torch.core.fft.distributed import make_dist_plan
+    from repro_torch.kernels.stockham import block_fft
+    from repro_torch.kernels.trace_age import PRIMER, prime
+    from repro_torch.launch.mesh import make_fft_mesh
+    from repro_torch.serve import RuntimeConfig, ServeRuntime
+    from repro_torch.serve import serve_plan
+
+    dev = torch.device("cuda", 0)
+    mb = SHARD_SERVE_CONFIG["max_batch"]
+    calls = []
+    wrapped = {}
+    for name in ("all_to_all_single", "all_gather_into_tensor",
+                 "all_reduce"):
+        inner = getattr(dist, name)
+        wrapped[name] = inner
+
+        def spy(*a, _inner=inner, _name=name, **k):
+            t = a[1] if _name != "all_reduce" else a[0]
+            out = a[0]
+            kind = {"all_to_all_single": "all_to_all",
+                    "all_reduce": "all_reduce"}.get(_name)
+            if kind is None:
+                kind = "all_gather" if out.is_complex() \
+                    else "telemetry_gather"
+            size = t.numel() * t.element_size() if kind == "all_to_all" \
+                else t.numel() if kind == "all_reduce" \
+                else out.numel() * out.element_size()
+            calls.append((kind, size, id(k.get("group"))))
+            return _inner(*a, **k)
+        setattr(dist, name, spy)
+    batches = []
+    run_all = ServeRuntime._run_all
+
+    def spied(self, key, fill, inject, *rest):
+        calls.clear()
+        before = {k: list(v) for k, v in self.channel.traffic.items()}
+        launches0 = block_fft.launches
+        t0 = time.perf_counter()
+        try:
+            return run_all(self, key, fill, inject, *rest)
+        finally:
+            ms = (time.perf_counter() - t0) * 1e3
+            ctrl = id(self.channel.group)
+            plan = self._plans[key]
+            batches.append({
+                "label": key.label, "fill": fill, "host_ms": ms,
+                "launches": block_fft.launches - launches0,
+                "calls": [c[:2] for c in calls if c[2] != ctrl],
+                "ctrl": [c[:2] for c in calls if c[2] == ctrl],
+                "traffic": {k: [v[0] - before[k][0], v[1] - before[k][1]]
+                            for k, v in self.channel.traffic.items()},
+                "faults": 0 if inject is None else int(inject.shape[0]),
+                "plan": {"launches": plan.launches, "volume": plan.volume,
+                         "groups": plan.groups, "chunks": plan.chunks,
+                         "shards": plan.shards, "dsize": plan.dsize,
+                         "itemsize": self._payloads[key].itemsize}})
+            calls.clear()
+
+    ServeRuntime._run_all = spied
+    tenants = {t[0]: t for t in serve_tenants()}
+    ft = FTConfig(threshold=SHARD_SERVE_FT["threshold"],
+                  groups=SHARD_SERVE_FT["groups"], correct=True,
+                  recompute_uncorrectable=True)
+    out = []
+    try:
+        for (d, dd), with_tenants in SHARD_SERVE_MESHES:
+            mesh = make_fft_mesh(d, dd)
+            n1 = make_dist_plan(SHARD_SERVE_FT_N, d).n1
+            eps = SHARD_FT_SCORE * SHARD_SERVE_FT["threshold"] * math.sqrt(
+                n1) * math.sqrt(mb // SHARD_SERVE_FT["groups"]
+                                * SHARD_SERVE_FT_N)
+            runs = [("tenants", RuntimeConfig(ft=ft, **SHARD_SERVE_CONFIG))
+                    ] if with_tenants else []
+            runs.append(("ft", RuntimeConfig(ft=ft, **dict(
+                SHARD_SERVE_CONFIG,
+                deadline_ms=SHARD_SERVE_FT_DEADLINE_MS))))
+            for kind, cfg in runs:
+                label = f"serve {kind} over ({dd}, {d})"
+                print(f"{time.perf_counter():.3f} {label}", file=trace,
+                      flush=True)
+                batches.clear()
+                row = {"mesh": [dd, d], "run": kind}
+                dist.barrier()
+                t0 = time.perf_counter()
+                rt = ServeRuntime(cfg, mesh=mesh)
+                if rank == 0:
+                    row.update(_serve_tenants_lead(dev, rt, tenants, fail,
+                                                   label)
+                               if kind == "tenants" else
+                               _serve_ft_lead(dev, rt, eps, fail, label))
+                rt.close()
+                row["seconds"] = time.perf_counter() - t0
+                row["commands"] = [list(c) for c in rt.commands]
+                row["traffic"] = rt.stats()["mesh"]["traffic"]
+                row["threads_alive"] = sum(t.is_alive() for t in rt._workers)
+                if row["threads_alive"] or not rt.channel.closed:
+                    fail(f"{label}: {row['threads_alive']} runtime threads "
+                         f"alive after close, groups destroyed "
+                         f"{rt.channel.closed}")
+                if rt.failures:
+                    fail(f"{label}: failed batches {rt.failures}")
+                _check_served_batches(batches, mb, fail, label)
+                row["local_passes_device_ms"] = {}
+                for key in rt._keys:
+                    # each bucket plan's local passes on this rank: a
+                    # primed trace of one zero batch, every rank together
+                    p = rt._plans[key]
+                    xb = torch.zeros((mb,) + key.tshape,
+                                     dtype=rt._payloads[key], device=dev)
+                    dist.barrier()
+                    serve_plan(p, xb, op=key.op)
+                    torch.cuda.synchronize()
+                    acts = [torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]
+                    with torch.profiler.profile(activities=acts) as prof:
+                        prime()
+                        serve_plan(p, xb, op=key.op)
+                        torch.cuda.synchronize()
+                    kern = [e.time_range.elapsed_us() / 1e3
+                            for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and "block_fft" in e.name
+                            and PRIMER not in e.name]
+                    row["local_passes_device_ms"][key.label] = [sum(kern),
+                                                                len(kern)]
+                    del xb
+                row["batches"] = [{k: b[k] for k in ("label", "fill",
+                                                     "launches", "host_ms")}
+                                  for b in batches]
+                out.append(row)
+                del rt
+                torch.cuda.empty_cache()
+    finally:
+        ServeRuntime._run_all = run_all
+        for name, fn in wrapped.items():
+            setattr(dist, name, fn)
+    return out
+
+
+def _check_served_batches(batches, mb, fail, label):
+    """Each served batch on this rank against its bucket plan: the
+    ``block_fft`` launches, the data groups' collectives, the control
+    group's two flag all-reduces, the runtime's stated traffic."""
+    for b in batches:
+        p = b["plan"]
+        want_l = p["launches"]["ft_fft" if p["groups"] else "fft"]
+        if b["launches"] != want_l:
+            fail(f"{label} {b['label']}: {b['launches']} block_fft "
+                 f"launches, not {want_l}")
+        got = {k: [0, 0] for k in ("all_to_all", "all_gather", "all_reduce",
+                                   "telemetry_gather")}
+        for kind, size in b["calls"]:
+            got[kind][0] += 1
+            got[kind][1] += int(size)
+        want = _serve_batch_collectives(b)
+        if got != want:
+            fail(f"{label} {b['label']}: collectives {got}, not {want}")
+        if b["ctrl"] != [("all_reduce", 1), ("all_reduce", 1)]:
+            fail(f"{label} {b['label']}: control group {b['ctrl']}")
+        t = b["traffic"]
+        payload = mb * p["itemsize"] * math.prod(
+            int(v) for v in re.findall(r"\d+", b["label"].split(":")[1]))
+        if t["payload"] != [1, payload] or t["flag"] != [2, 16] \
+                or t["control"] != ([1, 56 * b["faults"]] if b["faults"]
+                                    else [0, 0]):
+            fail(f"{label} {b['label']}: control traffic {t}")
+
+
+def _bucket_rows(stats, errs, wall, fail, label):
+    """Each bucket's served numbers from the runtime's telemetry; a failed
+    or unfinished request fails."""
+    mb = SHARD_SERVE_CONFIG["max_batch"]
+    out = {}
+    for name, st in stats.items():
+        out[name] = {
+            "err_over_tol": errs.get(name),
+            "p50_ms": st["p50_ms"], "p95_ms": st["p95_ms"],
+            "p99_ms": st["p99_ms"], "completed": st["completed"],
+            "rps": st["completed"] / wall, "batches": st["batches"],
+            "mean_fill": st["batch_occupancy"] * mb,
+            "pad_waste": st["pad_waste"]}
+        if st["failed"] or st["completed"] != st["submitted"]:
+            fail(f"{label} {name}: {st}")
+    return out
+
+
+def _serve_tenants_lead(dev, rt, tenants, fail, label):
+    """The leader's tenants: the requests made first, then the clients
+    started together and awaited (the timed run), then every result
+    checked. Returns the bucket rows."""
+    import threading
+
+    import torch
+
+    shares = [[] for _ in range(SHARD_SERVE_CLIENTS)]
+    i = 0
+    for name in SHARD_SERVE_TENANTS:
+        tenant = tenants[name]
+        for k in range(tenant[4]):
+            shape = tenant[1][k % len(tenant[1])]
+            shares[i % SHARD_SERVE_CLIENTS].append((i, (tenant, shape)))
+            i += 1
+    start = threading.Event()
+    outs, errors = [], []
+    threads = [threading.Thread(target=_client, args=(
+        dev, rt, share, start, outs, errors)) for share in shares]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    start.set()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{label}: clients failed: {errors[:1]}")
+        return {}
+    errs = {}
+    for tenant, x, h, y in outs:
+        name, dtype = tenant[0], tenant[2]
+        ref = tenant[5]
+        if name.startswith("spectrum"):
+            p = rt._plans[next(k for k in rt._plans if k.label == name)]
+            n = p.tshape[0]
+            ref = (lambda x, n=n, pen=p.pencil: torch.fft.fft(
+                x, n=n).abs().square().div(n).view(pen.n2, pen.n1).t()
+                .reshape(n))
+        errs[name] = max(errs.get(name, 0.0),
+                         _served_err(dev, name, x, y, ref, dtype, fail))
+    return {"wall_s": wall, "buckets": _bucket_rows(
+        rt.stats()["buckets"], errs, wall, fail, label)}
+
+
+def _serve_ft_lead(dev, rt, eps, fail, label):
+    """The leader's ft campaign: two closed groups of max_batch c64 2^20
+    requests, made first, each sent and awaited; the runtime's deadline
+    never closes a group early, so each is one batch. The faulted group's
+    verdict: its four SEUs, one alone in each checksum group, flagged,
+    located at their batch rows and corrected; the clean group's nothing.
+    Returns the bucket row and the verdicts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Fault
+
+    mb = SHARD_SERVE_CONFIG["max_batch"]
+    rng = np.random.default_rng(SEED + 77)
+    groups = []
+    for g in range(2):
+        xs = [_serve_request(dev, 20_000 + g * mb + j, (SHARD_SERVE_FT_N,),
+                             "complex64", j % 2 == 1) for j in range(mb)]
+        faults = {}
+        if g == 0:
+            for r in SHARD_SERVE_SEU_ROWS:
+                faults[r] = Fault(row=int(rng.integers(1, 64)),
+                                  col=int(rng.integers(SHARD_SERVE_FT_N)),
+                                  eps_re=eps, eps_im=-0.5 * eps)
+        groups.append((g, xs, faults))
+    rt.admit(rt.bucketer.key_for((SHARD_SERVE_FT_N,), "complex64", ft=True))
+    t0 = time.perf_counter()
+    done = []
+    for g, xs, faults in groups:
+        hs = [rt.submit(x, ft=True, faults=faults.get(j))
+              for j, x in enumerate(xs)]
+        done.append((g, xs, faults, hs, [h.result(timeout=300.0)
+                                         for h in hs]))
+    wall = time.perf_counter() - t0
+    ft_label = f"fft:{SHARD_SERVE_FT_N}:c64:ft"
+    verdicts, err = [], 0.0
+    for g, xs, faults, hs, ys in done:
+        rows = sorted(faults)
+        want = {"batch_fill": mb, "flagged": len(rows), "locations": rows,
+                "corrected": len(rows), "uncorrectable": 0,
+                "checksum_faults": 0, "recomputed": 0}
+        info = hs[0].info
+        got = {k: info[k] for k in want}
+        verdicts.append({"group": g, "seus": len(rows), "got": got,
+                         "score": info["score"]})
+        if got != want or any(h.info != info for h in hs):
+            fail(f"{label} ft group {g}: {got}, not {want}")
+        for x, y in zip(xs, ys):
+            err = max(err, _served_err(dev, "ft", x, y,
+                                       lambda v: torch.fft.fft(v),
+                                       "complex64", fail))
+    stats = rt.stats()["buckets"]
+    st = stats.get(ft_label, {})
+    ledger = [st.get(k) for k in ("injected", "detected", "corrected")]
+    seus = len(SHARD_SERVE_SEU_ROWS)
+    if ledger != [seus, seus, seus]:
+        fail(f"{label}: ft ledger injected/detected/corrected {ledger}, "
+             f"not {[seus] * 3}")
+    return {"wall_s": wall, "ft": verdicts, "buckets": _bucket_rows(
+        stats, {ft_label: err}, wall, fail, label)}
+
+
+def _served_err(dev, label, x, y, ref, dtype, fail):
+    """A served result against ``ref`` of its request on the card, in
+    units of ATOL[dtype] * max|ref|; a result of another kind than its
+    request, or an error over 1, fails."""
+    import numpy as np
+    import torch
+    if torch.is_tensor(x):
+        if not (torch.is_tensor(y) and y.device == x.device):
+            fail(f"{label}: a card request came back as {type(y)}")
+            return float("inf")
+        xd, yd = x, y
+    else:
+        if not isinstance(y, np.ndarray):
+            fail(f"{label}: a numpy request came back as {type(y)}")
+            return float("inf")
+        xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    want = ref(xd)
+    if tuple(yd.shape) != tuple(want.shape):
+        fail(f"{label}: shape {tuple(yd.shape)} for {tuple(want.shape)}")
+        return float("inf")
+    e = (yd - want).abs().max().item() / (
+        ATOL[dtype] * want.abs().max().item())
+    if e > 1:
+        fail(f"{label}: error {e:.3f} x tol")
+    return e
+
+
 SHARD_ERRORS = ("fft", "ifft", "fft_transposed", "ifft_transposed_in",
                 "fft_shard_signals", "pass1_vs_plain", "pass2_vs_plain",
                 "passA_vs_plain", "passB_vs_plain", "checksum_rows_vs_plain")
@@ -5003,9 +5421,11 @@ def shard_rank(rank, store, out_dir):
     dist.destroy_process_group()
 
 
-def sharded_phase(dev, cuda_ms):
+def sharded_phase(dev, cuda_ms, smi):
     """Phase 13: four gloo ranks on the one card (``shard_rank``), then one
-    NCCL rank in this process. Returns its record; raises on a failure."""
+    NCCL rank in this process. ``smi`` is the card's name and power limit,
+    logged beside the serving drive's numbers. Returns its record; raises
+    on a failure."""
     import socket
     import tempfile
 
@@ -5055,6 +5475,13 @@ def sharded_phase(dev, cuda_ms):
     check(all(res["launches"] > 0 for res in ranks),
           f"phase 13: a rank launched no block_fft: "
           f"{[res['launches'] for res in ranks]}")
+    for k in ("dtensor_import_ms", "first_collectives_ms"):
+        rec[k] = [res[k] for res in ranks]
+    log(f"  before the first call in each rank's process: the import of "
+        f"torch.distributed.tensor "
+        f"{[round(v, 1) for v in rec['dtensor_import_ms']]} host ms, gloo's "
+        f"first CUDA all-to-all and all-gather (one element a rank) "
+        f"{[round(v, 1) for v in rec['first_collectives_ms']]} host ms")
     for row in ranks[0]["cases"]:
         calls = {k: (round(c["host_ms"], 1), c["launches"])
                  for k, c in row["calls"].items()}
@@ -5103,12 +5530,41 @@ def sharded_phase(dev, cuda_ms):
             + (f"; rank 0 {extra}" if extra else ""))
     rec["nd_seconds"] = max(res["nd_seconds"] for res in ranks)
     log(f"  the n-D drive took {rec['nd_seconds']:.1f} s (slowest rank)")
+    for i, row in enumerate(ranks[0]["serve"]):
+        cmds = [res["serve"][i]["commands"] for res in ranks]
+        check(all(c == cmds[0] for c in cmds) and cmds[0][-1][0] == "stop",
+              f"phase 13 serve over {row['mesh']}: the ranks ran different "
+              f"commands")
+        runs = [c for c in cmds[0] if c[0] == "run"]
+        log(f"  serve {row['run']} over (data, fft) = {tuple(row['mesh'])}: "
+            f"{len(runs)} batches, the same (command, bucket, fill) "
+            f"sequence of {len(cmds[0])} on every rank, "
+            f"{row['seconds']:.1f} s; control-group traffic on rank 0 "
+            f"[calls, bytes] {row['traffic']} ({smi})")
+        for name, b in row.get("buckets", {}).items():
+            dev_ms = [round(res["serve"][i]["local_passes_device_ms"][
+                name][0], 4) for res in ranks]
+            host = [round(x["host_ms"], 1) for x in row["batches"]
+                    if x["label"] == name]
+            log(f"    {name}: err/tol {b['err_over_tol']:.4f}; latency "
+                f"p50/p95/p99 {b['p50_ms']:.1f}/{b['p95_ms']:.1f}/"
+                f"{b['p99_ms']:.1f} host ms; {b['rps']:.1f} requests/s; "
+                f"{b['batches']} batches, mean fill {b['mean_fill']:.2f}; "
+                f"rank 0's batch host ms {host}; local passes of a batch "
+                f"{dev_ms} device ms on ranks 0-3 ({smi})")
+        for v in row.get("ft", []):
+            log(f"    ft group {v['group']}, one batch with {v['seus']} "
+                f"SEUs: {v['got']}, score {v['score']:.3g}")
+    rec["serve_seconds"] = max(res["serve_seconds"] for res in ranks)
+    log(f"  the serving drive took {rec['serve_seconds']:.1f} s (slowest "
+        f"rank)")
     rec["ranks"] = ranks
     rec["launches"] = sum(res["launches"] for res in ranks)
     rec["launches_ft"] = sum(res["launches_ft"] for res in ranks)
     rec["launches_spectral"] = sum(res["launches_spectral"]
                                    for res in ranks)
     rec["launches_nd"] = sum(res["launches_nd"] for res in ranks)
+    rec["launches_serve"] = sum(res["launches_serve"] for res in ranks)
 
     # (a) one rank on NCCL: make_fft_mesh(1) plans the local transform
     with socket.socket() as s:
@@ -5212,10 +5668,47 @@ def sharded_phase(dev, cuda_ms):
                                    "launches": counts[0]}
         rec["launches"] += counts[0]
         del x, y, y1
+        rec["one_rank"]["serve"] = one_rank_serve(dev, mesh)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     return rec
+
+
+def one_rank_serve(dev, mesh):
+    """A ``ServeRuntime`` over the one-rank NCCL mesh serves
+    ``SHARD_SERVE_ONE_RANK`` bitwise equal to a local one: it is the local
+    runtime (no command channel, two workers on their own streams, the
+    fused ABFT with its one SEU a batch). Four requests a tenant, numpy
+    and card tensors in turn, one batch each."""
+    import torch
+
+    from repro_torch.serve import Fault, RuntimeConfig, ServeRuntime
+
+    reqs = [(name, _serve_request(dev, 30_000 + 4 * t + j, shape, dtype,
+                                  j % 2 == 1), kw)
+            for t, (name, shape, dtype, kw) in enumerate(SHARD_SERVE_ONE_RANK)
+            for j in range(4)]
+    runs = []
+    for m in (mesh, None):
+        with ServeRuntime(RuntimeConfig(max_batch=4, deadline_ms=60000.0),
+                          mesh=m) as rt:
+            hs = [rt.submit(x, faults=Fault(col=11, eps_re=300.0)
+                            if name == "ft" and j % 4 == 2 else None, **kw)
+                  for j, (name, x, kw) in enumerate(reqs)]
+            rt.drain()
+            runs.append(([torch.as_tensor(h.result(timeout=120.0)).cpu()
+                          for h in hs], rt.channel is None,
+                         [h.info.get("corrected") for h in hs]))
+    (mine, local_a, fixed_a), (theirs, local_b, fixed_b) = runs
+    same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    check(same and local_a and local_b and fixed_a == fixed_b
+          and fixed_a[-2] == 1,
+          f"phase 13: the runtime over the one-rank mesh is not the local "
+          f"one (bitwise {same}, local {local_a, local_b}, corrected "
+          f"{fixed_a} vs {fixed_b})")
+    return {"requests": len(reqs), "bitwise": same,
+            "tenants": [t[0] for t in SHARD_SERVE_ONE_RANK]}
 
 
 def main() -> int:
@@ -6100,7 +6593,7 @@ def main() -> int:
     log(f"phase 13 starts {t13 - t_start:.1f} s into the run ({smi})")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    sharded = sharded_phase(dev, cuda_ms)
+    sharded = sharded_phase(dev, cuda_ms, smi)
     sharded["device"] = smi
     sharded["seconds"] = time.perf_counter() - t13
     one = sharded["one_rank"]
@@ -6109,7 +6602,8 @@ def main() -> int:
         f"block_fft launches in all, {sharded['launches_ft']} of the ABFT, "
         f"{sharded['launches_spectral']} of the spectral consumers and "
         f"{sharded['launches_nd']} of the n-D drive in "
-        f"{sharded['nd_seconds']:.1f} s); "
+        f"{sharded['nd_seconds']:.1f} s, {sharded['launches_serve']} of "
+        f"serving over the meshes in {sharded['serve_seconds']:.1f} s); "
         f"one NCCL rank, make_fft_mesh(1), "
         f"{one['case']}: plan.fft on the mesh {one['mesh_ms']:.4f} ms, "
         f"plan.fft {one['plan_ms']:.4f} ms, torch.fft "
@@ -6135,7 +6629,8 @@ def main() -> int:
                               "sharded_ft": sharded["launches_ft"],
                               "sharded_spectral":
                                   sharded["launches_spectral"],
-                              "sharded_nd": sharded["launches_nd"]},
+                              "sharded_nd": sharded["launches_nd"],
+                              "sharded_serve": sharded["launches_serve"]},
          "shapes": fft_shapes, "extensions": ext_rows,
          "axis_layouts": axis_rows, "serve": serve, "sharded": sharded},
         {"name": "abft_fft", "route": "cuda",

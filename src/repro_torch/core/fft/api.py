@@ -286,8 +286,12 @@ class FFTPlan(planbase.Plan):
     the split (``dist_plan``), the batch's data dimension (``daxis``,
     ``dsize``), an ft plan's checksum groups (``groups``), the transaction
     count (``chunks``; whole groups on an ft plan), the per-rank
-    collective volume (``volume``, the reference's ``collective_volume``)
-    and the placements of its operands, and binds the pencil pipeline's
+    collective volume (``volume``, the reference's ``collective_volume``),
+    the block_fft launches of one call on a rank (``launches``: ``fft``
+    and ``ifft``, a real plan's ``rfft``/``irfft`` under those names, and
+    ``ft_fft``; each group an ft call recomputes adds ``pencil.launches``)
+    and
+    the placements of its operands, and binds the pencil pipeline's
     per-shard steps (``pencil``: stage and twiddle tables on the device;
     ``spectral_pencil``, the full-length one its spectral consumers run,
     which a real plan keeps beside its half-length ``pencil``). A sharded
@@ -392,6 +396,13 @@ class FFTPlan(planbase.Plan):
                                          key)
         self.spectral_pencil = self.pencil if not real else \
             distributed.pencil(n, self.shards, spec.torch_dtype, key)
+        per = self.pencil.launches
+        calls = per if real else self.chunks * per
+        self.launches = {"fft": calls, "ifft": calls}
+        if ft is not None:
+            # each transaction's pass 1 also launches over its 2G
+            # checksum rows
+            self.launches["ft_fft"] = self.chunks * (per + 1)
 
     def _mesh_view(self):
         return distributed._Mesh.of(self.mesh, self.spec.axis, self.daxis)

@@ -20,30 +20,45 @@ batched FFT endpoint and the multi-tenant serving worker, on one card.
     PYTHONPATH=src python -m repro_torch.launch.serve --mode serve \
         --fft-spec "n=8192,workers=2,max_batch=16,deadline_ms=2"
 
-All three run on the card; ``--device cpu`` runs the kernels' plain
-versions instead. Meshes (``--fft-shards``/``--fft-data`` > 1) and chunked
-transactions for the sharded FFT wait for ROADMAP queue 1 item 10.4
-(serving over a mesh).
+    # the same over a mesh of 4 ranks (torchrun starts them; rank 0 leads
+    # and prints), and the sharded FFT endpoint on a 2 x 2 data x fft mesh
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --device cpu \
+        --mode serve --fft-shards 4 --fft-n 4096 --serve-requests 64
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --device cpu \
+        --mode fft --fft-n 65536 --batch 8 --fft-shards 2 --fft-data 2 --ft
+
+All of them run on the card; ``--device cpu`` runs the kernels' plain
+versions instead. Under ``torchrun`` (``WORLD_SIZE`` > 1) the CLI starts
+the process group from its environment unless one is running: NCCL when
+every rank has a card of its own, else gloo (ranks share the cards, or
+run on the CPU). ``--mode serve`` builds its mesh with ``data=1``, as the
+reference's does: it ignores ``--fft-data``. On one process the mesh has
+one device and the plans are local, as the reference's are on one device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.ft import FaultSchedule, FTStats
 from repro_torch.models import Model
-from repro_torch.serve.bucketing import ITEM_10_4
+from repro_torch.serve.bucketing import mesh_shards
 from repro_torch.serve.specs import (SPEC_KEYS, _parse_chunks,
                                      apply_fft_spec_arg, build_fft_spec,
                                      serve_plan)
 from repro_torch.train import make_serve_step
 
-__all__ = ["decode", "demo_schedule", "serve_fft", "main", "SPEC_KEYS"]
+__all__ = ["decode", "demo_schedule", "serve_fft", "fft_mesh", "main",
+           "SPEC_KEYS"]
 
 
 def decode(model: Model, params, prompts: torch.Tensor, gen: int,
@@ -102,13 +117,40 @@ def demo_schedule(batch: int, prompt_len: int) -> FaultSchedule:
     ))
 
 
-def _local_mesh(shards: int | None, data: int) -> None:
-    """The port serves on one device: a mesh of more than one device
-    raises, naming the ROADMAP item that ports it."""
-    if (shards or 1) > 1 or data > 1:
-        raise NotImplementedError(
-            f"serving over a mesh (shards={shards}, data={data}) is not "
-            f"ported yet: {ITEM_10_4}")
+def _start_group(device) -> None:
+    """Start the process group from ``torchrun``'s environment: NCCL when
+    every rank of this node has a card of its own, else gloo (the ranks
+    share the cards, or run on the CPU). Logs the backend."""
+    world = int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    per_node = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    cards = torch.cuda.device_count() if torch.device(device).type == "cuda" \
+        else 0
+    if cards:
+        torch.cuda.set_device(local % cards)
+    backend = "nccl" if cards and cards >= per_node else "gloo"
+    kw = {"device_id": torch.device("cuda", local)} if backend == "nccl" \
+        else {}
+    dist.init_process_group(backend, **kw)
+    if dist.get_rank() == 0:
+        print(f"# process group: {backend}, {world} ranks, {cards} cards "
+              f"on rank 0's node", file=sys.stderr, flush=True)
+
+
+def fft_mesh(shards: int | None = None, data: int = 1, *,
+             device: str = "cuda"):
+    """The mesh the serving entry points plan on: ``make_fft_mesh(shards,
+    data)`` over the running process group, started from ``torchrun``'s
+    environment when ``WORLD_SIZE`` > 1 and none runs yet (an initialised
+    group is reused). On a single process, None: the plan is the local
+    one, as the reference's plan on a one-device mesh is."""
+    from repro_torch.launch.mesh import make_fft_mesh
+
+    if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return None
+        _start_group(device)
+    return make_fft_mesh(shards, data, device=torch.device(device).type)
 
 
 def serve_fft(x, *, shards: int | None = None, data: int = 1,
@@ -127,10 +169,18 @@ def serve_fft(x, *, shards: int | None = None, data: int = 1,
     LRU-hits the plan, and serves through :func:`serve_plan`. A
     production worker should build the plan ONCE at startup (what
     ``--mode fft`` does) instead of re-describing it per request; the
-    behavior is identical either way thanks to the plan cache. With
-    ``ft=True`` the fused two-side ABFT runs online. ``shards``/``data``
-    above 1 (a mesh) raise ``NotImplementedError`` (ROADMAP queue 1 item
-    10.4). Returns ``(y, info)``, ``y`` on ``device``.
+    behavior is identical either way thanks to the plan cache.
+
+    Every rank of the process group calls it together: the mesh is
+    :func:`fft_mesh` (``shards`` ranks along ``fft``, a ``data`` dimension
+    when ``data > 1``; the local plan on one process), and ``x`` the
+    global batch, the same on every rank. With ``ft=True`` the ABFT runs
+    online: the fused two-side kernel locally, the sharded grouped
+    pipeline on a mesh (one tolerated SEU per checksum group; multi-fault
+    groups are recomputed when ``recompute_uncorrectable``) with the
+    per-group verdict counts in the telemetry. Spectral requests on a mesh
+    stay in the transposed digit order end to end. Returns ``(y, info)``:
+    ``y`` on ``device``, a ``DTensor`` of the global result on a mesh.
     """
     from repro_torch.core.fft import api
 
@@ -140,7 +190,7 @@ def serve_fft(x, *, shards: int | None = None, data: int = 1,
     if dims == 2 and x.dim() != 3:
         raise ValueError(f"dims=2 expects (B, R, C) batches, "
                          f"got {tuple(x.shape)}")
-    _local_mesh(shards, data)
+    mesh = fft_mesh(shards, data, device=device)
     kshape = tuple(torch.as_tensor(kernel).shape) if kernel is not None \
         else None
     if real and x.is_complex():
@@ -152,7 +202,7 @@ def serve_fft(x, *, shards: int | None = None, data: int = 1,
         dt = torch.complex128 if (real and x.dtype == torch.float64) \
             else torch.complex64
     spec = build_fft_spec(
-        tuple(x.shape), op=op, kernel_shape=kshape, dims=dims,
+        tuple(x.shape), mesh=mesh, op=op, kernel_shape=kshape, dims=dims,
         decomp=decomp, ft=ft, threshold=threshold, groups=groups,
         group_size=group_size,
         recompute_uncorrectable=recompute_uncorrectable,
@@ -161,25 +211,27 @@ def serve_fft(x, *, shards: int | None = None, data: int = 1,
     return serve_plan(api.plan(spec), x, op=op, kernel=kernel, mode=mode)
 
 
-def _local_args(args) -> None:
-    _local_mesh(args.fft_shards, args.fft_data)
-    if args.fft_chunks != 1:
-        raise NotImplementedError(
-            f"--fft-chunks {args.fft_chunks} splits the batch into the "
-            f"sharded FFT's all-to-all transactions: {ITEM_10_4}")
-
-
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
 
+def _leads(mesh) -> bool:
+    """Whether this process prints: the only one, or the mesh's first
+    rank."""
+    return mesh is None or dist.get_rank() == int(mesh.mesh.flatten()[0])
+
+
 def _main_fft(args):
+    """One plan, built at startup from the worker description, timed over
+    ``--fft-iters`` calls of the same request batch and checked against
+    numpy (``rel_err``). On a mesh every rank runs it and the leader
+    prints."""
     from repro_torch.core.fft import api
+    from repro_torch.serve.mesh import Channel
 
     if args.fft_spec:
         apply_fft_spec_arg(args, args.fft_spec)
-    _local_args(args)
     rng = np.random.default_rng(0)
     kernel = kshape = None
     if args.fft_dims == 2:
@@ -198,28 +250,60 @@ def _main_fft(args):
     else:
         x = (rng.standard_normal(shape) +
              1j * rng.standard_normal(shape)).astype(np.complex64)
-    # ONE plan per worker, built at startup: every request dispatches
-    # through its cached executors (the cuFFT plan-once/exec-hot contract)
-    spec = build_fft_spec(
-        shape, op=args.fft_op, kernel_shape=kshape, dims=args.fft_dims,
-        decomp=args.fft_decomp, ft=args.ft, threshold=args.fft_threshold,
-        groups=args.fft_groups,
-        natural_order=False if args.transposed else None,
-        real=args.fft_real, chunks=args.fft_chunks, device=args.device)
-    p = api.plan(spec)
-    print(f"# {p}")
-    # the request batch is uploaded once: the timed calls are the plan's
-    xd = torch.from_numpy(x).to(p.device)
-    kd = None if kernel is None else torch.from_numpy(kernel).to(p.device)
-    call = lambda: serve_plan(p, xd, op=args.fft_op, kernel=kd)  # noqa: E731
-    y, info = call()  # warmup
-    _sync(p.device)
-    t0 = time.perf_counter()
-    for _ in range(args.fft_iters):
-        y, info = call()
-    _sync(p.device)
-    dt = (time.perf_counter() - t0) / args.fft_iters
-    y = y.cpu().numpy()
+    mesh = fft_mesh(args.fft_shards, args.fft_data, device=args.device)
+    channel = Channel(mesh) if mesh_shards(mesh) > 1 else None
+    if channel is not None and not channel.member:
+        return
+    # the channel's groups go with the call (the caller's group stays)
+    with contextlib.closing(channel) if channel is not None \
+            else contextlib.nullcontext():
+        # ONE plan per worker, built at startup: every request dispatches
+        # through its cached executors (the cuFFT plan-once/exec-hot
+        # contract)
+        spec = build_fft_spec(
+            shape, mesh=mesh, op=args.fft_op, kernel_shape=kshape,
+            dims=args.fft_dims, decomp=args.fft_decomp, ft=args.ft,
+            threshold=args.fft_threshold, groups=args.fft_groups,
+            natural_order=False if args.transposed else None,
+            real=args.fft_real, chunks=args.fft_chunks, device=args.device)
+        p = api.plan(spec)
+        leads = _leads(mesh)
+        if leads:
+            print(f"# {p}")
+        # the request batch is uploaded once: the timed calls are the plan's
+        xd = torch.from_numpy(x).to(p.device)
+        kd = None if kernel is None else torch.from_numpy(kernel).to(p.device)
+
+        def call():
+            return serve_plan(p, xd, op=args.fft_op, kernel=kd)
+
+        y, info = call()  # warmup
+        _sync(p.device)
+        t0 = time.perf_counter()
+        for _ in range(args.fft_iters):
+            y, info = call()
+        _sync(p.device)
+        dt = (time.perf_counter() - t0) / args.fft_iters
+        if channel is not None:
+            y = channel.assemble(y)
+        if not leads:
+            return
+        y = y.cpu().numpy()
+        ref = _fft_mode_ref(args, x, kernel, shape, kshape)
+        if args.fft_op == "spectrum" and info.get("order") == "transposed":
+            # order-agnostic comparison over the flattened bins
+            ref = np.sort(ref.reshape(ref.shape[0], -1), axis=-1)
+            y = np.sort(y.reshape(y.shape[0], -1), axis=-1)
+        elif args.transposed and info.get("order") == "transposed":
+            ref = y   # digit-permuted; the test suite holds the order itself
+        err = np.abs(y - ref).max() / (np.abs(ref).max() + 1e-30)
+        print(f"{args.fft_op} batch={args.batch} N={size_tag} {info} "
+              f"{dt*1e3:.2f}ms/req rel_err={err:.2e}")
+
+
+def _fft_mode_ref(args, x, kernel, shape, kshape) -> np.ndarray:
+    """numpy's result for ``--mode fft``'s request batch, in natural
+    order."""
     nfft = int(np.prod(shape[1:]))
     if args.fft_real:
         fwd = np.fft.rfft2 if args.fft_dims == 2 else np.fft.rfft
@@ -233,19 +317,14 @@ def _main_fft(args):
                                         np.fft.fft2(kernel, s=(rr, cc))))
             r0 = (min(shape[1], kshape[0]) - 1) // 2
             c0 = (min(shape[2], kshape[1]) - 1) // 2
-            ref = full[:, r0:r0 + max(shape[1], kshape[0]),
-                       c0:c0 + max(shape[2], kshape[1])]
-        else:
-            ref = np.stack([np.convolve(r, kernel, "same") for r in x])
-    elif args.fft_op == "correlate":
-        ref = np.stack([np.correlate(r, kernel, "same") for r in x])
-    elif args.fft_op == "spectrum":
-        ref = np.abs(fwd(x)) ** 2 / nfft
-    else:
-        ref = fwd(x)
-    err = np.abs(y - ref).max() / (np.abs(ref).max() + 1e-30)
-    print(f"{args.fft_op} batch={args.batch} N={size_tag} {info} "
-          f"{dt*1e3:.2f}ms/req rel_err={err:.2e}")
+            return full[:, r0:r0 + max(shape[1], kshape[0]),
+                        c0:c0 + max(shape[2], kshape[1])]
+        return np.stack([np.convolve(r, kernel, "same") for r in x])
+    if args.fft_op == "correlate":
+        return np.stack([np.correlate(r, kernel, "same") for r in x])
+    if args.fft_op == "spectrum":
+        return np.abs(fwd(x)) ** 2 / nfft
+    return fwd(x)
 
 
 def _request_ref(x: np.ndarray, kw: dict, nfft: int) -> np.ndarray:
@@ -259,25 +338,33 @@ def _request_ref(x: np.ndarray, kw: dict, nfft: int) -> np.ndarray:
 
 def _main_serve(args):
     """Multi-tenant serving worker (``--mode serve``): stand up a
-    :class:`~repro_torch.serve.ServeRuntime` on the device, drive it with a
-    short mixed-tenant self-test workload, check every result against
-    numpy's transform of its zero-padded request (``rel_err``: the worst
-    max|y - ref| / max|ref|) and print the per-bucket telemetry."""
+    :class:`~repro_torch.serve.ServeRuntime` on the device (over the mesh
+    of ``--fft-shards`` ranks: the leader drives it, the other ranks
+    follow), drive it with a short mixed-tenant self-test workload, check
+    every result against numpy's transform of its zero-padded request
+    (``rel_err``: the worst max|y - ref| / max|ref|; a spectrum in the
+    mesh's transposed digit order over its sorted bins) and print the
+    per-bucket telemetry."""
     import json
 
     from repro_torch.serve import RuntimeConfig, ServeRuntime
 
     if args.fft_spec:
         apply_fft_spec_arg(args, args.fft_spec)
-    _local_args(args)
     cfg = RuntimeConfig(
         max_batch=args.serve_max_batch, deadline_ms=args.serve_deadline_ms,
         queue_depth=args.serve_queue_depth, workers=args.serve_workers,
-        timeout_ms=args.serve_timeout_ms, device=args.device)
+        timeout_ms=args.serve_timeout_ms, chunks=max(args.fft_chunks, 1),
+        device=args.device)
+    # the reference's worker plans on a mesh of fft shards alone
+    mesh = fft_mesh(args.fft_shards, 1, device=args.device)
+    mesh = mesh if mesh_shards(mesh) > 1 else None
     rng = np.random.default_rng(0)
     n = args.fft_n
     t0 = time.time()
-    with ServeRuntime(cfg) as rt:
+    with ServeRuntime(cfg, mesh=mesh) as rt:
+        if not _leads(mesh):
+            return
         sent = []
         for i in range(args.serve_requests):
             # mixed tenants: off-grid sizes, four request kinds
@@ -292,12 +379,16 @@ def _main_serve(args):
         for x, kw, h in sent:
             y = h.result(timeout=300.0)
             ref = _request_ref(x, kw, h.info["nfft"][0])
+            if h.info.get("order") == "transposed":
+                y, ref = np.sort(y), np.sort(ref)
             err = max(err, float(np.abs(y - ref).max()
                                  / (np.abs(ref).max() + 1e-30)))
         stats = rt.stats()
     dt = time.time() - t0
+    where = rt.device if mesh is None else \
+        f"a mesh of {rt.bucketer.shards} fft ranks on {rt.device}"
     print(f"# served {len(sent)} requests in {dt:.2f}s "
-          f"({len(sent) / dt:.0f} rps) on {rt.device}")
+          f"({len(sent) / dt:.0f} rps) on {where}")
     print(json.dumps(stats["buckets"], indent=2, sort_keys=True))
     print(f"# plan cache: {stats['plan_cache']}")
     print(f"serve requests={len(sent)} rel_err={err:.2e}")
@@ -325,7 +416,8 @@ def main(argv=None):
                          "multidim subsystem (core.fft.multidim)")
     ap.add_argument("--fft-decomp", default="auto",
                     choices=["auto", "slab", "pencil"],
-                    help="multidim mesh decomposition (auto on one device)")
+                    help="multidim decomposition; auto = the "
+                         "collective-volume heuristic (choose_decomp)")
     ap.add_argument("--fft-rows", type=int, default=256,
                     help="grid rows for --fft-dims 2")
     ap.add_argument("--fft-cols", type=int, default=256,
@@ -333,12 +425,15 @@ def main(argv=None):
     ap.add_argument("--fft-kernel-n", type=int, default=63,
                     help="kernel length for convolve/correlate")
     ap.add_argument("--fft-groups", type=int, default=None,
-                    help="ABFT checksum groups of the mesh path")
+                    help="ABFT checksum groups (one tolerated SEU per "
+                         "group); default: one group per data shard")
     ap.add_argument("--fft-threshold", type=float, default=1e-4,
                     help="ABFT detection threshold")
     ap.add_argument("--fft-chunks", type=_parse_chunks, default=1,
-                    help="multi-transaction overlap of the sharded FFT's "
-                         "all-to-alls (one device: 1)")
+                    help="multi-transaction overlap: split the batch into "
+                         "this many chunked all-to-all transactions; "
+                         "'auto' lets the plan pick from the "
+                         "collective-volume model (one device: 1)")
     ap.add_argument("--fft-spec", default=None,
                     help="consolidated plan description, e.g. "
                          "'n=65536,batch=8,ft=1' (keys: "
@@ -348,7 +443,8 @@ def main(argv=None):
     ap.add_argument("--fft-iters", type=int, default=5)
     ap.add_argument("--serve-workers", type=int, default=2,
                     help="serve mode: executor worker threads, each on its "
-                         "own CUDA stream")
+                         "own CUDA stream (over a mesh: one dispatch thread "
+                         "a rank)")
     ap.add_argument("--serve-max-batch", type=int, default=8,
                     help="serve mode: coalescing limit = the bucket plans' "
                          "batch dimension")
@@ -372,7 +468,9 @@ def main(argv=None):
                          "half-spectrum pipelines (rfft/rfft2, one-sided "
                          "spectrum, packed convolve)")
     ap.add_argument("--ft", action="store_true",
-                    help="FFT mode: run the fused two-side ABFT online. "
+                    help="FFT mode: run the two-side ABFT online (the "
+                         "fused kernel; the grouped sharded ABFT on a "
+                         "mesh). "
                          "LM mode: protect every linear with the checked "
                          "GEMM plan (core.gemm) and inject a demo "
                          "FaultSchedule of SEUs that the decode must "
@@ -382,13 +480,15 @@ def main(argv=None):
                          "per-column checksum divergence)")
     args = ap.parse_args(argv)
 
-    if args.mode == "fft":
-        _main_fft(args)
+    if args.mode == "lm":
+        _main_lm(args)
         return
-    if args.mode == "serve":
-        _main_serve(args)
-        return
-    _main_lm(args)
+    started = not dist.is_initialized()
+    try:
+        (_main_fft if args.mode == "fft" else _main_serve)(args)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _main_lm(args):

@@ -4,16 +4,18 @@ padded canonical :class:`~repro_torch.core.fft.api.FFTSpec` buckets.
 Plans are shape-specialized (``cufftPlanMany`` semantics), so serving raw
 request sizes would build one plan per distinct ``n`` and thrash the shared
 plan LRU. The bucketer instead rounds every transform axis up to the next
-power of two; a handful of buckets then absorbs the whole request
-distribution and the plan cache stays hot. The mesh round-up of
-:func:`pad_transform_shape` (pencil feasibility ``n >= shards^2``) is kept
-as the arithmetic it is; bucket plans themselves are local until ROADMAP
-queue 1 item 10.4 ports serving over a mesh.
+power of two and then applies the same round-up trick the real slab uses
+for its ``C/2 + D`` half-spectrum transpose: pad until the mesh divides the
+axis (pencil feasibility ``n >= shards^2``; ``n/2 >= shards^2`` for packed
+real pencils), so every bucket's plan is mesh-feasible by construction.
+A handful of buckets then absorbs the whole request distribution and the
+plan cache stays hot.
 
 Padded serving semantics: a request of ``n_req`` points served from an
 ``n``-point bucket receives the ``n``-point transform of its zero-padded
 signal (``np.fft.fft(x, n)`` — trailing-zero extension, the standard
-spectral-interpolation contract). The per-bucket padded-element waste is
+spectral-interpolation contract). Power-of-two requests on a feasible mesh
+map to themselves (zero padding). The per-bucket padded-element waste is
 recorded in telemetry (``pad_waste``).
 """
 from __future__ import annotations
@@ -34,25 +36,17 @@ __all__ = ["BucketKey", "SpecBucketer", "pad_transform_shape", "next_pow2",
 # through serve_plan (admission rejects them with a pointer there).
 BATCHABLE_OPS = ("fft", "spectrum")
 
-ITEM_10_4 = "ROADMAP queue 1 item 10.4 (serving over a mesh)"
-
 
 def mesh_shards(mesh) -> int:
-    """Devices along a mesh's ``fft`` axis (1 without a mesh). Only a
-    local plan serves in the port: more than one shard raises, naming the
-    ROADMAP item that ports serving over a mesh."""
+    """Ranks along a mesh's ``fft`` dimension (1 without a mesh or
+    without that dimension): a ``DeviceMesh``, or any object with a
+    ``shape`` mapping of dimension names to sizes."""
     if mesh is None:
         return 1
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
     if "fft" in names:
-        shards = int(mesh.size(names.index("fft")))
-    else:
-        shards = int(dict(getattr(mesh, "shape", {})).get("fft", 1))
-    if shards > 1:
-        raise NotImplementedError(
-            f"serving over a mesh of {shards} fft shards is not ported "
-            f"yet: {ITEM_10_4}")
-    return shards
+        return int(mesh.size(names.index("fft")))
+    return int(dict(getattr(mesh, "shape", {})).get("fft", 1))
 
 
 def pad_transform_shape(tshape, *, shards: int = 1,

@@ -7,11 +7,14 @@ This is the layer ``launch.serve`` (the CLI) and ``repro_torch.serve.runtime``
 (the multi-tenant scheduler) share: the CLI builds ONE plan per worker from
 it; the runtime builds one plan per *bucket* from it.
 
-The port's plans are local: a mesh with more than one shard, ``chunks >
-1``, a ``decomp`` other than ``auto`` and ``natural_order=False`` (the
-transposed digit order of the pencil) raise ``NotImplementedError`` naming
-ROADMAP queue 1 item 10.4 (serving over a mesh). A local plan's telemetry
-reports ``shards`` and ``data`` 1, as the reference's local plans do.
+On a mesh (a ``DeviceMesh`` with an ``fft`` dimension of more than one
+rank) the spec is the sharded one: the pencil's digit order, ``chunks``
+transactions, the rank-2 ``decomp``, the grouped ABFT. Every rank of the
+mesh builds the same spec and calls :func:`serve_plan` together, since its
+executors run collectives; a sharded result is the plan's ``DTensor``
+(:func:`repro_torch.serve.mesh.assemble` brings its global value to one
+rank). A local plan's telemetry reports ``shards`` and ``data`` 1, as the
+reference's local plans do.
 """
 from __future__ import annotations
 
@@ -19,13 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import dtype_name
-from repro_torch.serve.bucketing import ITEM_10_4, mesh_shards
+from repro_torch.serve.bucketing import mesh_shards
 
 __all__ = ["build_fft_spec", "serve_plan", "apply_fft_spec_arg",
            "SPEC_KEYS"]
-
-# a local plan: one shard on the fft axis, one on the data axis
-_LOCAL = {"shards": 1, "data": 1}
 
 
 def build_fft_spec(shape, *, mesh=None, op: str = "fft",
@@ -44,14 +44,19 @@ def build_fft_spec(shape, *, mesh=None, op: str = "fft",
     ``shape`` is the request batch shape — ``(B, N)`` for 1-D, ``(B, R,
     C)`` for 2-D. For ``op="convolve"``/``"correlate"`` the spec describes
     the PADDED transform the spectral pipeline actually runs (last axes
-    padded to a power of two covering the linear result), so one plan
-    serves every request of that operand geometry. ``real=True`` declares
-    real-valued request traffic: ``op="fft"`` serves the half-spectrum
-    ``rfft``/``rfft2`` executors, ``op="spectrum"`` the one-sided
-    periodogram, and convolve/correlate ride the packed real pipelines.
-    ``chunks`` 0 (auto) and 1 both resolve to one transaction locally.
+    padded to a power of two covering the linear result, and on a mesh to
+    the least pencil size), so one plan serves every request of that
+    operand geometry. ``natural_order=None`` resolves the per-op default:
+    the order-agnostic periodogram stays transposed on a mesh (the digit
+    restore is pure waste for ``|X|^2``), everything else is natural.
+
+    ``real=True`` declares real-valued request traffic: ``op="fft"``
+    serves the half-spectrum ``rfft``/``rfft2`` executors, ``op="spectrum"``
+    the one-sided periodogram, and convolve/correlate ride the packed real
+    pipelines. Real plans are natural-order only. ``chunks`` (0 = auto) is
+    the sharded FFT's transaction count; a local plan runs one.
     """
-    from repro_torch.core.fft import api, spectral
+    from repro_torch.core.fft import api, multidim, spectral
 
     dims = dims if dims is not None else max(1, len(shape) - 1)
     if dims not in (1, 2):
@@ -69,18 +74,8 @@ def build_fft_spec(shape, *, mesh=None, op: str = "fft",
         raise ValueError("real serve traffic is natural-order only — the "
                          "half spectrum indexes bins by k (drop "
                          "transposed=1 or real=1)")
-    mesh_shards(mesh)
-    if chunks > 1:
-        raise NotImplementedError(
-            f"chunks={chunks} splits the batch into all-to-all "
-            f"transactions of the sharded FFT: {ITEM_10_4}")
-    if decomp != "auto":
-        raise NotImplementedError(
-            f"decomp={decomp!r} chooses a mesh decomposition: {ITEM_10_4}")
-    if natural_order is False:
-        raise NotImplementedError(
-            f"natural_order=False (the pencil's transposed digit order) is "
-            f"a mesh layout: {ITEM_10_4}")
+    shards = mesh_shards(mesh)
+    sharded = shards > 1
     ft_cfg = None
     if ft and op == "fft":
         ft_cfg = api.FTConfig(threshold=threshold, groups=groups,
@@ -90,15 +85,31 @@ def build_fft_spec(shape, *, mesh=None, op: str = "fft",
         if kernel_shape is None:
             raise ValueError(f"op={op!r} needs a kernel")
         if dims == 1:
-            nfft = spectral._conv_nfft(shape[-1], kernel_shape[-1])
+            nfft = spectral._conv_nfft(shape[-1], kernel_shape[-1], shards)
             shape = tuple(shape[:-1]) + (nfft,)
         else:
-            nr = spectral._next_pow2(shape[-2] + kernel_shape[-2] - 1)
-            nc = spectral._next_pow2(shape[-1] + kernel_shape[-1] - 1)
+            nr = max(spectral._next_pow2(shape[-2] + kernel_shape[-2] - 1),
+                     shards)
+            nc = max(spectral._next_pow2(shape[-1] + kernel_shape[-1] - 1),
+                     shards)
             shape = tuple(shape[:-2]) + (nr, nc)
+            if real and sharded \
+                    and not multidim.rslab_feasible((nr, nc), shards):
+                decomp = "auto"   # the composed real path covers the rest
+            else:
+                decomp = "slab" if sharded else "auto"
+        natural_order = True
+    elif natural_order is None:
+        # the per-op order default of the legacy endpoint; real spectra
+        # are one-sided (bins indexed by k) and so always natural
+        natural_order = real or not (sharded and op == "spectrum")
     return api.FFTSpec(shape=tuple(int(s) for s in shape),
                        dtype=np.dtype(dtype_name(dtype)).name, rank=dims,
-                       ft=ft_cfg, real=bool(real), device=str(device))
+                       mesh=mesh, axis="fft",
+                       decomp="auto" if dims == 1 else decomp,
+                       natural_order=bool(natural_order), ft=ft_cfg,
+                       real=bool(real), chunks=int(chunks),
+                       device=str(device))
 
 
 def _ft_verdict(res) -> dict:
@@ -119,41 +130,89 @@ def _ft_verdict(res) -> dict:
             "corrected": int(packed[-1])}
 
 
+def _ft_telemetry(plan, res) -> dict:
+    """The sharded grouped ABFT's telemetry of one
+    :class:`~repro_torch.core.fft.distributed.DistFFTResult` (the same on
+    every rank): the group geometry, the worst score, the flagged group
+    count, the located signal of each correctable group (a checksum-row
+    or multi-fault verdict's location is no signal, and is left out), the
+    corrections, the uncorrectable, checksum-fault and recomputed group
+    counts and the worst left-check residual. The verdict comes to the
+    host in ONE copy."""
+    g = res.flagged.numel()
+    parts = (res.group_score, res.flagged, res.location, res.correctable,
+             res.checksum_fault, res.uncorrectable)
+    packed = torch.cat([t.double().reshape(-1) for t in parts] + [
+        res.shard_delta.double().reshape(-1).amax().reshape(1),
+        res.corrected.double().reshape(1),
+        res.recomputed.double().reshape(1)]).cpu().numpy()
+    score, flagged, loc, ok, cs, unc = (packed[i * g:(i + 1) * g]
+                                        for i in range(6))
+    return {"ft": True, "groups": plan.groups,
+            "group_size": plan.batch // plan.groups,
+            "score": float(score.max()), "flagged": int((flagged > 0).sum()),
+            "locations": [int(lo) for lo, c in zip(loc, ok) if c > 0],
+            "corrected": int(packed[-2]),
+            "uncorrectable": int((unc > 0).sum()),
+            "checksum_faults": int((cs > 0).sum()),
+            "recomputed": int(packed[-1]),
+            "shard_delta_max": float(packed[6 * g])}
+
+
 def serve_plan(plan, x, *, op: str = "fft", kernel=None, mode: str = "same",
                inject=None, bs: int | None = None):
     """Serve one batched request through a pre-built
     :class:`~repro_torch.core.fft.api.FFTPlan` — the hot path: every
-    dispatch decision (decomposition, ABFT geometry) was resolved when the
-    plan was built, so this is a straight executor call plus telemetry
-    assembly. ``inject`` (ft plans only, tests/benchmarks) is forwarded to
-    the fused ABFT kernel's SEU descriptor, and ``bs`` to its tile size.
-    Returns ``(y, info)``; ``y`` lies on the plan's device."""
-    info = {**_LOCAL, "op": op}
+    dispatch decision (mesh, decomposition, ABFT groups, digit order) was
+    resolved when the plan was built, so this is a straight executor call
+    plus telemetry assembly. ``inject`` (ft plans only, tests/benchmarks)
+    is forwarded to the ABFT pipeline's SEU descriptor: the fused kernel's
+    one 6-field row locally (``bs`` its tile size), the grouped ABFT's
+    7-field rows on a mesh. Returns ``(y, info)``; ``y`` lies on the
+    plan's device, a ``DTensor`` of the global result on a mesh.
+
+    On a mesh every rank calls this with the same batch. A plain tensor
+    ``x`` is the global batch, the same on every rank: each rank reads its
+    own rows and columns of it with no collective, so only the plan's
+    modelled collectives run (``plan.shard`` 's block layout would add the
+    ingest all-to-all). A ``DTensor`` goes to the executors as placed."""
+    info = {"shards": plan.shards, "data": plan.dsize, "op": op}
+    if plan.chunks > 1:
+        info["chunks"] = plan.chunks
     if plan.rank == 2:
         info["dims"] = 2
         info["decomp"] = plan.decomp
     if plan.spec.real:
         info["real"] = True
+    transposed = (plan.sharded and not plan.spec.natural_order
+                  and (plan.rank == 1 or plan.decomp == "pencil"))
     if op in ("convolve", "correlate"):
         if kernel is None:
             raise ValueError(f"op={op!r} needs a kernel")
         fn = plan.convolve if op == "convolve" else plan.correlate
         y = fn(x, kernel, mode=mode)
-        info.update(order="natural", collectives="local")
+        info.update(order="natural",
+                    collectives="2 a2a" if plan.sharded else "local")
         return y, info
     if op == "spectrum":
         y = plan.power_spectrum(x)
-        info["order"] = "natural"
+        info["order"] = "transposed" if transposed else "natural"
         return y, info
     if op != "fft":
         raise ValueError(f"op must be fft|convolve|correlate|spectrum, "
                          f"got {op!r}")
     if plan.spec.ft is not None:
-        res = plan.ft_fft(x, inject=inject, bs=bs)
-        info.update(_ft_verdict(res))
+        if not plan.sharded:
+            res = plan.ft_fft(x, inject=inject, bs=bs)
+            info.update(_ft_verdict(res))
+            return res.y, info
+        res = plan.ft_fft(x, inject=inject)
+        info.update(_ft_telemetry(plan, res))
         return res.y, info
     y = plan.rfft(x) if plan.spec.real else plan.fft(x)
     info.update(ft=False)
+    if plan.sharded:
+        info["order"] = "transposed" if transposed else "natural"
     return y, info
 
 
@@ -197,11 +256,11 @@ def _parse_bool(v: str) -> bool:
 
 
 def apply_fft_spec_arg(args, s: str):
-    """Apply a consolidated ``--fft-spec "n=65536,batch=8,ft=1"`` string
-    onto the parsed args — one flag describing the whole worker plan (and,
-    with the ``workers``/``max_batch``/``deadline_ms``/``queue``/
-    ``timeout_ms`` keys, the serving runtime's scheduler policy); the
-    individual ``--fft-*`` / ``--serve-*`` flags remain as sugar and
+    """Apply a consolidated ``--fft-spec "n=65536,batch=8,shards=4,ft=1"``
+    string onto the parsed args — one flag describing the whole worker
+    plan (and, with the ``workers``/``max_batch``/``deadline_ms``/
+    ``queue``/``timeout_ms`` keys, the serving runtime's scheduler policy);
+    the individual ``--fft-*`` / ``--serve-*`` flags remain as sugar and
     provide the defaults the spec string overrides.
 
     The string is validated strictly: an empty segment (a stray comma, as

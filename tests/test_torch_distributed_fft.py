@@ -433,11 +433,15 @@ def test_unported_mesh_paths_name_their_item(kw, decomp):
 
 
 def test_spectral_consumers_and_serving_on_a_mesh_name_item_10_3():
-    """The 2-D convolution plans on a mesh; what stays to port, serving
-    over a mesh, raises naming item 10.4 (the rank-1 spectral consumers
-    and the 2-D convolution run in the spawns)."""
+    """The 2-D convolution plans on a mesh; serving over a mesh (item
+    10.4) resolves the mesh's specs: the bucketer pads for its four fft
+    ranks, the spectrum's spec stays transposed there, and ``serve_fft``
+    asked for four shards on one process (no process group) serves the
+    local plan, as the reference's does on one device (the mesh paths run
+    in ``tests/test_torch_serve_mesh.py``'s spawn)."""
     from repro_torch.core.fft import api, multidim
     from repro_torch.launch import serve as launch
+    from repro_torch.serve import SpecBucketer, build_fft_spec
     from repro_torch.serve.bucketing import mesh_shards
 
     a = torch.zeros((2, 64))
@@ -445,10 +449,15 @@ def test_spectral_consumers_and_serving_on_a_mesh_name_item_10_3():
     p = api.plan(FFTSpec(shape=(2,) + grid, rank=2, real=True,
                          mesh=_FakeMesh(), device=CPU))
     assert (p.tshape, p.decomp) == ((32, 32), "slab")
-    for call in (lambda: mesh_shards(_FakeMesh()),
-                 lambda: launch.serve_fft(a, shards=4, device=CPU)):
-        with pytest.raises(NotImplementedError, match="item 10.4"):
-            call()
+    assert mesh_shards(_FakeMesh()) == 4
+    key = SpecBucketer(mesh=_FakeMesh()).key_for((60, 100), np.complex64)
+    assert key.tshape == (64, 128)
+    spec = build_fft_spec((8, 64), mesh=_FakeMesh(), op="spectrum",
+                          device=CPU)
+    assert spec.natural_order is False and spec.mesh is not None
+    y, info = launch.serve_fft(a, shards=4, device=CPU)
+    assert info == {"shards": 1, "data": 1, "op": "fft", "ft": False}
+    assert torch.equal(y, torch.zeros((2, 64), dtype=torch.complex64))
 
 
 def test_spec_mesh_validation():

@@ -1492,6 +1492,161 @@ def test_serve_launch_counts_are_exact_with_two_workers(cuda):
     assert got == tuple(want), (got, want, stats)
 
 
+_NCCL_ONE_RANK = r"""
+import json, socket, threading
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_fft_mesh
+from repro_torch.serve import Fault, RuntimeConfig, ServeRuntime
+
+dev = torch.device("cuda", 0)
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        rank=0, world_size=1, device_id=dev)
+seen, launch = set(), ops.block_fft
+
+
+def spy(*a, **k):
+    seen.add((threading.current_thread().name,
+              torch.cuda.current_stream().cuda_stream))
+    return launch(*a, **k)
+
+
+ops.block_fft = spy
+rng = np.random.default_rng(0)
+reqs = []
+for i in range(24):
+    n = (8192, 6000, 1 << 17, 8192)[i % 4]
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    reqs.append((x, ({}, {"op": "spectrum"}, {}, {"ft": True})[i % 4]))
+runs = []
+for mesh in (make_fft_mesh(1), None):
+    with ServeRuntime(RuntimeConfig(max_batch=4, deadline_ms=60000.0),
+                      mesh=mesh) as rt:
+        for x, kw in reqs[:4]:          # admission warms up on this thread
+            rt.admit(rt.bucketer.key_for(x.shape, x.dtype, **kw))
+        seen.clear()
+        hs = [rt.submit(torch.from_numpy(x).to(dev) if i % 2 else x,
+                        faults=Fault(col=7, eps_re=300.0) if i == 3 else None,
+                        **kw) for i, (x, kw) in enumerate(reqs)]
+        rt.drain()
+        ys = [torch.as_tensor(h.result(timeout=120)).cpu() for h in hs]
+        runs.append({"ys": ys, "local": rt.channel is None,
+                     "corrected": [h.info.get("corrected") for h in hs],
+                     "threads": sorted({t for t, _ in seen}),
+                     "streams": sorted({s for _, s in seen}),
+                     "on_card": [torch.is_tensor(h.result()) and
+                                 h.result().is_cuda for h in hs]})
+dist.destroy_process_group()
+a, b = runs
+print(json.dumps({
+    "bitwise": all(torch.equal(x, y) for x, y in zip(a["ys"], b["ys"])),
+    "local": [a["local"], b["local"]],
+    "corrected": [a["corrected"], b["corrected"]],
+    "threads": [a["threads"], b["threads"]],
+    "streams": [len(a["streams"]), len(b["streams"])],
+    "default_stream": torch.cuda.default_stream(dev).cuda_stream in
+    a["streams"] + b["streams"],
+    "on_card": a["on_card"]}))
+"""
+
+
+def test_serve_runtime_over_a_one_rank_nccl_mesh_is_the_local_runtime(cuda):
+    """In a fresh process with one NCCL rank: ``ServeRuntime(mesh=
+    make_fft_mesh(1))`` is the local runtime (no command channel), serves
+    the same requests bitwise equal to ``ServeRuntime()``, on its two
+    workers' own streams, card requests coming back on the card, the ft
+    request's SEU corrected."""
+    out = subprocess.run([sys.executable, "-c", _NCCL_ONE_RANK],
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(_REPO / "src")))
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bitwise"] and res["local"] == [True, True], res
+    assert res["corrected"][0] == res["corrected"][1]
+    assert res["corrected"][0][3] == 1
+    assert res["threads"] == [["serve-worker-0", "serve-worker-1"]] * 2
+    assert res["streams"] == [2, 2] and not res["default_stream"]
+    assert res["on_card"] == [bool(i % 2) for i in range(24)]
+
+
+_MESH_CLIENT_STREAM = r"""
+import json, sys, tempfile
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def run(rank, store, out):
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=2)
+    from repro_torch.launch.mesh import make_fft_mesh
+    from repro_torch.serve import RuntimeConfig, ServeRuntime
+
+    dev = torch.device("cuda", 0)
+    rt = ServeRuntime(RuntimeConfig(max_batch=1, deadline_ms=60000.0),
+                      mesh=make_fft_mesh(2))
+    if rank == 0:
+        s = torch.cuda.Stream(dev)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        rows = []
+        with torch.cuda.stream(s):
+            xs = [torch.randn(8192, dtype=torch.complex64, device=dev,
+                              generator=gen) for _ in range(12)]
+            refs = [torch.fft.fft(x) for x in xs]
+            for x, ref in zip(xs, refs):
+                y = rt.submit(x).result(timeout=120)
+                # read the result on this stream, behind a long kernel,
+                # and drop it while that read is queued: the next batch
+                # runs meanwhile
+                before = y.abs().square().sum()
+                torch.cuda._sleep(50_000_000)
+                after = y.abs().square().sum()
+                err = (y - ref).abs().max() / ref.abs().max()
+                rows.append((before, after, err))
+                del y
+        s.synchronize()
+        res = {"same": [bool(torch.equal(a, b)) for a, b, _ in rows],
+               "err": max(float(e) for _, _, e in rows),
+               "streams": s.cuda_stream != torch.cuda.default_stream(
+                   dev).cuda_stream}
+        with open(out, "w") as f:
+            json.dump(res, f)
+    rt.close()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mp.spawn(run, args=(tempfile.mktemp(), sys.argv[1]), nprocs=2)
+"""
+
+
+def test_serve_runtime_over_a_mesh_keeps_a_card_result_for_its_stream(
+        cuda, tmp_path):
+    """Two gloo ranks on the card, a runtime over a mesh of 2 (one request
+    a batch): the leader's client works on its own stream, reads each
+    result there behind a long kernel and drops it while that read is
+    queued, and the next batch runs meanwhile. Every read sees the value
+    it read before the kernel (the result's memory is not handed to the
+    next batch while the client's stream still reads it), and every result
+    is torch.fft's."""
+    script, out = tmp_path / "client_stream.py", tmp_path / "res.json"
+    script.write_text(_MESH_CLIENT_STREAM)
+    run = subprocess.run([sys.executable, str(script), str(out)],
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(_REPO / "src")))
+    assert run.returncode == 0, run.stderr[-3000:]
+    res = json.loads(out.read_text())
+    assert res["streams"] and all(res["same"]), res
+    assert res["err"] < ATOL[torch.complex64], res
+
+
 # ---- the MoE FFN and MLA (DeepSeek-V3, Llama-4 Maverick) ------------------
 
 MOE_ARCHS = ["deepseek_v3_671b", "llama4_maverick"]

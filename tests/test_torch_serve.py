@@ -601,29 +601,90 @@ def test_serve_plan_local_ft_inject_telemetry(crand, assert_spectrum_close):
     assert_spectrum_close(y_f.numpy(), np.asarray(y_r))
 
 
-# -- what the port does not run yet ------------------------------------------
+# -- the mesh knobs off a mesh, and on a one-rank mesh -----------------------
 
 class _Mesh:
+    """A mesh-like of 4 fft ranks: the bucketer reads its ``shape``, as the
+    reference's does (``axis_names``)."""
+
     shape = {"fft": 4}
+    axis_names = ("fft",)
+
+
+class _OneRankMesh:
+    """A one-rank ``fft`` mesh as a ``DeviceMesh`` presents itself to the
+    plans (named dimensions, ``size``, ``device_type``)."""
+
+    mesh_dim_names = ("fft",)
+    device_type = "cpu"
+
+    def size(self, dim=None):
+        return 1
+
+
+def _reference_one_device_mesh():
+    import jax
+    from jax.sharding import AxisType
+
+    return jax.make_mesh((1,), ("fft",), axis_types=(AxisType.Auto,))
+
+
+_SPEC_FIELDS = ("shape", "dtype", "rank", "axis", "decomp", "natural_order",
+                "real", "chunks")
 
 
 @pytest.mark.parametrize("kw", [{"chunks": 2}, {"decomp": "slab"},
                                 {"natural_order": False},
-                                {"mesh": _Mesh()}],
+                                {"mesh": "one rank"}],
                          ids=["chunks", "decomp", "transposed", "mesh"])
-def test_build_fft_spec_mesh_paths_name_item_10(kw):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_fft_spec((4, 64), device=CPU, **kw)
+def test_build_fft_spec_mesh_paths_name_item_10(kw, crand,
+                                                assert_spectrum_close):
+    """The mesh knobs off a mesh (``chunks``, ``decomp``, the transposed
+    order) and a one-rank mesh resolve the reference's spec and serve the
+    reference's output and telemetry: the plan is the local one."""
+    ours, theirs = dict(kw), dict(kw)
+    if "mesh" in kw:
+        ours["mesh"] = _OneRankMesh()
+        theirs["mesh"] = _reference_one_device_mesh()
+    shape, dims = ((2, 8, 16), 2) if "decomp" in kw else ((4, 64), 1)
+    spec = build_fft_spec(shape, dims=dims, device=CPU, **ours)
+    ref_spec = ref_serve.build_fft_spec(shape, dims=dims, **theirs)
+    assert {f: getattr(spec, f) for f in _SPEC_FIELDS} == \
+        {f: getattr(ref_spec, f) for f in _SPEC_FIELDS}
+    x = crand(shape[0], int(np.prod(shape[1:]))).reshape(shape)
+    got, info = serve_plan(api.plan(spec), torch.from_numpy(x))
+    want, want_info = ref_serve.serve_plan(ref_api.plan(ref_spec), x)
+    assert info == want_info
+    assert (info["shards"], info["data"]) == (1, 1)
+    assert_spectrum_close(got.numpy(), np.asarray(want))
 
 
-def test_runtime_over_a_mesh_names_item_10():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SpecBucketer(mesh=_Mesh())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServeRuntime(_cfg(workers=1), mesh=_Mesh())
-    with ServeRuntime(_cfg(workers=1, chunks=2)) as rt:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            rt.submit(np.zeros(64, np.float32))
+def test_runtime_over_a_mesh_names_item_10(assert_spectrum_close):
+    """The bucketer pads for the mesh's fft ranks as the reference's does;
+    a runtime over a one-rank mesh is the local runtime, and ``chunks``
+    serves the reference's results locally."""
+    ours, theirs = SpecBucketer(mesh=_Mesh()), ref_serve.SpecBucketer(
+        mesh=_Mesh())
+    assert ours.shards == theirs.shards == 4
+    for shape, kw in (((60, 100), {}), ((8,), {}), ((8,), {"real": True}),
+                      ((2, 8), {}), ((700000,), {"ft": True})):
+        dt = np.float32 if kw.get("real") else np.complex64
+        got, want = ours.key_for(shape, dt, **kw), theirs.key_for(shape, dt,
+                                                                   **kw)
+        assert got.label == want.label and got.tshape == want.tshape
+    assert ours.key_for((60, 100), np.complex64).tshape == (64, 128)
+    rng = np.random.default_rng(7)
+    xs = [(rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64) for n in (48, 64, 40)]
+    want = _served_by_reference(dict(max_batch=4, workers=1, chunks=2),
+                                [(x, {}) for x in xs])
+    for mesh, chunks in ((_OneRankMesh(), 1), (None, 2)):
+        with ServeRuntime(_cfg(workers=1, max_batch=4, chunks=chunks),
+                          mesh=mesh) as rt:
+            assert rt.channel is None and rt.bucketer.shards == 1
+            got = [rt.submit(x).result(timeout=60.0) for x in xs]
+        for g, w in zip(got, want):
+            assert_spectrum_close(_np(g), w)
 
 
 # -- the consolidated spec string -------------------------------------------

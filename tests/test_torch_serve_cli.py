@@ -6,8 +6,9 @@ the CPU (``--device cpu``: the kernels' plain versions).
 same worker description, and both print a ``rel_err`` against numpy under
 the suite's complex64 tolerance (4e-5). ``--mode serve`` serves its mixed
 self-test workload with every request completed and the same bucket
-ledger as the reference. What the port does not run yet (a mesh) raises,
-naming its ROADMAP item; ``--mode lm`` serves Whisper.
+ledger as the reference. The mesh flags on one process plan locally, as
+the reference's one-device mesh does (``tests/test_torch_serve_mesh.py``
+runs them on four ranks); ``--mode lm`` serves Whisper.
 """
 from __future__ import annotations
 
@@ -132,9 +133,30 @@ def test_cli_lm_mode_serves_whisper(capsys):
                          ids=["shards", "data", "chunks", "chunks-auto",
                               "spec-shards"])
 @pytest.mark.parametrize("mode", ["fft", "serve"])
-def test_cli_mesh_flags_name_item_10(mode, flags, capsys):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _run_port(capsys, "--mode", mode, "--fft-n", "64", *flags)
+def test_cli_mesh_flags_name_item_10(mode, flags, capsys, monkeypatch):
+    """The mesh flags on one process: the port plans locally (no process
+    group runs), as the reference plans on its one-device mesh; ``--mode
+    fft`` prints the reference's telemetry, ``--mode serve`` completes the
+    reference's buckets (``tests/test_torch_serve_mesh.py`` runs them on
+    four ranks)."""
+    argv = ("--mode", mode, "--fft-n", "64", "--fft-iters", "1",
+            "--serve-requests", "16", *flags)
+    out = _run_port(capsys, *argv)
+    ref = _run_reference(capsys, monkeypatch, *argv)
+    if mode == "fft":
+        (info, err), (ref_info, ref_err) = _fft_line(out), _fft_line(ref)
+        assert info == ref_info == {"shards": 1, "data": 1, "op": "fft",
+                                    "ft": False}
+        assert err < TOL and ref_err < TOL
+        return
+    assert float(re.search(r"rel_err=(\S+)", out)[1]) < TOL, out
+    buckets, ref_buckets = _buckets(out), _buckets(ref)
+    assert set(buckets) == set(ref_buckets) == {
+        "fft:64:c64", "fft:64:c64:ft", "fft:64:c64:real",
+        "spectrum:64:c64"}
+    for label, st in buckets.items():
+        assert st["submitted"] == st["completed"] \
+            == ref_buckets[label]["completed"] == 4, (label, st)
 
 
 def test_serve_fft_matches_reference(rng, assert_spectrum_close):
@@ -146,8 +168,12 @@ def test_serve_fft_matches_reference(rng, assert_spectrum_close):
     assert info.pop("score") < 1e-4 and ref_info.pop("score") < 1e-4
     assert info == ref_info
     assert_spectrum_close(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        launch.serve_fft(x, shards=2, device="cpu")
+    # two shards asked on one process: the one-device plan, as the
+    # reference's on its one-device mesh
+    got, info = launch.serve_fft(x, shards=2, device="cpu")
+    want, ref_info = ref_launch.serve_fft(x, shards=2)
+    assert info == ref_info and info["shards"] == 1
+    assert_spectrum_close(got.numpy(), np.asarray(want))
 
 
 def test_serve_fft_runs_on_the_card_unless_asked(monkeypatch):
