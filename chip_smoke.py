@@ -119,8 +119,8 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   its 182 ``ft_matmul_tile`` kernels), backward and optimizer (with
   none) by when each kernel was launched, ``ft_matmul`` at the step's five product shapes against its plain
   version and ``torch.matmul``, and ``python -m repro_torch.launch.train
-  --preset full --ft-linears --ckpt-every 10`` to 10 steps (one
-  checkpoint, its last step's) and again to 12, which resumes from it;
+  --preset full --ft-linears`` to 1 step (one checkpoint, its last
+  step's) and again to 2, which resumes from it;
 * the encoder-decoder and the VLM (phase 11, ``encdec_drive``, then
   ``encdec_measure``, one config at a time): Whisper-base (6 + 6 layers,
   d_model 512, vocab 51865; 1500 frames of 80 through the audio stub) and
@@ -259,6 +259,40 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   requests/s, batches and mean fill, each rank's device ms of the bucket
   plan's local passes. The NCCL rank then serves a few requests through
   ``ServeRuntime(mesh=make_fft_mesh(1))``, bitwise a local runtime's.
+* LM parallelism (phase 14, ``lmp_rank`` in phase 13's four ranks after
+  their drives, then ``lmp_phase`` here): (a) expert parallelism at
+  DeepSeek-V3's published MoE widths (d 7168, 256 routed experts, top 8,
+  moe_d_ff 2048, one shared expert, capacity factor 1.25: 80 slots an
+  expert) on ``make_host_mesh(1, 4)``, 64 experts a rank (11.27 GB of f32
+  weights), each expert drawn from its own seed: ``moe_block`` under
+  ``use_mesh`` on 4 x 512 tokens at float32 and bf16, unprotected,
+  protected and with one SEU in the shared expert's first product; every
+  rank's y bitwise equal (SHA-256 digests), y against
+  ``_moe_block_portable`` on all 256 experts rebuilt here after the ranks
+  exit (2e-5 x max at float32, 2^-5 at bf16), one all-reduce of (T, d)
+  over the model group a call plus scalars and nothing as large as an
+  expert buffer, 3 ``ft_matmul`` launches a protected call a rank (the
+  shared expert) and 0 unprotected, nothing flagged clean, the SEU
+  flagged and corrected on every rank with y within tolerance of the
+  clean call; host ms a call, a primed trace's device ms beside the
+  experts' byte bound, peak memory a rank. (b) the sharded train step of
+  Gemma-3 1B at its published widths cut to 4 layers (``LMP_REDUCED``),
+  float32 activations, every linear protected, on ``make_host_mesh(2,
+  2)``, batch 8 x 256: each rank stores its ``param_specs`` shards only;
+  two steps at the schedule's steps 1 and 2 (its step 0 has lr 0, so
+  both update) whose metrics are equal on every rank, whose losses, ce and gradient norms
+  and gathered params match the one-rank ``make_train_step`` on the full
+  batch run here (1e-5 relative; params 1e-6 or 4x the one-rank step's
+  own drift from params one ulp up), 28 ``ft_matmul`` launches a step a
+  rank, the first step's each held to ``ft_matmul_plain`` on its operands,
+  the all-gathers, all-reduces and broadcasts a step the design's; then
+  ``compress_allreduce_mean`` on a step's gradients over the data group
+  within 0.05 of the exact mean, with a non-zero residual. (c)
+  ``pipeline_apply`` of tanh(x @ w) at width 1152 over the four ranks as
+  stages, 6 microbatches of 8 rows, within 1e-5 of the sequential product
+  in 9 hops; the stage weights and their AdamW state sharded on 4 x 1,
+  saved by ``save_sharded`` and restored by ``elastic_restore`` onto 2 x 1
+  (ranks 0-1): bitwise the saved values, each leaf the new mesh's shard.
 
 After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
@@ -296,6 +330,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -2567,11 +2602,12 @@ TRAIN_RESTART_STEPS = 10
 TRAIN_FTMM_SHAPES = ((2048, 1152, 1024), (2048, 1152, 256),
                      (2048, 1024, 1152), (2048, 1152, 6912),
                      (2048, 6912, 1152))
-# one checkpoint in the first run (its last step's), then the resume's
-# (steps 10 and 11): three of 12 GB, where "--ckpt-every 5" wrote four
+# the fewest steps and writes that exercise the restart: one step and its
+# checkpoint (12 GB), then one step resumed from it and its own checkpoint
+# (two writes, where (10, 12) wrote three and ran 12 steps: phase 14's room)
 TRAIN_CLI = ("--arch", "gemma3-1b", "--preset", "full", "--ft-linears",
              "--ckpt-every", "10")
-TRAIN_CLI_STEPS = (10, 12)
+TRAIN_CLI_STEPS = (1, 2)
 TRAIN_PARTS = ("forward", "backward", "optimizer")
 
 
@@ -3855,7 +3891,8 @@ SHARD_MESHES = ((4, 1), (2, 2))         # (fft shards, data shards)
 SHARD_RANKS = 4
 SHARD_CHECKED_CASES = (1, 2)            # their launches against the plain one
 SHARD_INGEST_CASE = 2                   # its input through shard_signals
-SHARD_TIMEOUT = 300                     # seconds the four ranks may take
+SHARD_TIMEOUT = 420                     # seconds the four ranks may take
+                                        # (phases 13 and 14)
 SHARD_ONE_RANK = ("complex64", 20, 256)
 # the grouped two-side ABFT: (dtype, log2 N, batch, G, threshold, meshes,
 # the whole fault matrix); an SEU's score over the threshold
@@ -5400,8 +5437,10 @@ def shard_launch_checks(pen, x, yt_local, d, err_ratio):
 
 def shard_rank(rank, store, out_dir):
     """The entry point of one of the four ranks: a gloo group over a file
-    store, the drive, its record written to ``out_dir``."""
+    store, phase 13's drive, then phase 14's (``lmp_rank``), each record
+    written to ``out_dir``."""
     import faulthandler
+    import gc
 
     import torch
     import torch.distributed as dist
@@ -5417,6 +5456,20 @@ def shard_rank(rank, store, out_dir):
         res = {"rank": rank, "failures": [traceback.format_exc()],
                "cases": [], "launches": 0}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    # phase 14 in the same processes, the sharded FFT's buffers and plans
+    # freed
+    from repro_torch.core.plan import plan_cache_clear
+
+    del res
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        res = lmp_rank(rank, out_dir, trace)
+    except Exception:                 # reported by the main process
+        res = {"rank": rank, "failures": [traceback.format_exc()]}
+    with open(os.path.join(out_dir, f"rank{rank}-lm.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
 
@@ -5451,11 +5504,26 @@ def sharded_phase(dev, cuda_ms, smi):
         proc.join(max(1.0, deadline - time.perf_counter()))
     alive = [proc for proc in procs if proc.is_alive()]
     for proc in alive:
-        proc.kill()
-        proc.join()
+        # faulthandler writes the rank's stacks into its log on SIGABRT
+        os.kill(proc.pid, signal.SIGABRT)
+        proc.join(10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
     rec["four_ranks_seconds"] = time.perf_counter() - t0
-    check(not alive, f"phase 13: {len(alive)} ranks still ran after "
-          f"{SHARD_TIMEOUT} s")
+    if alive:
+        for r in range(SHARD_RANKS):
+            for name in (f"rank{r}.json", f"rank{r}-lm.json"):
+                path = os.path.join(out_dir, name)
+                if os.path.exists(path):
+                    with open(path) as f:
+                        for msg in json.load(f).get("failures", []):
+                            log(f"{name}: {msg}")
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                log(f"rank {r} (exit code {procs[r].exitcode})'s log ends:\n"
+                    + "".join(f.readlines()[-40:]))
+    check(not alive, f"phases 13-14: {len(alive)} ranks still ran after "
+          f"{SHARD_TIMEOUT} s (their logs above)")
     ranks = []
     for r in range(SHARD_RANKS):
         path = os.path.join(out_dir, f"rank{r}.json")
@@ -5559,6 +5627,7 @@ def sharded_phase(dev, cuda_ms, smi):
     log(f"  the serving drive took {rec['serve_seconds']:.1f} s (slowest "
         f"rank)")
     rec["ranks"] = ranks
+    rec["out_dir"] = out_dir
     rec["launches"] = sum(res["launches"] for res in ranks)
     rec["launches_ft"] = sum(res["launches_ft"] for res in ranks)
     rec["launches_spectral"] = sum(res["launches_spectral"]
@@ -5709,6 +5778,759 @@ def one_rank_serve(dev, mesh):
           f"{fixed_a} vs {fixed_b})")
     return {"requests": len(reqs), "bitwise": same,
             "tenants": [t[0] for t in SHARD_SERVE_ONE_RANK]}
+
+
+# ---- phase 14: LM parallelism on torch.distributed, in phase 13's four
+# gloo ranks on the one card (after their sharded-FFT drives, their buffers
+# freed), then the plain comparisons in this process after they exit.
+# (a) expert parallelism: DeepSeek-V3's MoE block at its published widths
+# (d 7168, 256 routed experts, top 8, moe_d_ff 2048, one shared expert,
+# capacity factor 1.25: 80 slots an expert at 2048 tokens) on
+# make_host_mesh(1, 4), 64 experts a rank, each drawn expert by expert
+# from its own seed; (b) the sharded train step: Gemma-3 1B at its
+# published widths cut to LMP_TRAIN_LAYERS layers, every linear protected,
+# on make_host_mesh(2, 2); (c) pipeline_apply over the four ranks as
+# stages, and elastic_restore of the stage weights onto ranks 0-1
+LMP_MOE_ARCH = "deepseek_v3_671b"
+LMP_EP_MESH = (1, 4)
+LMP_EP_X = (4, 512)                       # 2048 tokens: cap 80 at 1.25
+LMP_EP_CAP = 8 * 2048 // 256 * 5 // 4     # ceil(2048 * 8 / 256 * 1.25)
+# y of EP against the portable path on the same weights and input: the
+# reference test's bound at float32; bf16 at 2^-5 (four ranks' partial
+# sums added in another order than the portable path's k-sum)
+LMP_EP_TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -5}
+LMP_FT_THRESHOLD = 1e-3
+# an SEU in the shared expert's first product (site 0), token row 5,
+# column 7, +300
+LMP_EP_SEU = (0.0, 5.0, 7.0, 1.0, 300.0)
+LMP_TRAIN_ARCH = "gemma3_1b"
+LMP_TRAIN_LAYERS = 4
+LMP_TRAIN_MESH = (2, 2)
+LMP_TRAIN_BATCH = (8, 256)                # 4 x 256 tokens a data rank
+LMP_TRAIN_STEPS = 2
+# the schedule's step of the first: its step 0 has lr 0 (the warm-up's
+# s / max(warmup, 1)) and would update nothing
+LMP_TRAIN_FIRST_STEP = 1
+LMP_TRAIN_SITES = 7                       # protected products a block
+LMP_REDUCED = ("Gemma-3 1B at 4 of its 26 layers (phase 14's sharded "
+               "step), for the script's time; float32 activations, so that "
+               "the sharded step can be held to the one-rank step")
+# the sharded step against the one-rank step: tests/test_torch_train.py's
+# tolerances (loss, ce and grad_norm 1e-5 relative, params 1e-6, or 4x the
+# one-rank step's own drift from params one ulp up where that is larger)
+LMP_LOSS_TOL = 1e-5
+LMP_PARAM_TOL = 1e-6
+LMP_WITNESS_FACTOR = 4
+LMP_COMPRESS_TOL = 0.05                   # the reference test's bound
+LMP_PIPE = (1152, 6, 8)                   # width, microbatches, rows
+LMP_PIPE_TOL = 1e-5
+LMP_DEVICE = "cuda"                       # the ranks' and meshes' device
+
+
+def lmp_moe_cfg():
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(LMP_MOE_ARCH),
+                              capacity_factor=1.25)
+    check((cfg.d_model, cfg.num_experts, cfg.top_k, cfg.moe_d_ff,
+           cfg.num_shared_experts) == (7168, 256, 8, 2048, 1),
+          f"phase 14: {cfg.name} is not DeepSeek-V3's published MoE")
+    return cfg
+
+
+def lmp_experts(cfg, lo, hi, dev):
+    """Routed experts ``lo``..``hi - 1``, each (wi_gate, wi_up, wo) drawn
+    from its own seed, so any process rebuilds any expert."""
+    import torch
+
+    d, f = cfg.d_model, cfg.moe_d_ff
+    out = {k: torch.empty((hi - lo,) + s, device=dev) for k, s in
+           (("wi_gate", (d, f)), ("wi_up", (d, f)), ("wo", (f, d)))}
+    gen = torch.Generator(device=dev)
+    for i in range(lo, hi):
+        gen.manual_seed(SEED * 1000 + 14_000 + i)
+        for k, fan in (("wi_gate", d), ("wi_up", d), ("wo", f)):
+            out[k][i - lo].normal_(generator=gen).mul_(fan ** -0.5)
+    return out
+
+
+def lmp_moe_inputs(cfg, dev):
+    """The router, the shared expert and the input, from SEED."""
+    import torch
+
+    d, e, fs = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    def n(shape, fan):
+        return torch.randn(shape, generator=gen, device=dev) * fan ** -0.5
+
+    params = {"router": n((d, e), d),
+              "shared": {"wi_gate": n((d, fs), d), "wi_up": n((d, fs), d),
+                         "wo": n((fs, d), fs)}}
+    x = torch.randn(LMP_EP_X + (d,), generator=gen, device=dev)
+    return params, x
+
+
+def _lmp_spy():
+    """Wrap ``dist``'s collectives: each call's kind, bytes and group
+    ranks land in the returned list."""
+    import torch.distributed as dist
+
+    calls = []
+    names = ("all_reduce", "all_gather_into_tensor", "all_to_all_single",
+             "broadcast")
+    orig = {n: getattr(dist, n) for n in names}
+
+    def wrap(n):
+        def spy(*a, **k):
+            t = a[0] if n in ("all_reduce", "broadcast") else a[1]
+            if n == "all_gather_into_tensor":
+                t = a[0]
+            group = k.get("group")
+            calls.append([n, t.numel() * t.element_size(),
+                          dist.get_process_group_ranks(group)
+                          if group is not None else "world"])
+            return orig[n](*a, **k)
+        return spy
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+    return calls, orig
+
+
+def _digest(t):
+    """SHA-256 of ``t``'s bytes: equal digests, bitwise equal tensors."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.detach().contiguous().view(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def lmp_ep_drive(rank, out_dir, calls, res, fail):
+    """(a) on this rank: ``moe_block`` under ``use_mesh`` at float32 and
+    bf16, unprotected and protected, and one SEU; each call's collectives,
+    ft_matmul launches, host ms and y's digest; rank 0 saves its y's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.ft import FTPolicy
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.kernels.trace_age import PRIMER, prime
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.layers import FTContext
+    from repro_torch.parallel import sharding
+
+    dev = torch.device(LMP_DEVICE)
+    cfg = lmp_moe_cfg()
+    mesh = make_host_mesh(*LMP_EP_MESH, device=LMP_DEVICE)
+    e_loc = cfg.num_experts // LMP_EP_MESH[1]
+    m = mesh.get_local_rank("model")
+    try:
+        params, x = lmp_moe_inputs(cfg, dev)
+        params.update(lmp_experts(cfg, m * e_loc, (m + 1) * e_loc, dev))
+        torch.cuda.synchronize()
+        built = torch.ones(1)
+    except torch.OutOfMemoryError:
+        built = torch.zeros(1)
+    # every rank learns whether all four hold their experts, so that a
+    # failed allocation fails them all rather than leaving three in the
+    # combine's all-reduce
+    dist.all_reduce(built, op=dist.ReduceOp.MIN)
+    if not built.item():
+        raise RuntimeError("phase 14 (a): a rank could not allocate its "
+                           "experts")
+    res["ep_weight_bytes"] = sum(params[k].numel() * 4
+                                 for k in ("wi_gate", "wi_up", "wo"))
+    buffer_bytes = e_loc * LMP_EP_CAP * cfg.d_model * 2   # bf16, the least
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        for ft_on in (False, True, "seu"):
+            tag = f"{dtype}/{'seu' if ft_on == 'seu' else 'ft' if ft_on else 'plain'}"
+            ft = (FTContext(FTPolicy(protect_linears=True,
+                                     threshold=LMP_FT_THRESHOLD),
+                            inject=torch.tensor(LMP_EP_SEU)
+                            if ft_on == "seu" else None)
+                  if ft_on else None)
+            xd = x.to(getattr(torch, dtype))
+            dist.barrier()
+            torch.cuda.synchronize()
+            before = ft_matmul.launches
+            del calls[:]
+            t0 = time.perf_counter()
+            with torch.no_grad(), sharding.use_mesh(mesh):
+                y, aux = moe.moe_block(params, xd, cfg, ft=ft)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            row = {"host_ms": ms, "launches": ft_matmul.launches - before,
+                   "calls": list(calls), "aux": float(aux),
+                   "digest": _digest(y), "finite":
+                       bool(torch.isfinite(y).all())}
+            if ft is not None:
+                row.update({k: float(v) for k, v in ft.summary().items()})
+            big = [c for c in calls if c[1] > 64]
+            want = [["all_reduce", y.numel() * y.element_size(),
+                     list(range(4))]]
+            if big != want or any(c[1] >= buffer_bytes for c in calls):
+                fail(f"phase 14 (a) {tag}: collectives {calls}, want one "
+                     f"{want[0]} and scalars")
+            if row["launches"] != (3 if ft_on else 0):
+                fail(f"phase 14 (a) {tag}: {row['launches']} ft_matmul "
+                     f"launches")
+            if ft_on is True and row["ft_flagged"] != 0:
+                fail(f"phase 14 (a) {tag}: clean call flagged {row}")
+            if ft_on == "seu" and (row["ft_flagged"] != 1
+                                   or row["ft_corrected"] != 1):
+                fail(f"phase 14 (a) {tag}: the SEU gave {row}")
+            if ft_on == "seu":
+                clean = rows[f"{dtype}/ft"]["y"]
+                err = ((y.float() - clean).abs().max()
+                       / clean.abs().max()).item()
+                row["err_vs_clean"] = err
+                if err > LMP_EP_TOL[dtype]:
+                    fail(f"phase 14 (a) {tag}: y {err:.3e} x max off the "
+                         f"clean protected call")
+            if rank == 0 and ft_on != "seu":
+                torch.save(y.float().cpu(), os.path.join(
+                    out_dir, f"lmp-y-{tag.replace('/', '-')}.pt"))
+            row["y"] = y.float() if ft_on is True else None
+            rows[tag] = row
+    for row in rows.values():
+        row.pop("y")
+    # device ms of one unprotected float32 call's kernels, primed trace
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prime()
+        with torch.no_grad(), sharding.use_mesh(mesh):
+            moe.moe_block(params, x, cfg)
+        torch.cuda.synchronize()
+    kern = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and PRIMER not in e.name]
+    gemm = [ms for n, ms in kern if "gemm" in n.lower() or "xmma" in n
+            or "cutlass" in n.lower() or "sm90" in n]
+    res["ep_trace"] = {"kernels": len(kern),
+                       "device_ms": sum(ms for _, ms in kern),
+                       "gemm_kernels": len(gemm), "gemm_device_ms": sum(gemm),
+                       "bound_ms": res["ep_weight_bytes"] / HBM_BYTES_PER_S
+                       * 1e3}
+    res["ep"] = rows
+    res["ep_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, x
+    torch.cuda.empty_cache()
+
+
+def lmp_train_drive(rank, out_dir, calls, res, fail):
+    """(b) on this rank: LMP_TRAIN_STEPS sharded steps of the cut Gemma-3
+    1B, its shards, launches and collectives a step, the first step's
+    ``ft_matmul`` launches (M = the rank's 1024 rows) each held to the
+    plain version; rank 0 saves the gathered params; then
+    ``compress_allreduce_mean`` on one step's gradients over the data
+    group against the exact mean."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import optim
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import compress_allreduce_mean, sharding
+    from repro_torch.train import loop
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+
+    dev = torch.device(LMP_DEVICE)
+    model, run = lmp_train_setup()
+    mesh = make_host_mesh(*LMP_TRAIN_MESH, device=LMP_DEVICE)
+    full = lmp_train_params(model, dev)
+    specs = sharding.param_specs(full, mesh, fsdp=run.parallel.fsdp)
+    params = tree_map(lambda t: t.contiguous().clone(),
+                      sharding.shard_tree(full, specs, mesh))
+    flat = dict(sharding.flat_specs(specs))
+    want = {path: sharding.shard_shape(tuple(t.shape), flat[path], mesh)
+            for path, t in leaves_with_path(full)}
+    del full
+    torch.cuda.empty_cache()
+    state = optim.init_state(params)
+    res["train_shard_bytes"] = sum(p.numel() * 4 for p in leaves(params))
+    res["train_want_bytes"] = sum(math.prod(s) * 4 for s in want.values())
+    res["train_shapes_ok"] = all(
+        tuple(p.shape) == want[path] == tuple(mu.shape) == tuple(nu.shape)
+        for (path, p), mu, nu in zip(leaves_with_path(params),
+                                     leaves(state.mu), leaves(state.nu)))
+    if not res["train_shapes_ok"] or \
+            res["train_shard_bytes"] != res["train_want_bytes"]:
+        fail(f"phase 14 (b): the rank's shards are not param_specs' "
+             f"({res['train_shard_bytes']} bytes, want "
+             f"{res['train_want_bytes']})")
+    step_fn = loop.make_train_step(model, run, mesh)
+    steps = []
+    for s in range(LMP_TRAIN_STEPS):
+        batch = lmp_train_batch(dev, s)
+        dist.barrier()
+        torch.cuda.synchronize()
+        before = ft_matmul.launches
+        del calls[:]
+        held = _ftmm_held_to_plain() if s == 0 else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with held as rec:
+            params, state, m = step_fn(params, state, batch,
+                                       LMP_TRAIN_FIRST_STEP + s)
+        torch.cuda.synchronize()
+        steps.append({"host_ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": ft_matmul.launches - before,
+                      "calls": list(calls),
+                      "metrics": {k: float(v) for k, v in m.items()}})
+        if rec is not None:
+            rec["shapes"] = sorted(rec["shapes"])
+            res["train_held"] = rec
+            if rec["launches"] != steps[-1]["launches"] or rec["worst"] > 1 \
+                    or {sh[0] for sh in rec["shapes"]} != {
+                        LMP_TRAIN_BATCH[0] // LMP_TRAIN_MESH[0]
+                        * LMP_TRAIN_BATCH[1]}:
+                fail(f"phase 14 (b): the first step's ft_matmul launches "
+                     f"against the plain version: {rec}")
+    res["train_steps"] = steps
+    res["train_peak_bytes"] = torch.cuda.max_memory_allocated()
+    whole = sharding.gather_tree(params, specs, mesh)
+    if rank == 0:
+        torch.save({"/".join(p): t.cpu() for p, t in
+                    leaves_with_path(whole)},
+                   os.path.join(out_dir, "lmp-params.pt"))
+    # the compressed mean on one step's gradients over the data group
+    batch = lmp_train_batch(dev, 0)
+    bspecs = sharding.batch_specs(batch, mesh)
+    local = {k: sharding.shard_leaf(v, bspecs[k], mesh)
+             for k, v in batch.items()}
+    with sharding.use_mesh(mesh):
+        _, grads = loop._value_and_grad(
+            model, whole, local, block_q=run.parallel.attn_block_q,
+            remat=run.parallel.remat)
+    del whole
+    # leaf by leaf (the protocol is a leaf's), so that four ranks' float32
+    # and int32 copies of one leaf at a time are alive on the card
+    worst, rmax, ms = 0.0, 0.0, 0.0
+    for g in leaves(grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, resid = compress_allreduce_mean(
+            {"g": g}, {"g": torch.zeros_like(g)}, mesh, ("data",))
+        torch.cuda.synchronize()
+        ms += (time.perf_counter() - t0) * 1e3
+        exact = sharding.all_reduce_over(g.clone(), mesh, ("data",)) / 2
+        scale = exact.abs().max().item()
+        if scale > 0:
+            worst = max(worst, (mean["g"] - exact).abs().max().item() / scale)
+        rmax = max(rmax, resid["g"].abs().max().item())
+        del mean, resid, exact
+    res["compress_host_ms"] = ms
+    res["compress"] = {"max_rel_err": worst, "residual_max": rmax}
+    if not (worst < LMP_COMPRESS_TOL and rmax > 0):
+        fail(f"phase 14 (b) compress_allreduce_mean: {res['compress']}")
+
+
+@contextlib.contextmanager
+def _ftmm_held_to_plain():
+    """Every ``ft_matmul`` launch inside the block is held to
+    ``ft_matmul_plain`` on the same operands (each part to GEMM_TOL x
+    max|plain|, a bf16 X's product to BF16_STEP): yields ``{"launches",
+    "worst", "shapes"}``, the launches held, the largest error over its
+    tolerance and the (M, K, N) seen. The kernel's own launch is the main
+    path's, counted on ``ft_matmul.launches``; the plain version adds
+    none."""
+    import torch
+    from repro_torch.kernels import ft_matmul as ftk
+
+    launch = ftk._launch
+    rec = {"launches": 0, "worst": 0.0, "shapes": set()}
+
+    def checked(x, w, inject, tm, tn):
+        got = launch(x, w, inject, tm, tn)
+        want = ftk.ft_matmul_plain(x, w, inject=inject)
+        for part in ("c", "out2", "pred2", "out3", "pred3"):
+            g = getattr(got, part).float()
+            r = getattr(want, part).float()
+            step = BF16_STEP if (part == "c"
+                                 and x.dtype == torch.bfloat16) else GEMM_TOL
+            err = (g - r).abs().max().item()
+            tol = step * r.abs().max().item()
+            rec["worst"] = max(rec["worst"], err / tol if tol > 0
+                               else (0.0 if err == 0 else math.inf))
+        rec["launches"] += 1
+        rec["shapes"].add((x.shape[0], x.shape[1], w.shape[1]))
+        return got
+
+    ftk._launch = checked
+    try:
+        yield rec
+    finally:
+        ftk._launch = launch
+
+
+def lmp_train_setup():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, RunConfig
+    from repro_torch.models import Model
+
+    base = get_config(LMP_TRAIN_ARCH)
+    check((base.d_model, base.num_heads, base.num_kv_heads, base.d_ff,
+           base.vocab_size) == (1152, 4, 1, 6912, TRAIN_VOCAB),
+          f"phase 14: {base.name} is not Gemma-3 1B's published widths")
+    cfg = dataclasses.replace(
+        base, num_layers=LMP_TRAIN_LAYERS, dtype="float32",
+        ft=dataclasses.replace(base.ft, protect_linears=True,
+                               threshold=LMP_FT_THRESHOLD))
+    run = RunConfig(model=cfg, parallel=ParallelConfig(remat="none"),
+                    learning_rate=TRAIN_LR, warmup_steps=1, total_steps=20)
+    return Model(cfg), run
+
+
+def lmp_train_params(model, dev):
+    import torch
+
+    return model.init(torch.Generator(device=dev).manual_seed(SEED + 14),
+                      device=dev)
+
+
+def lmp_train_batch(dev, step):
+    import torch
+    from repro_torch.data import TokenPipeline
+
+    b, t = LMP_TRAIN_BATCH
+    pipe = TokenPipeline(seed=14, batch=b, seq_len=t,
+                         vocab_size=TRAIN_VOCAB)
+    return {k: torch.from_numpy(v).to(dev) for k, v in pipe(step).items()}
+
+
+def lmp_pipe_drive(rank, out_dir, calls, res, fail):
+    """(c) on this rank: ``pipeline_apply`` of tanh(x @ w) over the four
+    ranks as stages against the sequential product, its hops; then the
+    stage weights and their AdamW state sharded on a 4 x 1 mesh, saved by
+    ``save_sharded`` and restored by ``elastic_restore`` onto 2 x 1."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import optim
+    from repro_torch.launch.elastic import elastic_restore, save_sharded
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import pipeline_apply, sharding
+    from repro_torch.tree import leaves, tree_map
+
+    dev = torch.device(LMP_DEVICE)
+    width, micro, rows_n = LMP_PIPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1400)
+    ws = torch.randn((4, width, width), generator=gen, device=dev) \
+        * width ** -0.5
+    x = torch.randn((micro, rows_n, width), generator=gen, device=dev)
+    stage = DeviceMesh(LMP_DEVICE, torch.arange(4), mesh_dim_names=("stage",))
+    dist.barrier()
+    del calls[:]
+    t0 = time.perf_counter()
+    out = pipeline_apply(lambda w, v: torch.tanh(v @ w), ws[rank], x, stage)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    hops = [c for c in calls if c[0] == "all_to_all_single"]
+    seq = x
+    for i in range(4):
+        seq = torch.tanh(seq @ ws[i])
+    err = (out - seq).abs().max().item()
+    res["pipe"] = {"host_ms": ms, "err": err, "hops": len(hops),
+                   "hop_bytes": hops[0][1] if hops else 0,
+                   "calls": len(calls)}
+    if err > LMP_PIPE_TOL or len(hops) != 4 + micro - 1 or any(
+            c[1] != rows_n * width * 4 for c in hops):
+        fail(f"phase 14 (c) pipeline_apply: {res['pipe']}")
+    # elastic: the stage weights sharded on 4 x 1, restored onto 2 x 1
+    big = make_host_mesh(4, 1, device=LMP_DEVICE)
+    small = make_host_mesh(2, 1, device=LMP_DEVICE)
+    params = {"pipe": {"w": ws}}
+    specs = sharding.param_specs(params, big)
+    shards = tree_map(lambda t: t.contiguous().clone(),
+                      sharding.shard_tree(params, specs, big))
+    st = optim.init_state(shards)
+    st.step.fill_(3)
+    for m_, v in zip(leaves(st.mu), leaves(st.nu)):
+        m_.normal_(generator=gen)
+        v.uniform_(generator=gen)
+    ckpt = os.path.join(out_dir, "lmp-ckpt")
+    save_sharded(ckpt, 3, (shards, st), specs, big)
+    mu_whole = sharding.gather_tree(st.mu, specs, big)
+    dist.barrier()
+    if rank < 2:
+        template = (tree_map(torch.zeros_like, params),
+                    optim.init_state(params))
+        (rp, ro), meta = elastic_restore(ckpt, template, small)
+        nspecs = sharding.param_specs(params, small)
+        want_p = sharding.shard_tree(params, nspecs, small)
+        want_mu = sharding.shard_tree(mu_whole, nspecs, small)
+        ok = (meta["step"] == 3 and int(ro.step) == 3
+              and all(torch.equal(a, b) for a, b in
+                      zip(leaves(rp), leaves(want_p)))
+              and all(torch.equal(a, b) for a, b in
+                      zip(leaves(ro.mu), leaves(want_mu)))
+              and tuple(rp["pipe"]["w"].shape) == (4, width // 2, width))
+        res["elastic"] = {"ok": ok, "shape": list(rp["pipe"]["w"].shape)}
+        if not ok:
+            fail(f"phase 14 (c) elastic_restore onto 2 x 1: {res['elastic']}")
+    dist.barrier()
+
+
+def lmp_rank(rank, out_dir, trace):
+    """Phase 14 on one of phase 13's four ranks; its record."""
+    import torch
+
+    from repro_torch.kernels.ft_matmul import ft_matmul
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"rank": rank, "failures": []}
+    if LMP_DEVICE == "cuda":
+        res["free_bytes_at_start"], _ = torch.cuda.mem_get_info()
+        res["allocated_at_start"] = torch.cuda.memory_allocated()
+        print(f"phase 14: {res['free_bytes_at_start'] / 1e9:.2f} GB free on "
+              f"the card, {res['allocated_at_start'] / 1e9:.2f} GB held here",
+              file=trace, flush=True)
+    calls, orig = _lmp_spy()
+    torch.cuda.reset_peak_memory_stats()
+    ft_matmul.launches = 0
+    t0 = time.perf_counter()
+    try:
+        for part in (lmp_ep_drive, lmp_train_drive, lmp_pipe_drive):
+            print(f"{time.perf_counter():.3f} phase 14 {part.__name__}",
+                  file=trace, flush=True)
+            t1 = time.perf_counter()
+            part(rank, out_dir, calls, res, res["failures"].append)
+            res[f"{part.__name__}_seconds"] = time.perf_counter() - t1
+    finally:
+        import torch.distributed as dist
+        for n, f in orig.items():
+            setattr(dist, n, f)
+    res["launches"] = ft_matmul.launches
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _lmp_want_collectives(model, run, mesh_shape_):
+    """A sharded step's collectives on one rank of ``make_host_mesh(
+    *LMP_TRAIN_MESH)``, as the design gives them: one all-gather a param
+    leaf's sharded dim and axis of size > 1 (its output the gathered
+    size); one all-reduce a gradient leaf over data (the leaf whole), and
+    two of the metrics (5 sums, the score); three broadcasts over model
+    (the norm's per-leaf sums, the metrics, the score)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.parallel import sharding
+    from repro_torch.tree import leaves_with_path
+
+    mesh = AbstractMesh(mesh_shape_, ("data", "model"))
+    meta = model.init(None, device="meta")
+    flat = dict(sharding.flat_specs(sharding.param_specs(
+        meta, mesh, fsdp=run.parallel.fsdp)))
+    gathers, gather_bytes, leaves_n, whole = 0, 0, 0, 0
+    for path, leaf in leaves_with_path(meta):
+        shape = list(sharding.shard_shape(tuple(leaf.shape), flat[path],
+                                          mesh))
+        for dim, e in enumerate(flat[path]):
+            for a in reversed(sharding.spec_axes(e)):
+                if mesh.shape[a] > 1:
+                    shape[dim] *= mesh.shape[a]
+                    gathers += 1
+                    gather_bytes += math.prod(shape) * 4
+        leaves_n += 1
+        whole += leaf.numel() * 4
+    return {"all_gather_into_tensor": [gathers, gather_bytes],
+            "all_reduce": [leaves_n + 2, whole + 5 * 4 + 4],
+            "broadcast": [3, 4 * leaves_n + 5 * 4 + 4]}
+
+
+def lmp_phase(dev, out_dir, ranks, smi):
+    """Phase 14's checks in this process after the ranks exit: (a) EP's y
+    against ``_moe_block_portable`` on all 256 experts rebuilt from their
+    seeds, every rank's y bitwise equal; (b) the sharded step's losses and
+    gathered params against the one-rank step on the full batch, its
+    launches and collectives a step; (c) the pipeline and elastic rows.
+    Returns the phase's record."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    t0 = time.perf_counter()
+    for res in ranks:
+        for msg in res["failures"]:
+            log(f"phase 14 rank {res['rank']}: {msg}")
+    check(all(not res["failures"] for res in ranks),
+          "phase 14: a rank failed (above)")
+    rec = {"rank_seconds": [res["seconds"] for res in ranks],
+           "launches": sum(res["launches"] for res in ranks)}
+    # (a)
+    cfg = lmp_moe_cfg()
+    params, x = lmp_moe_inputs(cfg, dev)
+    params.update(lmp_experts(cfg, 0, cfg.num_experts, dev))
+    torch.cuda.synchronize()
+    ep = {}
+    for dtype in ("float32", "bfloat16"):
+        xd = x.to(getattr(torch, dtype))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            want, aux = moe._moe_block_portable(params, xd, cfg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        want = want.float()
+        for prot in ("plain", "ft"):
+            tag = f"{dtype}/{prot}"
+            got = torch.load(os.path.join(
+                out_dir, f"lmp-y-{dtype}-{prot}.pt")).to(dev)
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            digests = {res["ep"][tag]["digest"] for res in ranks}
+            rows = [res["ep"][tag] for res in ranks]
+            ep[tag] = {"err_vs_portable": err, "bitwise_ranks":
+                       len(digests) == 1, "aux": rows[0]["aux"],
+                       "aux_portable": float(aux), "plain_ms": plain_ms,
+                       "host_ms": [r["host_ms"] for r in rows],
+                       "launches": [r["launches"] for r in rows],
+                       "seu": [[ranks[i]["ep"][f"{dtype}/seu"][k]
+                                for k in ("ft_flagged", "ft_corrected",
+                                          "err_vs_clean")]
+                               for i in range(len(ranks))]}
+            check(err <= LMP_EP_TOL[dtype] and len(digests) == 1
+                  and all(r["finite"] for r in rows)
+                  and abs(rows[0]["aux"] - float(aux))
+                  <= 1e-5 * abs(float(aux)),
+                  f"phase 14 (a) {tag}: y {err:.3e} x max off the portable "
+                  f"path (tolerance {LMP_EP_TOL[dtype]}), {len(digests)} "
+                  f"distinct y's over the ranks, aux {rows[0]['aux']} vs "
+                  f"{float(aux)}")
+            log(f"phase 14 (a) EP {tag}: y within {err:.3e} x max of the "
+                f"portable path over all 256 experts, the four ranks' y "
+                f"bitwise equal, aux {rows[0]['aux']:.6f} (portable "
+                f"{float(aux):.6f}); host ms a call a rank "
+                f"{[round(v, 1) for v in ep[tag]['host_ms']]} (portable in "
+                f"this process {plain_ms:.1f}); ft_matmul launches "
+                f"{ep[tag]['launches']}; SEU (flagged, corrected, err vs "
+                f"clean) {ep[tag]['seu'] if prot == 'ft' else '-'}")
+    tr = ranks[0]["ep_trace"]
+    rec["ep"] = ep
+    rec["ep_trace"] = [res["ep_trace"] for res in ranks]
+    rec["ep_peak_bytes"] = [res["ep_peak_bytes"] for res in ranks]
+    log(f"phase 14 (a) traced unprotected float32 call, rank 0: "
+        f"{tr['kernels']} kernels, {tr['device_ms']:.3f} device ms, "
+        f"{tr['gemm_kernels']} GEMM kernels {tr['gemm_device_ms']:.3f} ms "
+        f"against the experts' byte bound {tr['bound_ms']:.3f} ms "
+        f"({ranks[0]['ep_weight_bytes'] / 1e9:.2f} GB a rank at 3.35 TB/s; "
+        f"four ranks share the card); GEMM device ms a rank "
+        f"{[round(r['gemm_device_ms'], 3) for r in rec['ep_trace']]}; peak "
+        f"GB a rank {[round(b / 1e9, 2) for b in rec['ep_peak_bytes']]} "
+        f"({smi})")
+    del params, x, xd, want, got
+    torch.cuda.empty_cache()
+    # (b)
+    model, run = lmp_train_setup()
+    from repro_torch import optim
+    from repro_torch.train import loop
+
+    def one_rank(p):
+        st = optim.init_state(p)
+        step = loop.make_train_step(model, run)
+        ms = []
+        for s in range(LMP_TRAIN_STEPS):
+            p, st, m = step(p, st, lmp_train_batch(dev, s),
+                            LMP_TRAIN_FIRST_STEP + s)
+            ms.append({k: float(v) for k, v in m.items()})
+        return p, ms
+
+    p1, ms1 = one_rank(lmp_train_params(model, dev))
+    up = tree_map(lambda t: torch.nextafter(t, torch.full_like(
+        t, math.inf)), lmp_train_params(model, dev))
+    pu, _ = one_rank(up)
+    del up
+    drift = max((a - b).abs().max().item() for (_, a), (_, b) in
+                zip(leaves_with_path(pu), leaves_with_path(p1)))
+    del pu
+    got = torch.load(os.path.join(out_dir, "lmp-params.pt"))
+    perr = max((got["/".join(p)].to(dev) - t).abs().max().item()
+               for p, t in leaves_with_path(p1))
+    tol = max(LMP_PARAM_TOL, LMP_WITNESS_FACTOR * drift)
+    steps0 = ranks[0]["train_steps"]
+    same = all(res["train_steps"][s]["metrics"] == steps0[s]["metrics"]
+               for res in ranks for s in range(LMP_TRAIN_STEPS))
+    # loss, ce and the clip norm of the whole mean gradient, every step
+    merr = {k: max(abs(steps0[s]["metrics"][k] - ms1[s][k]) / abs(ms1[s][k])
+                   for s in range(LMP_TRAIN_STEPS))
+            for k in ("loss", "ce", "grad_norm")}
+    lerr = max(merr.values())
+    want_calls = _lmp_want_collectives(model, run, LMP_TRAIN_MESH)
+    launches = [[st["launches"] for st in res["train_steps"]]
+                for res in ranks]
+    sites = LMP_TRAIN_SITES * LMP_TRAIN_LAYERS
+    coll = []
+    for res in ranks:
+        for st in res["train_steps"]:
+            got_calls = {}
+            for kind, nbytes, _ in st["calls"]:
+                c = got_calls.setdefault(kind, [0, 0])
+                c[0] += 1
+                c[1] += nbytes
+            coll.append(got_calls)
+    rec["train"] = {
+        "metric_rel_err": merr, "param_err": perr, "param_tol": tol,
+        "held_to_plain": [res.get("train_held") for res in ranks],
+        "witness_drift": drift, "metrics_equal": same,
+        "launches": launches, "collectives": coll[0],
+        "want_collectives": want_calls,
+        "host_ms": [[st["host_ms"] for st in res["train_steps"]]
+                    for res in ranks],
+        "metrics": [st["metrics"] for st in steps0],
+        "one_rank_metrics": ms1,
+        "shard_bytes": [res["train_shard_bytes"] for res in ranks],
+        "peak_bytes": [res["train_peak_bytes"] for res in ranks],
+        "compress": [res["compress"] for res in ranks],
+        "compress_host_ms": [res["compress_host_ms"] for res in ranks],
+        "reduced": LMP_REDUCED}
+    check(lerr <= LMP_LOSS_TOL and perr <= tol and same,
+          f"phase 14 (b): loss, ce, grad_norm {merr} relative, params "
+          f"{perr:.3e} "
+          f"(tolerance {tol:.3e}), metrics equal on every rank {same}")
+    check(all(n == sites for row in launches for n in row),
+          f"phase 14 (b): ft_matmul launches a step a rank {launches}, not "
+          f"{sites}")
+    check(all(c == want_calls for c in coll),
+          f"phase 14 (b): collectives a step {coll[0]}, want {want_calls}")
+    held = rec["train"]["held_to_plain"]
+    log(f"phase 14 (b) sharded step, {LMP_REDUCED}: losses "
+        f"{[round(st['metrics']['loss'], 6) for st in steps0]}, gradient "
+        f"norms {[round(st['metrics']['grad_norm'], 6) for st in steps0]}; "
+        f"loss, ce, grad_norm within {merr} of the one-rank step's; the "
+        f"first step's ft_matmul launches held to the plain version "
+        f"{[h['launches'] for h in held]} a rank, worst "
+        f"{max(h['worst'] for h in held):.3f} of tolerance at "
+        f"{held[0]['shapes']}; gathered params within "
+        f"{perr:.3e} (tolerance {tol:.3e}: the one-rank step's own one-ulp "
+        f"drift {drift:.3e}), metrics equal on every rank; shard bytes a "
+        f"rank {rec['train']['shard_bytes']}; ft_matmul launches a step a "
+        f"rank {launches}; collectives a step (calls, bytes) {coll[0]}; "
+        f"host ms a step {rec['train']['host_ms']}; peak GB "
+        f"{[round(b / 1e9, 2) for b in rec['train']['peak_bytes']]}; "
+        f"compress_allreduce_mean on a step's gradients over data: "
+        f"{rec['train']['compress']} in "
+        f"{[round(v) for v in rec['train']['compress_host_ms']]} host ms "
+        f"({smi})")
+    del p1, got
+    torch.cuda.empty_cache()
+    # (c)
+    rec["pipe"] = [res["pipe"] for res in ranks]
+    rec["elastic"] = [res.get("elastic") for res in ranks[:2]]
+    log(f"phase 14 (c) pipeline_apply over 4 stages, {LMP_PIPE[1]} "
+        f"microbatches of {LMP_PIPE[2]} x {LMP_PIPE[0]}: max err "
+        f"{max(r['err'] for r in rec['pipe']):.3e} against the sequential "
+        f"product, {rec['pipe'][0]['hops']} hops of "
+        f"{rec['pipe'][0]['hop_bytes']} bytes, host ms a rank "
+        f"{[round(r['host_ms'], 1) for r in rec['pipe']]}; elastic_restore "
+        f"onto 2 x 1: {rec['elastic']}")
+    rec["parent_seconds"] = time.perf_counter() - t0
+    return rec
 
 
 def main() -> int:
@@ -6593,6 +7415,10 @@ def main() -> int:
     log(f"phase 13 starts {t13 - t_start:.1f} s into the run ({smi})")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  before its ranks start: {free / 1e9:.2f} of {total / 1e9:.2f} GB "
+        f"free on the card, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"held by this process")
     sharded = sharded_phase(dev, cuda_ms, smi)
     sharded["device"] = smi
     sharded["seconds"] = time.perf_counter() - t13
@@ -6608,7 +7434,28 @@ def main() -> int:
         f"{one['case']}: plan.fft on the mesh {one['mesh_ms']:.4f} ms, "
         f"plan.fft {one['plan_ms']:.4f} ms, torch.fft "
         f"{one['torch_fft_ms']:.4f} ms ({smi})")
-    log(f"phase 13 took {sharded['seconds']:.1f} s; the run "
+    lm_ranks = []
+    for r in range(SHARD_RANKS):
+        path = os.path.join(sharded["out_dir"], f"rank{r}-lm.json")
+        check(os.path.exists(path), f"phase 14: rank {r} wrote no record")
+        with open(path) as f:
+            lm_ranks.append(json.load(f))
+    lm_rank_s = max(res.get("seconds", 0.0) for res in lm_ranks)
+    log(f"phase 13 took {sharded['seconds']:.1f} s, of which phase 14's "
+        f"drives in its four ranks {lm_rank_s:.1f} s; the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # ---- phase 14: LM parallelism, in phase 13's four ranks (above, their
+    # ft_matmul counts set to 0 before its drives), then checked here
+    t14 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lmp = lmp_phase(dev, sharded["out_dir"], lm_ranks, smi)
+    lmp["device"] = smi
+    lmp["seconds"] = lm_rank_s + time.perf_counter() - t14
+    log(f"phase 14 took {lmp['seconds']:.1f} s ({lm_rank_s:.1f} s in the "
+        f"ranks, {lmp['parent_seconds']:.1f} s here; {lmp['launches']} "
+        f"ft_matmul launches over the ranks); the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
 
     kernels = [
@@ -6666,7 +7513,8 @@ def main() -> int:
                               "moe": moe_launches["ft_matmul"],
                               "train": train_launches["ft_matmul"],
                               "encdec": encdec_launches["ft_matmul"],
-                              "rm_train": rm_launches["ft_matmul"]},
+                              "rm_train": rm_launches["ft_matmul"],
+                              "lm_parallel": lmp["launches"]},
          "launches_per_call": {"plan.ft_matmul": 1,
                                "protected MLP block": mlp_per_call,
                                "protected prefill":
@@ -6699,7 +7547,11 @@ def main() -> int:
                                **{f"{arch} protected train step":
                                   rm[arch]["protected"][
                                       "ft_matmul_launches_per_step"]
-                                  for arch in RM_ARCHS}},
+                                  for arch in RM_ARCHS},
+                               "protected EP call a rank":
+                                   lmp["ep"]["float32/ft"]["launches"][0],
+                               "protected sharded train step a rank":
+                                   lmp["train"]["launches"][0][0]},
          "max_abs_err": max(gemm_parts.values()),
          "max_abs_err_parts": gemm_parts, "max_err_over_tol": gemm_ratio,
          "max_abs_err_by_path": {
@@ -6733,7 +7585,7 @@ def main() -> int:
          "instances": ftmm_instances, "shapes": gemm_rows,
          "mlp_block": mlp_ms, "seu": {"plan": gemm_seu, "mlp": mlp_seu},
          "lm": lm, "ssm": ssm, "moe": moe_res, "train": train,
-         "encdec": encdec, "rm_train": rm},
+         "encdec": encdec, "rm_train": rm, "lm_parallel": lmp},
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,81 @@
-"""The device mesh of the sharded FFT.
+"""The device meshes: the sharded FFT's and the LM's.
 
-``make_fft_mesh`` builds a ``torch.distributed`` ``DeviceMesh`` over the
-ranks of the initialised process group (``torchrun``, or
-``dist.init_process_group`` with an address, world size and rank); every
-rank calls it. The LM meshes of the reference (``make_production_mesh``,
-``make_host_mesh``) go with ROADMAP queue 1 item 12.
+``make_fft_mesh`` and ``make_host_mesh`` build a ``torch.distributed``
+``DeviceMesh`` over the ranks of the initialised process group
+(``torchrun``, or ``dist.init_process_group`` with an address, world size
+and rank); every rank calls them, also a rank the mesh leaves out.
+``make_production_mesh`` is the reference's 256- or 512-chip LM mesh,
+which no single host builds: an :class:`AbstractMesh` of axis names and
+sizes, which the sharding rules (``parallel.sharding``) accept as they
+accept a ``DeviceMesh``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_fft_mesh", "fft_mesh_shape"]
+__all__ = ["make_fft_mesh", "fft_mesh_shape", "make_host_mesh",
+           "make_production_mesh", "AbstractMesh"]
+
+
+class AbstractMesh:
+    """A mesh by its axis names and sizes only, with no ranks or groups:
+    ``axis_names`` and ``shape`` (name -> size, in axis order), as a JAX
+    mesh gives them."""
+
+    def __init__(self, sizes, names):
+        if len(sizes) != len(names):
+            raise ValueError(f"{len(sizes)} sizes for {len(names)} axes")
+        self.axis_names = tuple(names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in sizes)))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """16 x 16 ``data x model`` (256 chips, one pod) or 2 x 16 x 16 ``pod x
+    data x model`` (512 chips, two pods), as names and sizes."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(shape, axes)
+
+
+def _device_type(device: str, owner: str) -> str:
+    dev = torch.device(device).type
+    if dev == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner}(device='cuda') but no CUDA device is available "
+            "— pass device='cpu' for a mesh of CPU ranks")
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"{owner}'s device must be cuda or cpu, got "
+                         f"{device!r}")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"{owner} needs an initialised process group: start the "
+            "ranks with torchrun, or call torch.distributed."
+            "init_process_group with an address, world size and rank")
+    return dev
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *, device: str = "cuda"):
+    """A ``data x model`` mesh over the first ``data * model`` ranks of the
+    process group. A request beyond the world size becomes ``(world, 1)``,
+    as the reference's does beyond the host's devices."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = _device_type(device, "make_host_mesh")
+    n = dist.get_world_size()
+    if data * model > n:
+        data, model = n, 1
+    ranks = torch.arange(data * model).view(data, model)
+    return DeviceMesh(dev, ranks, mesh_dim_names=("data", "model"))
 
 
 def fft_mesh_shape(devices: int, shards: int | None = None,
@@ -50,19 +114,7 @@ def make_fft_mesh(shards: int | None = None, data: int = 1, *,
     """
     from torch.distributed.device_mesh import DeviceMesh
 
-    dev = torch.device(device).type
-    if dev == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "make_fft_mesh(device='cuda') but no CUDA device is available "
-            "— pass device='cpu' for a mesh of CPU ranks")
-    if dev not in ("cuda", "cpu"):
-        raise ValueError(f"make_fft_mesh's device must be cuda or cpu, got "
-                         f"{device!r}")
-    if not dist.is_initialized():
-        raise RuntimeError(
-            "make_fft_mesh needs an initialised process group: start the "
-            "ranks with torchrun, or call torch.distributed."
-            "init_process_group with an address, world size and rank")
+    dev = _device_type(device, "make_fft_mesh")
     data, shards = fft_mesh_shape(dist.get_world_size(), shards, data)
     ranks = torch.arange(data * shards)
     if data > 1:

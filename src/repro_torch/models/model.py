@@ -36,9 +36,9 @@ ignores ``remat`` as well (``:140``). The frontend stubs' products and
 the cross-attention's are plain ones: the reference gives them no FT
 context.
 
-Left out: the reference's ``constrain_hidden``/``constrain_logits`` are
-no-ops without a mesh and come with LM parallelism (ROADMAP queue 1 item
-12).
+The reference's ``constrain_hidden``/``constrain_logits`` are hints to
+XLA's partitioner and have no counterpart: under a mesh a rank runs the
+model on its own shard of the batch (``parallel.sharding``).
 """
 from __future__ import annotations
 

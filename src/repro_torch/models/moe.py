@@ -16,8 +16,17 @@ operations one by one (``ssm.silu``), so that a bfloat16 activation rounds
 as the reference's does: the router that reads it is discontinuous. The
 shared expert (DeepSeek) runs
 densely on every token through ``layers.swiglu``, so its products are
-protected sites on the GEMM plan. The expert-parallel path
-(``moe_block_ep``) comes with LM parallelism and raises.
+protected sites on the GEMM plan.
+
+Under a mesh (``parallel.sharding.use_mesh``) ``moe_block`` takes the
+reference's mesh branch. A rank passes its own activations: its shard of
+the batch over the dp axes (or the whole batch when the batch is
+replicated). With a ``model`` axis that divides the experts and at least
+1024 tokens a rank it runs ``moe_block_ep``: each rank routes its tokens
+over all experts, runs its E/|model| experts on them, and one all-reduce
+of the (T_local, d) outputs over ``model`` combines the shards. Else it
+runs the portable path on the whole batch, as the reference's partitioner
+does: the tokens are all-gathered over dp and each rank keeps its rows.
 """
 from __future__ import annotations
 
@@ -25,18 +34,19 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.abft import gemm as abft_gemm
+from repro_torch.parallel import sharding
 
 from . import layers
 from .layers import dense_init
 from .ssm import silu
 
 __all__ = ["make_moe_params", "moe_block", "moe_block_ep",
-           "aux_load_balance_loss"]
+           "aux_load_balance_loss", "takes_ep", "EP_MIN_TOKENS"]
 
-EP_ITEM = ("the expert-parallel MoE path (moe_block_ep) is not ported yet: "
-           "it comes with LM parallelism, ROADMAP queue 1 item 12")
+EP_MIN_TOKENS = 1024     # tokens a rank from which the mesh branch runs EP
 
 
 def _ft_expert_matmul(buf, w, threshold, correct):
@@ -149,38 +159,243 @@ def _dispatch_compute(xf, gate_vals, gate_idx, wg, wu, wo, cap, e, *,
     return torch.einsum("tkd,tk->td", contrib, gate_vals.to(dtype)), stats
 
 
-def moe_block_ep(*args, **kwargs):
-    raise NotImplementedError(EP_ITEM)
+class _SumGradOver(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group``:
+    each model rank's experts give a part of the gradient of the tokens
+    and gates they read."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Combine(torch.autograd.Function):
+    """Forward: the sum over ``group`` (the expert shards' outputs). The
+    backward passes the gradient through once: every model rank holds the
+    same upstream gradient of the replicated sum, which is its part's
+    (``dist.nn``'s all-reduce would sum it, |model| times too much)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        out = y.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanOver(torch.autograd.Function):
+    """Forward: the mean over the mesh ``axes``; the backward passes the
+    gradient through once (each rank's loss holds the mean as its own
+    term: the train step's mean over dp then counts each rank's term
+    once)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, n):
+        out = x.clone()
+        sharding.all_reduce_over(out, mesh, axes)
+        return out / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward: the rows of every rank along the mesh ``axes``, in rank
+    order (an all-gather a dim); the backward sums the gradient over them
+    and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return sharding.gather_leaf(x, (axes,), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = sharding.all_reduce_over(g.contiguous().clone(), ctx.mesh,
+                                     ctx.axes)
+        return sharding.shard_leaf(g, (ctx.axes,), ctx.mesh), None, None
+
+
+def _dp_of(mesh):
+    """The dp axes the batch is split over and their size (none when the
+    batch is replicated)."""
+    if sharding.batch_replicated():
+        return (), 1
+    dp = sharding.dp_axes(mesh)
+    sizes = sharding.mesh_shape(mesh)
+    return dp, math.prod(sizes[a] for a in dp)
+
+
+def takes_ep(cfg, mesh, tokens_local: int) -> bool:
+    """Whether ``moe_block`` takes the expert-parallel path: a mesh with a
+    ``model`` axis that divides the experts, and at least
+    ``EP_MIN_TOKENS`` tokens a rank (the reference's rule; below it the
+    replicated routing and the combine cost more than they save)."""
+    sizes = sharding.mesh_shape(mesh)
+    return ("model" in sizes and cfg.num_experts % sizes["model"] == 0
+            and tokens_local >= EP_MIN_TOKENS)
+
+
+def moe_block_ep(params, x, cfg, mesh, *, ft=None):
+    """Expert-parallel MoE over the ``model`` axis of ``mesh``.
+
+    ``x`` (B, T, d) is this rank's batch: its dp shard, the same on every
+    rank along ``model``. Routing runs replicated (float32 softmax, top
+    k); the expert ids are rebased to this rank's ``E / |model|`` experts,
+    the others going to the drop bucket; the capacity comes from the
+    tokens a rank. ``params``' routed experts are all E (this rank's range
+    is taken) or this rank's ``E / |model|``. The outputs are combined by
+    one all-reduce of (T_local, d) over ``model``; ``aux`` is the mean
+    over the dp ranks. Protected, the routed experts' flagged and
+    corrected counts are summed over ``model`` (a rank's counts then cover
+    its own tokens, as its dense products' do) and the score is maxed
+    over every rank. The shared expert runs on this rank's tokens, with
+    ``ft``.
+
+    The backward gives each rank the gradient the reference's global
+    program gives it: the combine passes the gradient through once, and
+    the parts of the tokens' and gates' gradients from each rank's experts
+    are summed over ``model``; routing and aux are differentiated once.
+    """
+    b, t, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    sizes = sharding.mesh_shape(mesh)
+    m_size = sizes["model"]
+    e_local = e // m_size
+    dp, n_dp = _dp_of(mesh)
+    tokens_local = b * t
+    cap = max(math.ceil(tokens_local * k / e * cfg.capacity_factor), 8)
+    m_idx = mesh.get_local_rank("model")
+    group = mesh.get_group("model")
+    experts = []
+    for name in ("wi_gate", "wi_up", "wo"):
+        w = params[name]
+        if w.shape[0] not in (e, e_local):
+            raise ValueError(f"moe_block_ep: {name} holds {w.shape[0]} "
+                             f"experts, not {e} or this rank's {e_local}")
+        if w.shape[0] != e_local:
+            w = w[m_idx * e_local:(m_idx + 1) * e_local]
+        experts.append(w)
+
+    ft_on = ft is not None and ft.enabled
+    xf = x.reshape(tokens_local, d)
+    probs, gate_vals, gate_idx = _route(params["router"], xf, k)
+    # rebase expert ids to this shard's local range
+    local_idx = gate_idx - m_idx * e_local
+    local_idx = torch.where((local_idx >= 0) & (local_idx < e_local),
+                            local_idx, e_local)          # -> drop bucket
+    xs, gs = xf, gate_vals
+    if m_size > 1:
+        xs = _SumGradOver.apply(xf, group)
+        gs = _SumGradOver.apply(gate_vals, group)
+    y, stats = _dispatch_compute(
+        xs, gs, local_idx, *experts, cap, e_local, dtype=x.dtype,
+        ft_args=(ft.policy.threshold, True) if ft_on else None)
+    if m_size > 1:
+        y = _Combine.apply(y, group)
+    aux = aux_load_balance_loss(probs, gate_idx, e)
+    if dp:
+        aux = _MeanOver.apply(aux, mesh, dp, n_dp)
+    if stats is not None:
+        counts = torch.stack([stats["flagged"].sum(),
+                              stats["corrected"].sum()]).float()
+        score = stats["score"].max().reshape(1).float()
+        sharding.all_reduce_over(counts, mesh, ("model",))
+        sharding.all_reduce_over(score, mesh, ("model",) + dp,
+                                 op=dist.ReduceOp.MAX)
+        ft.record({"flagged": counts[0], "corrected": counts[1],
+                   "score": score[0]})
+    if "shared" in params:
+        y = y + layers.swiglu(params["shared"], xf, ft=ft, silu=silu)
+    return y.reshape(b, t, d), aux
 
 
 def moe_block(params, x, cfg, *, ft=None):
-    """x: (B, T, D) -> (y, aux) with capacity-based top-k dispatch. The
-    port runs on one card: the portable path (the reference takes its EP
-    path only under a mesh with a ``model`` axis)."""
-    return _moe_block_portable(params, x, cfg, ft=ft)
+    """x: (B, T, D) -> (y, aux) with capacity-based top-k dispatch.
+
+    Off a mesh: the portable path. Under a mesh (``use_mesh``), ``x`` is
+    this rank's batch: the expert-parallel path when :func:`takes_ep`,
+    else the portable path on the whole batch (gathered over dp when it is
+    split there), as the reference's partitioner runs it.
+    """
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return _moe_block_portable(params, x, cfg, ft=ft)
+    b, t, _ = x.shape
+    if takes_ep(cfg, mesh, b * t):
+        return moe_block_ep(params, x, cfg, mesh, ft=ft)
+    dp, n = _dp_of(mesh)
+    if n == 1:
+        return _moe_block_portable(params, x, cfg, ft=ft)
+    return _moe_block_gathered(params, x, cfg, mesh, dp, ft=ft)
 
 
-def _moe_block_portable(params, x, cfg, *, ft=None):
-    """x: (B, T, D) -> (y, aux) with capacity-based top-k dispatch."""
-    b, t, d = x.shape
+def _routed(params, xf, cfg, ft):
+    """The routed experts on ``xf`` (T, d): ``(y, stats, probs,
+    gate_idx)``, the capacity from all T tokens."""
     e, k = cfg.num_experts, cfg.top_k
-    tokens = b * t
-    cap = max(math.ceil(tokens * k / e * cfg.capacity_factor), 8)
-
-    xf = x.reshape(tokens, d)
+    rows = params["wi_gate"].shape[0]
+    if rows != e:
+        raise ValueError(
+            f"the portable MoE path needs all {e} routed experts, got "
+            f"{rows}: the caller kept an expert-parallel slice where "
+            f"moe_block took no expert-parallel path (takes_ep)")
+    cap = max(math.ceil(xf.shape[0] * k / e * cfg.capacity_factor), 8)
     probs, gate_vals, gate_idx = _route(params["router"], xf, k)
     ft_args = ((ft.policy.threshold, True)
                if ft is not None and ft.enabled else None)
     y, stats = _dispatch_compute(xf, gate_vals, gate_idx, params["wi_gate"],
                                  params["wi_up"], params["wo"], cap, e,
-                                 dtype=x.dtype, ft_args=ft_args)
+                                 dtype=xf.dtype, ft_args=ft_args)
+    return y, stats, probs, gate_idx
+
+
+def _moe_block_gathered(params, x, cfg, mesh, dp, *, ft=None):
+    """The portable path on the whole batch of a dp-split mesh: the routed
+    experts on every dp rank's tokens (capacity and aux the whole batch's,
+    as the reference's global program has them), this rank's rows kept;
+    the shared expert on this rank's tokens. The routed experts' counts
+    are recorded on the first dp rank only (each dp rank computes all of
+    them; the train step sums counts over dp)."""
+    b, t, d = x.shape
+    xg = _GatherRows.apply(x.reshape(b * t, d), mesh, dp)
+    y, stats, probs, gate_idx = _routed(params, xg, cfg, ft)
+    if stats is not None:
+        if any(mesh.get_local_rank(a) for a in dp):
+            stats = dict(stats, flagged=stats["flagged"] * 0,
+                         corrected=stats["corrected"] * 0)
+        ft.record(stats)
+    y = sharding.shard_leaf(y, (dp,), mesh)
+    xf = x.reshape(b * t, d)
+    if "shared" in params:
+        y = y + layers.swiglu(params["shared"], xf, ft=ft, silu=silu)
+    aux = aux_load_balance_loss(probs, gate_idx, cfg.num_experts)
+    return y.reshape(b, t, d), aux
+
+
+def _moe_block_portable(params, x, cfg, *, ft=None):
+    """x: (B, T, D) -> (y, aux) with capacity-based top-k dispatch."""
+    b, t, d = x.shape
+    xf = x.reshape(b * t, d)
+    y, stats, probs, gate_idx = _routed(params, xf, cfg, ft)
     if stats is not None:
         ft.record(stats)
 
     if "shared" in params:
         y = y + layers.swiglu(params["shared"], xf, ft=ft, silu=silu)
 
-    aux = aux_load_balance_loss(probs, gate_idx, e)
+    aux = aux_load_balance_loss(probs, gate_idx, cfg.num_experts)
     return y.reshape(b, t, d), aux
 
 

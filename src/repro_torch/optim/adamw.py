@@ -74,11 +74,15 @@ def apply_updates(
     weight_decay: float = 0.1,
     grad_clip: float = 1.0,
     skip_nonfinite: bool = True,
+    grad_norm: torch.Tensor | None = None,
 ):
     """One AdamW step, in place. Returns ``(params, state, info)``: the same
     trees (written), the state with its step advanced, and ``grad_norm``,
-    ``lr`` and ``skipped`` (1.0 when a non-finite norm dropped the step)."""
-    gnorm = global_norm(grads)
+    ``lr`` and ``skipped`` (1.0 when a non-finite norm dropped the step).
+    ``grad_norm`` is the norm to clip by when ``grads`` are shards of the
+    gradient (the sharded train step passes the whole gradient's); else
+    ``global_norm(grads)``."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     finite = bool(torch.isfinite(gnorm))      # one host read a step
     lr = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
     info = {"grad_norm": gnorm, "lr": lr,

@@ -1876,3 +1876,101 @@ def test_protected_train_step_launches_ft_matmul_only_forward(cuda):
         for got, want in zip(leaves(res["fused"][1]), leaves(res[other][1])):
             assert (got - want).abs().max().item() <= \
                 1e-4 * want.abs().max().item()
+
+
+_NCCL_LM_ONE_RANK = r"""
+import dataclasses, json, socket
+import torch
+import torch.distributed as dist
+from repro_torch import optim
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ParallelConfig, RunConfig
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import Model, moe
+from repro_torch.parallel import sharding
+from repro_torch.train import make_train_step
+from repro_torch.tree import leaves, tree_map
+
+dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        rank=0, world_size=1, device_id=dev)
+mesh = make_host_mesh(1, 1)
+res = {"mesh": [list(mesh.mesh_dim_names), list(mesh.shape)]}
+cfg = dataclasses.replace(get_smoke_config("deepseek_v3_671b"),
+                          num_layers=2, dtype="float32")
+gen = torch.Generator(device=dev).manual_seed(0)
+p = moe.make_moe_params(gen, cfg, device=dev)
+x = torch.randn((4, 256, cfg.d_model), generator=gen, device=dev)
+calls = [0]
+ep = moe.moe_block_ep
+
+
+def counted(*a, **k):
+    calls[0] += 1
+    return ep(*a, **k)
+
+
+moe.moe_block_ep = counted
+with torch.no_grad():
+    y0, a0 = moe._moe_block_portable(p, x, cfg)
+    with sharding.use_mesh(mesh):
+        y1, a1 = moe.moe_block(p, x, cfg)
+res["ep_calls"] = calls[0]
+res["ep_bitwise"] = bool(torch.equal(y0, y1)) and bool(torch.equal(a0, a1))
+model = Model(cfg)
+run = RunConfig(model=cfg, parallel=ParallelConfig(remat="none"),
+                learning_rate=1e-3, warmup_steps=2, total_steps=20)
+params = model.init(torch.Generator(device=dev).manual_seed(1), device=dev)
+toks = torch.randint(0, cfg.vocab_size, (2, 513), generator=gen,
+                     device=dev)
+batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+outs = []
+for m in (None, None, mesh):
+    pp = tree_map(lambda t: t.clone(), params)
+    st = optim.init_state(pp)
+    step = make_train_step(model, run, m)
+    ms = []
+    for s in range(2):
+        pp, st, met = step(pp, st, batch, s)
+        ms.append({k: float(v) for k, v in met.items()})
+    outs.append((pp, st, ms))
+res["ep_calls_step"] = calls[0] - res["ep_calls"]
+(a, sa, ma), (a2, sa2, _), (b, sb, mb) = outs
+res["metrics_equal"] = ma == mb
+# the unsharded step's own run-to-run difference (the embedding's
+# gradient accumulates in an order that may change between runs)
+res["params_close"] = all(
+    (u - v).abs().max() <= 1e-5 * u.abs().max() for u, v in
+    zip(leaves((a, sa)), leaves((b, sb))))
+res["bitwise_leaves"] = sum(torch.equal(u, v) for u, v in
+                            zip(leaves((a, sa)), leaves((b, sb))))
+res["repeatable_leaves"] = sum(torch.equal(u, w) for u, w in
+                               zip(leaves((a, sa)), leaves((a2, sa2))))
+dist.destroy_process_group()
+print(json.dumps(res))
+"""
+
+
+def test_lm_parallel_on_a_one_rank_nccl_mesh(cuda):
+    """In a fresh process with one NCCL rank and ``make_host_mesh(1, 1)``:
+    ``moe_block`` under ``use_mesh`` takes the expert-parallel path at
+    DeepSeek-V3 SMOKE (1024 tokens) and is bitwise the portable path; two
+    sharded train steps of DeepSeek SMOKE (EP inside) give the unsharded
+    step's metrics bitwise, and its params and moments bitwise on as many
+    leaves as two unsharded runs agree on bitwise (the embedding's
+    gradient accumulates in an order that may change between runs), the
+    others within 1e-5 x max."""
+    out = subprocess.run([sys.executable, "-c", _NCCL_LM_ONE_RANK],
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(_REPO / "src")))
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["mesh"] == [["data", "model"], [1, 1]]
+    assert res["ep_calls"] == 1 and res["ep_bitwise"], res
+    assert res["ep_calls_step"] > 0
+    assert res["metrics_equal"] and res["params_close"], res
+    assert res["bitwise_leaves"] >= res["repeatable_leaves"], res
