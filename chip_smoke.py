@@ -187,8 +187,12 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   against the digit-permuted spectrum, the TRANSPOSED_IN inverse, each on
   the rank's rows against ``torch.fft`` at ATOL * max|ref|, ``chunks=2``
   bitwise ``chunks=1``, one case through ``shard_signals`` (its ingest
-  all-to-all); each call's ``block_fft`` launches and its all-to-all and
-  all-gather calls and bytes held to the plan's; one case's pass-1
+  all-to-all); each call's ``block_fft`` launches held to the plan's.
+  Every mesh call of this phase runs under the collective recorder
+  (``repro_torch.analysis.record``), and ``audit.check_cell``, the
+  checker of ``python -m repro_torch.analysis``, holds its counts and
+  bytes exactly to ``plan.volume`` (or to the stated model of a call the
+  plan does not model; a recompute's reruns apart); one case's pass-1
   (the offset twiddle) and pass-2 launches held to ``block_fft_plain`` on
   every rank; the local passes' device ms from a primed trace and each
   call's host ms. Then, on the same four ranks, the grouped two-side
@@ -260,7 +264,8 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   plan's local passes. The NCCL rank then serves a few requests through
   ``ServeRuntime(mesh=make_fft_mesh(1))``, bitwise a local runtime's.
 * LM parallelism (phase 14, ``lmp_rank`` in phase 13's four ranks after
-  their drives, then ``lmp_phase`` here): (a) expert parallelism at
+  their drives, its collectives under the same recorder, then
+  ``lmp_phase`` here): (a) expert parallelism at
   DeepSeek-V3's published MoE widths (d 7168, 256 routed experts, top 8,
   moe_d_ff 2048, one shared expert, capacity factor 1.25: 80 slots an
   expert) on ``make_host_mesh(1, 4)``, 64 experts a rank (11.27 GB of f32
@@ -294,7 +299,10 @@ Builds the three kernels from ``src/repro_torch/kernels/csrc`` with nvcc
   saved by ``save_sharded`` and restored by ``elastic_restore`` onto 2 x 1
   (ranks 0-1): bitwise the saved values, each leaf the new mesh's shard.
 
-After the build it prints, for every ``abft_fft_kernel`` and
+Beside the build, ``python -m repro_torch.analysis --strict --min-specs
+84`` runs on this machine's torch (the repo lint and the plan audit on a
+fake process group of 8 ranks, on the CPU); its nonzero exit fails the
+run. After the build it prints, for every ``abft_fft_kernel`` and
 ``ft_matmul_tile`` instance, its registers and spill bytes (ptxas), and for
 ``ft_matmul`` the CTAs an SM runs (occupancy query); a spill in a fast
 ``abft_fft`` instance or in any ``ft_matmul`` instance, or fewer than two
@@ -340,6 +348,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
+# the static analysis run beside phase 1: the lattice's specs on 8 fake
+# ranks (the reference's 84), and the seconds it may take
+ANALYSIS_SPECS = 84
+ANALYSIS_TIMEOUT = 300
 ATOL = {"complex64": 4e-5, "complex128": 1e-11, "float32": 4e-5,
         "float64": 1e-11}
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
@@ -3892,6 +3904,9 @@ SHARD_RANKS = 4
 SHARD_CHECKED_CASES = (1, 2)            # their launches against the plain one
 SHARD_INGEST_CASE = 2                   # its input through shard_signals
 SHARD_TIMEOUT = 420                     # seconds the four ranks may take
+# check_cell's relative tolerance on a call's bytes: exact, since a rank's
+# byte counts here stay below 1e9 and 1e-10 of them is under one byte
+SHARD_COLL_RTOL = 1e-10
                                         # (phases 13 and 14)
 SHARD_ONE_RANK = ("complex64", 20, 256)
 # the grouped two-side ABFT: (dtype, log2 N, batch, G, threshold, meshes,
@@ -3908,38 +3923,41 @@ SHARD_ONE_RANK_CONV = ("complex64", 17, 64)
 SHARD_ONE_RANK_2D = (4, 4096, 4096)
 
 
-def _shard_collectives():
-    """Wrap ``dist.all_to_all_single`` and ``dist.all_gather_into_tensor``
-    so each call's count and bytes (the all-to-all's send buffer, the
-    all-gather's output) land in the returned dict."""
-    import torch.distributed as dist
+def _stated_model(count, nbytes):
+    """The model of a sharded call that ``plan.volume`` does not model (a
+    TRANSPOSED_IN inverse, the 2-D convolution's round trip): ``count``
+    all-to-alls of ``nbytes`` in all, nothing else."""
+    return {"all_to_all_count": count, "all_gather_count": 0,
+            "all_to_all_bytes": float(nbytes), "gather_hlo": 0.0,
+            "psum_hlo": 0.0, "hlo_bytes": float(nbytes),
+            "exposed_fraction": 1.0 / count}
 
-    seen = {"all_to_all": [0, 0], "all_gather": [0, 0],
-            "all_reduce": [0, 0], "telemetry_gather": [0, 0]}
-    a2a, gather = dist.all_to_all_single, dist.all_gather_into_tensor
-    reduce_ = dist.all_reduce
 
-    def spy_a2a(out, inp, *a, **k):
-        seen["all_to_all"][0] += 1
-        seen["all_to_all"][1] += inp.numel() * inp.element_size()
-        return a2a(out, inp, *a, **k)
+def _audit_call(fail, what, res, model, dtype, *, exposed=False,
+                tail=(0, 0)):
+    """One mesh call's recorded collectives against ``model`` through
+    ``audit.check_cell``, the CPU audit's own checker, its counts and
+    bytes held exactly (every finding fails the phase): ``res`` a drive's
+    ``call`` result, ``dtype`` the spec dtype (its real dtype for a real
+    output), ``exposed`` the chunked pipeline's 1/C check. ``tail`` is
+    ``(groups, bytes)`` of a recompute, which reruns each uncorrectable
+    group on the plain pipeline after the modelled ops: one all-to-all of
+    ``bytes`` a group, which no model counts. Returns the ops' summary."""
+    from repro_torch.analysis.audit import check_cell
+    from repro_torch.analysis.record import summarize
 
-    def spy_gather(out, inp, *a, **k):
-        # the ABFT's telemetry gathers are the real-valued ones
-        kind = "all_gather" if out.is_complex() else "telemetry_gather"
-        seen[kind][0] += 1
-        seen[kind][1] += out.numel() * out.element_size()
-        return gather(out, inp, *a, **k)
-
-    def spy_reduce(t, *a, **k):
-        seen["all_reduce"][0] += 1
-        seen["all_reduce"][1] += t.numel()        # reals
-        return reduce_(t, *a, **k)
-
-    dist.all_to_all_single = spy_a2a
-    dist.all_gather_into_tensor = spy_gather
-    dist.all_reduce = spy_reduce
-    return seen
+    y, _, ops, _ = res
+    n, nbytes = tail
+    rerun = [(op.kind, op.payload_bytes) for op in ops[len(ops) - n:]]
+    if n and rerun != [("all-to-all", nbytes)] * n:
+        fail(f"{what}: the recompute's collectives {rerun}, not {n} "
+             f"all-to-all(s) of {nbytes} B")
+    rep = check_cell(None, (), model, tag=what, dtype=dtype, strict=False,
+                     rtol=SHARD_COLL_RTOL, check_exposed=exposed,
+                     ops=ops[:len(ops) - n], out=y)
+    for f in rep.findings:
+        fail(str(f))
+    return summarize(ops)
 
 
 def shard_drive(rank, trace):
@@ -3952,13 +3970,13 @@ def shard_drive(rank, trace):
     import torch
     import torch.distributed as dist
 
+    from repro_torch.analysis.record import record as recording
     from repro_torch.core.fft import FFTSpec, plan
     from repro_torch.kernels.stockham import block_fft
     from repro_torch.kernels.trace_age import PRIMER, prime
     from repro_torch.launch.mesh import make_fft_mesh
 
     dev = torch.device("cuda", 0)
-    seen = _shard_collectives()
     out = {"rank": rank, "cases": [], "launches": 0, "failures": []}
     gen = torch.Generator(device=dev)
 
@@ -3966,21 +3984,19 @@ def shard_drive(rank, trace):
         out["failures"].append(msg)
 
     def call(fn, what=None):
-        """(result, launches, collectives, host ms) of one call, every
-        rank starting together."""
+        """(result, launches, recorded collectives, host ms) of one call,
+        every rank starting together."""
         print(f"{time.perf_counter():.3f} {what or label} {fn}", file=trace,
               flush=True)
         dist.barrier()
         torch.cuda.synchronize()
         before = block_fft.launches
-        for v in seen.values():
-            v[0] = v[1] = 0
         t0 = time.perf_counter()
-        y = fn()
-        torch.cuda.synchronize()
+        with recording() as ops:
+            y = fn()
+            torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        return (y, block_fft.launches - before,
-                {k: list(v) for k, v in seen.items()}, ms)
+        return (y, block_fft.launches - before, ops, ms)
 
     def err_ratio(got, want):
         tol = ATOL[str(want.dtype).split(".")[-1]] * want.abs().max().item()
@@ -4021,43 +4037,32 @@ def shard_drive(rank, trace):
             row = {"case": label, "n1": pen.n1, "n2": pen.n2, "tail": tail,
                    "mesh": [data, shards], "calls": {}}
 
-            def record(name, res, want_launches, want_coll):
-                _, launches, coll, ms = res
-                row["calls"][name] = {"launches": launches,
-                                      "collectives": coll, "host_ms": ms}
+            def record(name, res, want_launches, model, exposed=False):
+                _, launches, _, ms = res
                 if launches != want_launches:
                     fail(f"{label} {name}: {launches} block_fft launches, "
                          f"not {want_launches}")
-                if coll != want_coll:
-                    fail(f"{label} {name}: collectives {coll}, not "
-                         f"{want_coll}")
+                row["calls"][name] = {
+                    "launches": launches, "host_ms": ms,
+                    "collectives": _audit_call(fail, f"{label} {name}", res,
+                                               model, dtype,
+                                               exposed=exposed)}
 
             v, vt, vc = p.volume, pt.volume, pc.volume
 
-            def coll(vol, extra=None):
-                want = {"all_to_all": [vol["all_to_all_count"],
-                                       int(vol["all_to_all_bytes"])],
-                        "all_gather": [vol["all_gather_count"],
-                                       int(vol["gather_hlo"])],
-                        "all_reduce": [0, 0], "telemetry_gather": [0, 0]}
-                if extra:
-                    want["all_to_all"][0] += 1
-                    want["all_to_all"][1] += extra
-                return want
-
             res = call(lambda: p.fft(x))
-            record("fft", res, 1 + tail, coll(v))
+            record("fft", res, 1 + tail, v, True)
             row["fft"] = err_ratio(res[0].to_local(), ref[r0:r0 + rows])
             del res
             res = call(lambda: p.ifft(ref))
-            record("ifft", res, 1 + tail, coll(v))
+            record("ifft", res, 1 + tail, v, True)
             row["ifft"] = err_ratio(res[0].to_local(), x[r0:r0 + rows])
             del res
             # the transposed order: this rank's contiguous block of
             # y[k1*N2 + k2] = X[k1 + N1*k2]
             res = call(lambda: pt.fft(x))
             yt = res[0]
-            record("fft transposed", res, 1 + tail, coll(vt))
+            record("fft transposed", res, 1 + tail, vt, True)
             del res
             span = n // shards
             want_t = ref.view(b, pen.n2, pen.n1).transpose(1, 2).reshape(
@@ -4068,20 +4073,18 @@ def shard_drive(rank, trace):
             res = call(lambda: pt.ifft(yt))
             xb = res[0]
             record("ifft transposed-in", res, tail + 1,
-                   {"all_to_all": [1, inv_bytes], "all_gather": [0, 0],
-                    "all_reduce": [0, 0], "telemetry_gather": [0, 0]})
+                   _stated_model(1, inv_bytes))
             del res
             w = rows // shards
             mine = x[r0 + d * w:r0 + (d + 1) * w]
             row["ifft_transposed_in"] = err_ratio(xb.to_local(), mine)
             res = call(lambda: pc.fft(x))
-            record("fft transposed chunks=2", res, 2 * (1 + tail), coll(vc))
+            record("fft transposed chunks=2", res, 2 * (1 + tail), vc, True)
             row["chunks_bitwise"] = bool(torch.equal(res[0].to_local(),
                                                      yt.to_local()))
             res2 = call(lambda: pc.ifft(res[0]))
             record("ifft transposed-in chunks=2", res2, 2 * (tail + 1),
-                   {"all_to_all": [2, inv_bytes], "all_gather": [0, 0],
-                    "all_reduce": [0, 0], "telemetry_gather": [0, 0]})
+                   _stated_model(2, inv_bytes), True)
             row["chunks_bitwise"] &= bool(torch.equal(res2[0].to_local(),
                                                       xb.to_local()))
             if not row["chunks_bitwise"]:
@@ -4090,8 +4093,12 @@ def shard_drive(rank, trace):
             if shards == 4 and ci == SHARD_INGEST_CASE:
                 xs = p.shard(x)
                 res = call(lambda: p.fft(xs))
+                ingest = rows * n * x.element_size() // shards
+                # the ingest all-to-all of ``shard_signals`` besides
                 record("fft of shard_signals", res, 1 + tail,
-                       coll(v, extra=rows * n * x.element_size() // shards))
+                       dict(v, all_to_all_count=v["all_to_all_count"] + 1,
+                            all_to_all_bytes=v["all_to_all_bytes"] + ingest,
+                            hlo_bytes=v["hlo_bytes"] + ingest))
                 row["fft_shard_signals"] = err_ratio(res[0].to_local(),
                                                      ref[r0:r0 + rows])
                 del res, xs
@@ -4276,9 +4283,6 @@ def shard_ft_drive(rank, call, fail, err_ratio, gen, trace):
             label = f"ft {dtype} 2^{logn}x{b} G={g} on ({data}, {shards})"
             row = {"case": label, "n1": pen.n1, "n2": pen.n2, "calls": {},
                    "errors": {}}
-            real = x.real.element_size()
-            tel = [1, shards * real] if data == 1 else \
-                [2, shards * real + data * (gl * 5 + shards) * real]
             want_t = _transposed_block(ref, pen, r0, rows, d)
             # the whole matrix on the 1-D mesh, clean and four SEUs on 2 x 2
             for name, inj, kw, want in _ft_scenarios(
@@ -4289,8 +4293,7 @@ def shard_ft_drive(rank, call, fail, err_ratio, gen, trace):
                 res = call(lambda: ft_distributed_fft(
                     x, mesh, threshold=thr, groups=g, inject=inj, **kw),
                     f"{label} {name}")
-                out, launches, coll, ms = res
-                del res
+                out, launches, _, ms = res
                 blk = out.y.to_local()
                 err = err_ratio(blk, ref[r0:r0 + rows] if nat else want_t)
                 del blk
@@ -4307,19 +4310,13 @@ def shard_ft_drive(rank, call, fail, err_ratio, gen, trace):
                 vol = plan(FFTSpec((b, n), dtype=dtype, mesh=mesh, ft=ft,
                                    chunks=ce, natural_order=nat)).volume
                 want_l = ce * (2 + tail) + mine * (1 + tail)
-                want_c = {"all_to_all": [vol["all_to_all_count"],
-                                         int(vol["all_to_all_bytes"])],
-                          "all_gather": [vol["all_gather_count"],
-                                         int(vol["gather_hlo"])],
-                          "all_reduce": [ce, 3 * gl + ce],
-                          "telemetry_gather": tel}
-                if mine:            # the plain pipeline's, a group
-                    want_c["all_to_all"][0] += mine
-                    want_c["all_to_all"][1] += mine * (
-                        b // g) * n // shards * x.element_size()
                 row["calls"][name] = {
-                    "launches": launches, "collectives": coll,
-                    "host_ms": ms, "flagged": out.flagged.tolist(),
+                    "launches": launches, "host_ms": ms,
+                    "collectives": _audit_call(
+                        fail, f"{label} {name}", res, vol, dtype,
+                        exposed=True, tail=(mine, (b // g) * n // shards
+                                            * x.element_size())),
+                    "flagged": out.flagged.tolist(),
                     "location": out.location.tolist(),
                     "group_score": out.group_score.tolist(),
                     "shard_delta": max(out.shard_delta.tolist()),
@@ -4328,9 +4325,7 @@ def shard_ft_drive(rank, call, fail, err_ratio, gen, trace):
                 if launches != want_l:
                     fail(f"{label} {name}: {launches} block_fft launches, "
                          f"not {want_l}")
-                if coll != want_c:
-                    fail(f"{label} {name}: collectives {coll}, not "
-                         f"{want_c}")
+                del res
                 if name == "four SEUs transposed":
                     four_y = out.y.to_local().clone()
                 if name.endswith("chunks=2") and not torch.equal(
@@ -4395,7 +4390,8 @@ def shard_spectral_drive(call, fail, err_ratio, gen):
 
     from repro_torch.core.fft import plan
     from repro_torch.core.fft import spectral
-    from repro_torch.core.fft.distributed import pencil, spectral_volume
+    from repro_torch.core.fft.distributed import (collective_volume, pencil,
+                                                  spectral_volume)
     from repro_torch.kernels.stockham import device_key
     from repro_torch.launch.mesh import make_fft_mesh
 
@@ -4445,22 +4441,21 @@ def shard_spectral_drive(call, fail, err_ratio, gen):
                   1, True, 0)]
         bulk = None
         for name, fn, ce, real, kv in calls:
-            y, launches, coll, ms = call(fn, f"{label} {name}")
+            res = call(fn, f"{label} {name}")
+            y, launches, _, ms = res
             vol = spectral_volume(nfft, b, shards, kernel_batch=1,
                                   itemsize=item, data_shards=data,
                                   real=real, chunks=ce)
-            want_c = {"all_to_all": [vol["all_to_all_count"],
-                                     int(vol["all_to_all_bytes"])],
-                      "all_gather": [0, 0], "all_reduce": [0, 0],
-                      "telemetry_gather": [0, 0]}
             want_l = ce * (2 + 2 * tail) + kv
-            row["calls"][name] = {"launches": launches, "collectives": coll,
-                                  "host_ms": ms}
+            row["calls"][name] = {
+                "launches": launches, "host_ms": ms,
+                "collectives": _audit_call(fail, f"{label} {name}", res,
+                                           vol, "float32" if real
+                                           else dtype)}
             if launches != want_l:
                 fail(f"{label} {name}: {launches} block_fft launches, not "
                      f"{want_l}")
-            if coll != want_c:
-                fail(f"{label} {name}: collectives {coll}, not {want_c}")
+            del res
             loc = y.to_local()
             key = name.replace(" chunks=2", "")
             row["errors"][name] = err_ratio(loc, want[key])
@@ -4471,26 +4466,26 @@ def shard_spectral_drive(call, fail, err_ratio, gen):
             del y, loc
         del bulk, want
         # the periodogram in transposed order: ONE all-to-all
-        y, launches, coll, ms = call(
-            lambda: spectral.power_spectrum(xs, mesh), f"{label} power")
+        res = call(lambda: spectral.power_spectrum(xs, mesh),
+                   f"{label} power")
+        y, launches, _, ms = res
+        # the periodogram's reals: held to the transposed plan's volume
+        row["calls"]["power_spectrum"] = {
+            "launches": launches, "host_ms": ms,
+            "collectives": _audit_call(
+                fail, f"{label} power_spectrum", res, collective_volume(
+                    nfft, b, shards, itemsize=item, data_shards=data,
+                    natural_order=False), "float32")}
+        del res
         rows_ps = per
         ref = torch.fft.fft(xs[md * per:(md + 1) * per]).abs().square_() \
             / nfft
         row["errors"]["power_spectrum"] = err_ratio(
             y.to_local(), _transposed_block(ref, pen, 0, rows_ps, d))
         del ref, y
-        want_c = {"all_to_all": [1, per * nfft * item // shards],
-                  "all_gather": [0, 0], "all_reduce": [0, 0],
-                  "telemetry_gather": [0, 0]}
-        row["calls"]["power_spectrum"] = {"launches": launches,
-                                          "collectives": coll,
-                                          "host_ms": ms}
         if launches != 1 + tail:
             fail(f"{label} power_spectrum: {launches} launches, not "
                  f"{1 + tail}")
-        if coll != want_c:
-            fail(f"{label} power_spectrum: collectives {coll}, not "
-                 f"{want_c}")
         for key, e in row["errors"].items():
             if e > 1:
                 fail(f"{label} {key}: error {e:.3f} x tol")
@@ -4543,17 +4538,6 @@ def _nd_transposed(ref, gp):
     return z.permute(perm).reshape(shape)
 
 
-def _nd_coll(vol=None, *, a2a=None, gather=(0, 0), reduce_=(0, 0),
-             tel=(0, 0)):
-    """The collectives dict a call must show: ``plan.volume``'s all-to-all
-    and all-gather when ``vol`` is given."""
-    if vol is not None:
-        a2a = (vol["all_to_all_count"], int(vol["all_to_all_bytes"]))
-        gather = (vol["all_gather_count"], int(vol["gather_hlo"]))
-    return {"all_to_all": list(a2a), "all_gather": list(gather),
-            "all_reduce": list(reduce_), "telemetry_gather": list(tel)}
-
-
 def _nd_seu_eps(thr, s, rr, cw, cc):
     """An SEU's |eps| whose group score is ``SHARD_FT_SCORE`` times ``thr``:
     score ~ |eps| / (sqrt(Cw) sqrt(s R C)) for unit-variance inputs (Cw
@@ -4579,6 +4563,7 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
     import torch
     import torch.distributed as dist
 
+    from repro_torch.analysis.record import summarize
     from repro_torch.core.fft import FFTSpec, FTConfig, multidim, plan
     from repro_torch.kernels.trace_age import PRIMER, prime
     from repro_torch.launch.mesh import make_fft_mesh
@@ -4586,15 +4571,15 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
     dev = torch.device("cuda", 0)
     rows_out = []
 
-    def record(row, label, name, res, want_l, want_c):
-        y, launches, coll, ms = res
-        row["calls"][name] = {"launches": launches, "collectives": coll,
-                              "host_ms": ms}
+    def record(row, label, name, res, want_l, model, dtype, tail=(0, 0)):
+        y, launches, _, ms = res
+        row["calls"][name] = {
+            "launches": launches, "host_ms": ms,
+            "collectives": _audit_call(fail, f"{label} {name}", res, model,
+                                       dtype, tail=tail)}
         if launches != want_l:
             fail(f"{label} {name}: {launches} block_fft launches, not "
                  f"{want_l}")
-        if coll != want_c:
-            fail(f"{label} {name}: collectives {coll}, not {want_c}")
         return y
 
     def check_err(row, label, name, got, want):
@@ -4640,13 +4625,13 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
                              dtype=dtype))
             res = call(lambda: p.fft(x), f"{label} fft")
             y = record(row, label, "fft", res, p.launches["fft"],
-                       _nd_coll(p.volume))
+                       p.volume, dtype)
             del res
             check_err(row, label, "fft", y.to_local(), _nd_block(ref, y))
             if kind == "fft2" and dtype == "complex64":
                 res = call(lambda: p.ifft(y), f"{label} ifft")
                 xb = record(row, label, "ifft", res, p.launches["ifft"],
-                            _nd_coll(p.volume))
+                            p.volume, dtype)
                 del res
                 check_err(row, label, "ifft", xb.to_local(),
                           _nd_block(x, xb))
@@ -4682,13 +4667,13 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
             p = plan(FFTSpec(shape, **spec))
             res = call(lambda: p.fft(x), f"{label} fft natural")
             y = record(row, label, "fft natural", res, p.launches["fft"],
-                       _nd_coll(p.volume))
+                       p.volume, dtype)
             del res
             check_err(row, label, "fft natural", y.to_local(), ref)
             del y
         res = call(lambda: pt.fft(x), f"{label} fft transposed")
         yt = record(row, label, "fft transposed", res, pt.launches["fft"],
-                    _nd_coll(pt.volume))
+                    pt.volume, dtype)
         del res
         want_t = _nd_transposed(ref, gp)
         del ref
@@ -4700,7 +4685,7 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
             row["chunks"] = p2.chunks
             res = call(lambda: p2.fft(x), f"{label} fft transposed chunks=2")
             y2 = record(row, label, "fft transposed chunks=2", res,
-                        p2.launches["fft"], _nd_coll(p2.volume))
+                        p2.launches["fft"], p2.volume, dtype)
             del res
             row["chunks_bitwise"] = bool(torch.equal(y2.to_local(),
                                                      yt.to_local()))
@@ -4711,7 +4696,7 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
         else:
             res = call(lambda: pt.ifft(yt), f"{label} ifft transposed-in")
             xi = record(row, label, "ifft transposed-in", res,
-                        pt.launches["ifft"], _nd_coll(pt.volume))
+                        pt.launches["ifft"], pt.volume, dtype)
             del res
             check_err(row, label, "ifft transposed-in", xi.to_local(),
                       _nd_block(x.reshape(xi.shape), xi))
@@ -4738,12 +4723,12 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
         if dec == "slab":
             res = call(lambda: p.rfft2(xr), f"{label} rfft2")
             y = record(row, label, "rfft2", res, p.launches["fft"],
-                       _nd_coll(p.volume))
+                       p.volume, p.spec.dtype)
             del res
             check_err(row, label, "rfft2", y.to_local(), _nd_block(refr, y))
             res = call(lambda: p.irfft2(y), f"{label} irfft2")
             xb = record(row, label, "irfft2", res, p.launches["ifft"],
-                        _nd_coll(p.volume))
+                        p.volume, dtype)
             del res
             check_err(row, label, "irfft2", xb.to_local(),
                       _nd_block(xr, xb))
@@ -4754,7 +4739,7 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
                              ("irfft2", lambda: p.irfft2(y))):
                 res = call(fn, f"{label} {name}")
                 row["calls"][name] = {"launches": res[1],
-                                      "collectives": res[2],
+                                      "collectives": summarize(res[2]),
                                       "host_ms": res[3]}
                 if name == "rfft2":
                     y = res[0]
@@ -4795,10 +4780,11 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
                                                       mode="same"),
                        f"{label}")
             pc = plan(multidim.conv2_spec(a, v, mesh))
+            a2a_bytes = (ba + 1) * nr * cw // d * item \
+                + ba * sa[-2] * cw // d * item
             y = record(row, label, "convolve same", res,
-                       pc.launches["convolve"], _nd_coll(
-                a2a=(2, (ba + 1) * nr * cw // d * item
-                     + ba * sa[-2] * cw // d * item)))
+                       pc.launches["convolve"], _stated_model(2, a2a_bytes),
+                       dtype)
             del res
             check_err(row, label, "convolve same", y.to_local(),
                       _nd_block(want, y))
@@ -4848,9 +4834,6 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
             label = (f"nd ft {'rfft2' if real else 'fft2'} {dtype} {shape} "
                      f"G={g} on ({dd}, {d})")
             row = {"case": label, "calls": {}, "errors": {}}
-            real_b = x.real.element_size() if not real else x.element_size()
-            tel = (1, d * real_b) if dd == 1 else \
-                (2, d * real_b + dd * (gl * 5 + d) * real_b)
             for name, inj, kw, want in cases:
                 ft = FTConfig(threshold=thr, groups=g, **kw)
                 p = plan(FFTSpec(shape, rank=2, real=real, mesh=mesh, ft=ft,
@@ -4864,11 +4847,11 @@ def shard_nd_drive(rank, call, fail, err_ratio, gen, trace):
                     if kw.get("recompute_uncorrectable") else 0
                 grp = s * rr * cw // d * (x.element_size() * (2 if real
                                                               else 1))
+                # a recomputed group reruns the plain slab: one
+                # all-to-all a group, which no model counts
                 record(row, label, name, res, p.launches["ft_fft"]
-                       + mine * p.launches["fft"], _nd_coll(
-                    a2a=(1 + mine, int(p.volume["all_to_all_bytes"])
-                         + mine * grp),
-                    reduce_=(1, 3 * gl + 1), tel=tel))
+                       + mine * p.launches["fft"], p.volume, p.spec.dtype,
+                       tail=(mine, grp))
                 del res
                 blk = out.y.to_local()
                 err = err_ratio(blk, _nd_block(ref, out.y))
@@ -4999,22 +4982,6 @@ SHARD_SERVE_ONE_RANK = (("fft", (700000,), "complex64", {}),
                         ("ft", (8192,), "complex64", {"ft": True}))
 
 
-def _serve_batch_collectives(b):
-    """A served batch's collectives on its mesh's data groups: the plan's
-    modelled all-to-alls and all-gathers; on an ft bucket also the grouped
-    verdict's all-reduce (a transaction) and its telemetry gathers."""
-    p = b["plan"]
-    want = _nd_coll(p["volume"])
-    if p["groups"]:
-        d, dd = p["shards"], p["dsize"]
-        gl = p["groups"] // dd
-        real = p["itemsize"] // 2
-        want["all_reduce"] = [p["chunks"], 3 * gl + p["chunks"]]
-        want["telemetry_gather"] = [1, d * real] if dd == 1 else \
-            [2, d * real + dd * (gl * 5 + d) * real]
-    return want
-
-
 def shard_serve_drive(rank, fail, trace):
     """One rank's drive of serving over a mesh (``SHARD_SERVE_*``): on the
     mesh of 4 a ``ServeRuntime`` (rank 0 leads: three closed-loop client
@@ -5034,6 +5001,7 @@ def shard_serve_drive(rank, fail, trace):
     import torch
     import torch.distributed as dist
 
+    from repro_torch.analysis.record import record
     from repro_torch.core.fft import FTConfig
     from repro_torch.core.fft.distributed import make_dist_plan
     from repro_torch.kernels.stockham import block_fft
@@ -5044,32 +5012,12 @@ def shard_serve_drive(rank, fail, trace):
 
     dev = torch.device("cuda", 0)
     mb = SHARD_SERVE_CONFIG["max_batch"]
-    calls = []
-    wrapped = {}
-    for name in ("all_to_all_single", "all_gather_into_tensor",
-                 "all_reduce"):
-        inner = getattr(dist, name)
-        wrapped[name] = inner
-
-        def spy(*a, _inner=inner, _name=name, **k):
-            t = a[1] if _name != "all_reduce" else a[0]
-            out = a[0]
-            kind = {"all_to_all_single": "all_to_all",
-                    "all_reduce": "all_reduce"}.get(_name)
-            if kind is None:
-                kind = "all_gather" if out.is_complex() \
-                    else "telemetry_gather"
-            size = t.numel() * t.element_size() if kind == "all_to_all" \
-                else t.numel() if kind == "all_reduce" \
-                else out.numel() * out.element_size()
-            calls.append((kind, size, id(k.get("group"))))
-            return _inner(*a, **k)
-        setattr(dist, name, spy)
+    recorder = record()
     batches = []
     run_all = ServeRuntime._run_all
 
     def spied(self, key, fill, inject, *rest):
-        calls.clear()
+        start = len(recorder.ops)
         before = {k: list(v) for k, v in self.channel.traffic.items()}
         launches0 = block_fft.launches
         t0 = time.perf_counter()
@@ -5077,23 +5025,27 @@ def shard_serve_drive(rank, fail, trace):
             return run_all(self, key, fill, inject, *rest)
         finally:
             ms = (time.perf_counter() - t0) * 1e3
-            ctrl = id(self.channel.group)
+            ctrl = self.channel.group
             plan = self._plans[key]
+            # the runtime's broadcasts, sends and receives are its stated
+            # traffic, counted by its channel
+            calls = [op for op in recorder.ops[start:] if op.kind in (
+                "all-to-all", "all-gather", "all-reduce")]
             batches.append({
                 "label": key.label, "fill": fill, "host_ms": ms,
                 "launches": block_fft.launches - launches0,
-                "calls": [c[:2] for c in calls if c[2] != ctrl],
-                "ctrl": [c[:2] for c in calls if c[2] == ctrl],
+                "ops": [op for op in calls if op.group is not ctrl],
+                "ctrl": [(op.kind, op.payload_bytes) for op in calls
+                         if op.group is ctrl],
                 "traffic": {k: [v[0] - before[k][0], v[1] - before[k][1]]
                             for k, v in self.channel.traffic.items()},
                 "faults": 0 if inject is None else int(inject.shape[0]),
                 "plan": {"launches": plan.launches, "volume": plan.volume,
-                         "groups": plan.groups, "chunks": plan.chunks,
-                         "shards": plan.shards, "dsize": plan.dsize,
+                         "groups": plan.groups, "dtype": plan.spec.dtype,
                          "itemsize": self._payloads[key].itemsize}})
-            calls.clear()
 
     ServeRuntime._run_all = spied
+    recorder.__enter__()
     tenants = {t[0]: t for t in serve_tenants()}
     ft = FTConfig(threshold=SHARD_SERVE_FT["threshold"],
                   groups=SHARD_SERVE_FT["groups"], correct=True,
@@ -5169,8 +5121,7 @@ def shard_serve_drive(rank, fail, trace):
                 torch.cuda.empty_cache()
     finally:
         ServeRuntime._run_all = run_all
-        for name, fn in wrapped.items():
-            setattr(dist, name, fn)
+        recorder.__exit__(None, None, None)
     return out
 
 
@@ -5184,15 +5135,12 @@ def _check_served_batches(batches, mb, fail, label):
         if b["launches"] != want_l:
             fail(f"{label} {b['label']}: {b['launches']} block_fft "
                  f"launches, not {want_l}")
-        got = {k: [0, 0] for k in ("all_to_all", "all_gather", "all_reduce",
-                                   "telemetry_gather")}
-        for kind, size in b["calls"]:
-            got[kind][0] += 1
-            got[kind][1] += int(size)
-        want = _serve_batch_collectives(b)
-        if got != want:
-            fail(f"{label} {b['label']}: collectives {got}, not {want}")
-        if b["ctrl"] != [("all_reduce", 1), ("all_reduce", 1)]:
+        # the data groups' ops against the plan's volume, the verdict's
+        # terms included on an ft bucket (the assembled result is the
+        # leader's alone: no output dtypes here)
+        _audit_call(fail, f"{label} {b['label']}", (None, 0, b["ops"], 0.0),
+                    p["volume"], p["dtype"])
+        if b["ctrl"] != [("all-reduce", 8), ("all-reduce", 8)]:
             fail(f"{label} {b['label']}: control group {b['ctrl']}")
         t = b["traffic"]
         payload = mb * p["itemsize"] * math.prod(
@@ -5871,31 +5819,15 @@ def lmp_moe_inputs(cfg, dev):
     return params, x
 
 
-def _lmp_spy():
-    """Wrap ``dist``'s collectives: each call's kind, bytes and group
-    ranks land in the returned list."""
+def _op_row(op):
+    """A recorded collective (``repro_torch.analysis.record``) as phase
+    14's record keeps it: ``[kind, payload bytes, group ranks]``
+    (``"world"`` for the default group)."""
     import torch.distributed as dist
 
-    calls = []
-    names = ("all_reduce", "all_gather_into_tensor", "all_to_all_single",
-             "broadcast")
-    orig = {n: getattr(dist, n) for n in names}
-
-    def wrap(n):
-        def spy(*a, **k):
-            t = a[0] if n in ("all_reduce", "broadcast") else a[1]
-            if n == "all_gather_into_tensor":
-                t = a[0]
-            group = k.get("group")
-            calls.append([n, t.numel() * t.element_size(),
-                          dist.get_process_group_ranks(group)
-                          if group is not None else "world"])
-            return orig[n](*a, **k)
-        return spy
-
-    for n in names:
-        setattr(dist, n, wrap(n))
-    return calls, orig
+    return [op.kind, op.payload_bytes,
+            dist.get_process_group_ranks(op.group)
+            if op.group is not None else "world"]
 
 
 def _digest(t):
@@ -5965,16 +5897,19 @@ def lmp_ep_drive(rank, out_dir, calls, res, fail):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             row = {"host_ms": ms, "launches": ft_matmul.launches - before,
-                   "calls": list(calls), "aux": float(aux),
+                   "calls": [_op_row(op) for op in calls],
+                   "aux": float(aux),
                    "digest": _digest(y), "finite":
                        bool(torch.isfinite(y).all())}
             if ft is not None:
                 row.update({k: float(v) for k, v in ft.summary().items()})
-            big = [c for c in calls if c[1] > 64]
-            want = [["all_reduce", y.numel() * y.element_size(),
+            big = [_op_row(op) for op in calls if op.payload_bytes > 64]
+            want = [["all-reduce", y.numel() * y.element_size(),
                      list(range(4))]]
-            if big != want or any(c[1] >= buffer_bytes for c in calls):
-                fail(f"phase 14 (a) {tag}: collectives {calls}, want one "
+            if big != want or any(op.payload_bytes >= buffer_bytes
+                                  for op in calls):
+                fail(f"phase 14 (a) {tag}: collectives {row['calls']}, "
+                     f"want one "
                      f"{want[0]} and scalars")
             if row["launches"] != (3 if ft_on else 0):
                 fail(f"phase 14 (a) {tag}: {row['launches']} ft_matmul "
@@ -6081,7 +6016,7 @@ def lmp_train_drive(rank, out_dir, calls, res, fail):
         torch.cuda.synchronize()
         steps.append({"host_ms": (time.perf_counter() - t0) * 1e3,
                       "launches": ft_matmul.launches - before,
-                      "calls": list(calls),
+                      "calls": [_op_row(op) for op in calls],
                       "metrics": {k: float(v) for k, v in m.items()}})
         if rec is not None:
             rec["shapes"] = sorted(rec["shapes"])
@@ -6232,16 +6167,16 @@ def lmp_pipe_drive(rank, out_dir, calls, res, fail):
     out = pipeline_apply(lambda w, v: torch.tanh(v @ w), ws[rank], x, stage)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    hops = [c for c in calls if c[0] == "all_to_all_single"]
+    hops = [op.payload_bytes for op in calls if op.kind == "all-to-all"]
     seq = x
     for i in range(4):
         seq = torch.tanh(seq @ ws[i])
     err = (out - seq).abs().max().item()
     res["pipe"] = {"host_ms": ms, "err": err, "hops": len(hops),
-                   "hop_bytes": hops[0][1] if hops else 0,
+                   "hop_bytes": hops[0] if hops else 0,
                    "calls": len(calls)}
     if err > LMP_PIPE_TOL or len(hops) != 4 + micro - 1 or any(
-            c[1] != rows_n * width * 4 for c in hops):
+            nbytes != rows_n * width * 4 for nbytes in hops):
         fail(f"phase 14 (c) pipeline_apply: {res['pipe']}")
     # elastic: the stage weights sharded on 4 x 1, restored onto 2 x 1
     big = make_host_mesh(4, 1, device=LMP_DEVICE)
@@ -6279,9 +6214,12 @@ def lmp_pipe_drive(rank, out_dir, calls, res, fail):
 
 
 def lmp_rank(rank, out_dir, trace):
-    """Phase 14 on one of phase 13's four ranks; its record."""
+    """Phase 14 on one of phase 13's four ranks, its collectives recorded
+    (``repro_torch.analysis.record``: each drive empties and reads the
+    list of ``CollectiveOp`` records it is given); its record."""
     import torch
 
+    from repro_torch.analysis.record import record
     from repro_torch.kernels.ft_matmul import ft_matmul
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6292,21 +6230,16 @@ def lmp_rank(rank, out_dir, trace):
         print(f"phase 14: {res['free_bytes_at_start'] / 1e9:.2f} GB free on "
               f"the card, {res['allocated_at_start'] / 1e9:.2f} GB held here",
               file=trace, flush=True)
-    calls, orig = _lmp_spy()
     torch.cuda.reset_peak_memory_stats()
     ft_matmul.launches = 0
     t0 = time.perf_counter()
-    try:
+    with record() as calls:
         for part in (lmp_ep_drive, lmp_train_drive, lmp_pipe_drive):
             print(f"{time.perf_counter():.3f} phase 14 {part.__name__}",
                   file=trace, flush=True)
             t1 = time.perf_counter()
             part(rank, out_dir, calls, res, res["failures"].append)
             res[f"{part.__name__}_seconds"] = time.perf_counter() - t1
-    finally:
-        import torch.distributed as dist
-        for n, f in orig.items():
-            setattr(dist, n, f)
     res["launches"] = ft_matmul.launches
     res["seconds"] = time.perf_counter() - t0
     return res
@@ -6339,8 +6272,8 @@ def _lmp_want_collectives(model, run, mesh_shape_):
                     gather_bytes += math.prod(shape) * 4
         leaves_n += 1
         whole += leaf.numel() * 4
-    return {"all_gather_into_tensor": [gathers, gather_bytes],
-            "all_reduce": [leaves_n + 2, whole + 5 * 4 + 4],
+    return {"all-gather": [gathers, gather_bytes],
+            "all-reduce": [leaves_n + 2, whole + 5 * 4 + 4],
             "broadcast": [3, 4 * leaves_n + 5 * 4 + 4]}
 
 
@@ -6533,6 +6466,153 @@ def lmp_phase(dev, out_dir, ranks, smi):
     return rec
 
 
+def analysis_start():
+    """``python -m repro_torch.analysis --strict --min-specs 84`` started in
+    the background: the repo lint and the plan audit over the 84-spec
+    lattice on a fake process group of 8 ranks, on the CPU."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict",
+         "--min-specs", str(ANALYSIS_SPECS)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def analysis_finish(proc, t0):
+    """Wait for ``analysis_start``'s process: it must exit 0 with the
+    reference's summary lines, no new lint finding and no audit
+    finding."""
+    try:
+        text, _ = proc.communicate(timeout=ANALYSIS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text, _ = proc.communicate()
+    lines = text.strip().splitlines()
+    for line in lines[-2:]:
+        log(f"analysis: {line}")
+    check(proc.returncode == 0 and any(
+        ln.startswith(f"audit: {ANALYSIS_SPECS} specs") and
+        ln.endswith(", 0 finding(s)") for ln in lines),
+          f"python -m repro_torch.analysis --strict: exit {proc.returncode}"
+          f"\n{text[-3000:]}")
+    log(f"analysis: exit 0 ({time.perf_counter() - t0:.1f} s after its "
+        f"start)")
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Device ms a call of ``fn``: CUDA events around ``iters`` calls after
+    ``warmup``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters=20):
+    """Host time per call of ``fn``: the Python dispatch and the
+    launches, without waiting for the device (the queue stays short)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
+def device_kernels(fn, want=None, attempts=3):
+    """(name, device ms) of every CUDA kernel one call of ``fn`` runs,
+    from torch.profiler after a warm-up call. Each trace starts with
+    ``trace_age.prime`` (left out of the kernels): in a process that
+    has run for a while the tracer drops the first kernels of a trace
+    (ROADMAP queue 3). With ``want``, up to ``attempts`` calls are
+    traced until one shows ``want`` kernels (the tracer can drop an
+    event; an extra kernel shows every time)."""
+    import torch
+
+    from repro_torch.kernels.trace_age import PRIMER, prime
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            prime()
+            fn()
+            torch.cuda.synchronize()
+        kern = [(e.name, e.time_range.elapsed_us() / 1e3)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and PRIMER not in e.name]
+        if want is None or len(kern) == want:
+            break
+        log(f"torch.profiler traced {len(kern)} kernels, not {want}: "
+            f"{[k for k, _ in kern]}")
+    return kern
+
+
+def trace_call(fn, want, attempts=3, split=None):
+    """One call of ``fn`` under torch.profiler after a warm-up:
+    ``(kernels, window_ms, idle)``: its CUDA kernels as (name, device
+    ms) in launch order, the window from the call's start on the host
+    to its last kernel's end, and the share of that window in which no
+    kernel ran. ``want(names)`` says whether a trace is whole (the
+    tracer can drop an event); up to ``attempts`` calls are traced,
+    each after ``trace_age.prime``. With ``split``, a fourth element:
+    ``split(events, mark)`` of the trace's events and the call's
+    ``record_function`` event."""
+    import torch
+
+    from repro_torch.kernels.trace_age import PRIMER, prime
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cuda_dev = torch.autograd.DeviceType.CUDA
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            prime()
+            with torch.profiler.record_function("traced_call"):
+                fn()
+            torch.cuda.synchronize()
+        evs = prof.events()
+        mark = [e for e in evs if e.name == "traced_call"
+                and e.device_type != cuda_dev]
+        kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                      for e in evs if e.device_type == cuda_dev
+                      and e.name != "traced_call"
+                      and PRIMER not in e.name)
+        if mark and kern and want([k for _, _, k in kern]):
+            break
+        log(f"torch.profiler trace incomplete: {[k for _, _, k in kern]}")
+    t0 = mark[0].time_range.start
+    t1 = max(mark[0].time_range.end, kern[-1][1])
+    busy, lo, hi = 0.0, kern[0][0], kern[0][1]
+    for a, b_, _ in kern[1:]:           # the union of the kernels' spans
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b_
+        else:
+            hi = max(hi, b_)
+    busy += hi - lo
+    out = ([(k, (b_ - a) / 1e3) for a, b_, k in kern], (t1 - t0) / 1e3,
+           1.0 - busy / (t1 - t0))
+    return out if split is None else out + (split(evs, mark[0]),)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6551,7 +6631,6 @@ def main() -> int:
     from repro_torch.kernels.stockham_abft import (abft_fft, abft_fft_plain,
                                                    launch_geometry,
                                                    max_active_clusters)
-    from repro_torch.kernels.trace_age import PRIMER, prime
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full fp32
@@ -6566,11 +6645,20 @@ def main() -> int:
     log(f"device: {name} x{count} | {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- phase 1: build every kernel from the checkout's sources
+    # ---- phase 1: build every kernel from the checkout's sources, while
+    # the static analysis (lint + plan audit, host-only, on this machine's
+    # torch and its fake process group) runs beside in a process of its own
     t0 = time.perf_counter()
-    times = _build.build()
+    analysis = analysis_start()
+    try:
+        times = _build.build()
+    except BaseException:
+        analysis.kill()
+        analysis.wait()
+        raise
     log(f"nvcc: {json.dumps({k: round(v, 1) for k, v in times.items()})} "
         f"({time.perf_counter() - t0:.1f} s wall)")
+    analysis_finish(analysis, t0)
     build_log = _build.library_path("block_fft").with_suffix(".log")
     for line in build_log.read_text().splitlines():
         if "registers" in line or "spill" in line:
@@ -6618,103 +6706,6 @@ def main() -> int:
 
     def max_err(got, want):
         return (got - want).abs().max().item()
-
-    def cuda_ms(fn, iters=20, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def host_ms(fn, iters=20):
-        """Host time per call of ``fn``: the Python dispatch and the
-        launches, without waiting for the device (the queue stays short)."""
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return (t1 - t0) / iters * 1e3
-
-    def device_kernels(fn, want=None, attempts=3):
-        """(name, device ms) of every CUDA kernel one call of ``fn`` runs,
-        from torch.profiler after a warm-up call. Each trace starts with
-        ``trace_age.prime`` (left out of the kernels): in a process that
-        has run for a while the tracer drops the first kernels of a trace
-        (ROADMAP queue 3). With ``want``, up to ``attempts`` calls are
-        traced until one shows ``want`` kernels (the tracer can drop an
-        event; an extra kernel shows every time)."""
-        fn()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        for _ in range(attempts):
-            with torch.profiler.profile(activities=acts) as prof:
-                prime()
-                fn()
-                torch.cuda.synchronize()
-            kern = [(e.name, e.time_range.elapsed_us() / 1e3)
-                    for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and PRIMER not in e.name]
-            if want is None or len(kern) == want:
-                break
-            log(f"torch.profiler traced {len(kern)} kernels, not {want}: "
-                f"{[k for k, _ in kern]}")
-        return kern
-
-    def trace_call(fn, want, attempts=3, split=None):
-        """One call of ``fn`` under torch.profiler after a warm-up:
-        ``(kernels, window_ms, idle)``: its CUDA kernels as (name, device
-        ms) in launch order, the window from the call's start on the host
-        to its last kernel's end, and the share of that window in which no
-        kernel ran. ``want(names)`` says whether a trace is whole (the
-        tracer can drop an event); up to ``attempts`` calls are traced,
-        each after ``trace_age.prime``. With ``split``, a fourth element:
-        ``split(events, mark)`` of the trace's events and the call's
-        ``record_function`` event."""
-        fn()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        cuda_dev = torch.autograd.DeviceType.CUDA
-        for _ in range(attempts):
-            with torch.profiler.profile(activities=acts) as prof:
-                prime()
-                with torch.profiler.record_function("traced_call"):
-                    fn()
-                torch.cuda.synchronize()
-            evs = prof.events()
-            mark = [e for e in evs if e.name == "traced_call"
-                    and e.device_type != cuda_dev]
-            kern = sorted((e.time_range.start, e.time_range.end, e.name)
-                          for e in evs if e.device_type == cuda_dev
-                          and e.name != "traced_call"
-                          and PRIMER not in e.name)
-            if mark and kern and want([k for _, _, k in kern]):
-                break
-            log(f"torch.profiler trace incomplete: {[k for _, _, k in kern]}")
-        t0 = mark[0].time_range.start
-        t1 = max(mark[0].time_range.end, kern[-1][1])
-        busy, lo, hi = 0.0, kern[0][0], kern[0][1]
-        for a, b_, _ in kern[1:]:           # the union of the kernels' spans
-            if a > hi:
-                busy += hi - lo
-                lo, hi = a, b_
-            else:
-                hi = max(hi, b_)
-        busy += hi - lo
-        out = ([(k, (b_ - a) / 1e3) for a, b_, k in kern], (t1 - t0) / 1e3,
-               1.0 - busy / (t1 - t0))
-        return out if split is None else out + (split(evs, mark[0]),)
 
     # ---- phases 2 and 3: the FFT path, launch counts from this run only
     block_fft.launches = 0

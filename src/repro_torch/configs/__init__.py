@@ -1,6 +1,8 @@
-"""Config registry: one module per architecture, the reference's ten.
-``get_config(name)`` returns the full ModelConfig; ``get_smoke_config(name)``
-returns the reduced same-family config used by CPU tests. ``ARCHS`` holds
+"""Config registry: one module per architecture, the reference's ten, and
+the paper's own FFT workload (``"turbofft"``: ``turbofft_bench``'s
+``FFTBenchConfig``). ``get_config(name)`` returns the full config;
+``get_smoke_config(name)`` returns the reduced same-family config used by
+CPU tests. ``ARCHS`` holds
 the dense decoder family, the recurrent models (RecurrentGemma's RG-LRU
 hybrid, xLSTM), the MoE models (DeepSeek-V3 with MLA, Llama-4 Maverick),
 the VLM (InternVL2's patch frontend stub) and the encoder-decoder model
@@ -38,12 +40,13 @@ _ALIASES = {
     "llama4-maverick-400b-a17b": "llama4_maverick",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "whisper-base": "whisper_base",
+    "turbofft": "turbofft_bench",
 }
 
 
 def _module(name: str):
     mod = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod not in ARCHS:
+    if mod not in ARCHS and mod != "turbofft_bench":
         raise ValueError(f"unknown architecture {name!r}; ported: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

@@ -64,6 +64,7 @@ __all__ = [
     "resolve_abft_groups", "resolve_chunks", "choose_chunks",
     "collective_volume", "spectral_volume", "FFT_AXIS", "DATA_AXIS",
     "Pencil", "Launch", "DistFFTResult", "ft_distributed_fft",
+    "ft_wire_terms",
 ]
 
 # Same guard value as the reference's core.abft.encoding.EPS.
@@ -1135,6 +1136,28 @@ def _ft_result(y: torch.Tensor, stats: torch.Tensor, delta: torch.Tensor,
         correctable=correctable, checksum_fault=stats[:, 4] > 0.5,
         corrected=torch.sum(correctable.to(torch.int32)) * int(correct),
         recomputed=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def ft_wire_terms(groups: int, shards: int, *, data_shards: int = 1,
+                  chunks: int = 1, real_itemsize: int = 4) -> dict:
+    """What the grouped ABFT moves on one rank besides its payload, in
+    bytes of the spec's real dtype (``real_itemsize``): its
+    :func:`_grouped_verdict` all-reduces, one a transaction of ``3 G/data
+    / C + 1`` reals, and the telemetry gathers of :func:`_ft_result`: one
+    over ``fft`` of the ``shards`` left-check residuals and, when the
+    batch shards over ``data``, one over ``data`` of the (G/data, 5) stats
+    and those residuals (an all-gather's bytes are its output's). The
+    reference psums and permutes what the port gathers, so
+    ``collective_volume``'s ``psum_hlo`` and ``permute_hlo`` are not these
+    terms (``analysis.audit``)."""
+    gl = groups // data_shards
+    tele = shards * real_itemsize
+    if data_shards > 1:
+        tele += data_shards * (5 * gl + shards) * real_itemsize
+    return {"verdict_count": chunks,
+            "verdict_bytes": (3 * gl + chunks) * real_itemsize,
+            "telemetry_count": 1 + (data_shards > 1),
+            "telemetry_bytes": tele}
 
 
 def _recompute_uncorrectable(res: DistFFTResult, src: Source, s: int,
